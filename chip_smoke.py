@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""Smoke run of mcraw_torch on one CUDA card: build, check, decode, time.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Phases, each printing one JSON line; any
+failure exits non-zero and prints no result:
+
+1. device: torch and CUDA versions, the card's name and power limit.
+2. build: nvcc builds the kernels from ``mcraw_torch/csrc``.
+3. kernels: each CUDA kernel against its plain torch version on the card,
+   element-exact (unpack at three geometries with bits 0..65535 and
+   wrapping refs; checksum at odd shapes, 4K uint16, (6144, 4096) uint32).
+4. main path: a 4096x3072 clip (three 12-bit frames, a worst-case frame,
+   an all-16-bit frame, audio) written with mcraw.encode, decoded by
+   ``mcraw_torch.Decoder(path, device="cuda").load_frame_device``; every
+   frame equals its source image and its device checksum the host's. The
+   launch counters must show one unpack and one checksum launch per frame
+   and no plain-version call.
+5. CLI: ``python -m mcraw_torch clip -n 5`` against
+   ``python -m mcraw clip -n 5 --backend numpy``: identical stdout,
+   byte-identical audio.wav and DNGs.
+6. times on the card (printed, not asserted): CUDA-event medians of each
+   kernel and its plain version at the 4K 12-bit frame, and the
+   ``load_frame_device`` split into host scans, H2D, device prep, kernel.
+
+The line before last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``. Needs one card, no network and no JAX.
+"""
+
+from __future__ import annotations
+
+import filecmp
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+H, W = 3072, 4096
+N_TIMED = 20
+L2_FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+if not (ROOT / "mcraw_torch" / "csrc").is_dir() or not (ROOT / "mcraw").is_dir():
+    fail(f"run from a checkout of the repository ({ROOT} has no mcraw_torch/)")
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+if not torch.cuda.is_available():
+    fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+
+from mcraw import encode as E  # noqa: E402  (NumPy-only fixture writer)
+from mcraw.kernels import tables as T  # noqa: E402
+from mcraw.metadata import (  # noqa: E402
+    example_container_metadata,
+    example_frame_metadata,
+)
+
+import mcraw_torch  # noqa: E402
+from mcraw_torch.kernels import build  # noqa: E402
+from mcraw_torch.kernels import checksum as C  # noqa: E402
+from mcraw_torch.kernels import unpack as U  # noqa: E402
+from mcraw_torch.kernels.tables import modern_tables  # noqa: E402
+
+DEV = torch.device("cuda", 0)
+
+
+def host_checksum(a: np.ndarray) -> int:
+    return int(a.astype(np.int64).sum() & 0xFFFFFFFF)
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+# -- phase 1 -------------------------------------------------------------------
+
+
+def phase_device() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0].strip()
+    print(card, flush=True)
+    emit(
+        "device", torch=torch.__version__, cuda=torch.version.cuda,
+        card=card, name=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(),
+    )
+    return card
+
+
+# -- phase 2 -------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    build.lib()
+    secs = time.perf_counter() - t0
+    log = build.library_path().with_suffix(".log")
+    ptxas = [
+        ln.strip() for ln in (log.read_text().splitlines() if log.exists() else [])
+        if "registers" in ln or "Compiling entry" in ln
+    ]
+    emit("build", seconds=secs, library=str(build.library_path().relative_to(ROOT)),
+         ptxas=ptxas)
+
+
+# -- phase 3 -------------------------------------------------------------------
+
+
+def random_unpack_inputs(rng, ty: int, tx: int):
+    """Random payload words, bits 0..65535 (clamped by the decoder) and refs
+    0..65535 (uint16 wrap), with offsets from the device prep."""
+    nblk = 4 * ty * tx
+    bits = rng.integers(0, 1 << 16, size=nblk, dtype=np.uint16)
+    refs = rng.integers(0, 1 << 16, size=nblk, dtype=np.uint16)
+    lengths = T.MODERN_BLOCK_LENGTH.take(bits, mode="clip")
+    size = 16 + int(lengths.sum()) + U.TAIL_BYTES
+    size += (-size) % 16
+    words = rng.integers(-(1 << 31), 1 << 31, size=size // 4, dtype=np.int64)
+    words = words.astype(np.int32)
+    w, b, r = (torch.from_numpy(a).to(DEV) for a in (words, bits, refs))
+    return w, b, r, U.block_offsets(b, modern_tables(DEV))
+
+
+def phase_kernels(rng) -> dict:
+    errs = {"unpack": 0, "checksum": 0}
+    # (ty, tx, height, width): exact, cropped + ragged, short rows, 4K.
+    for ty, tx, h, w in ((3, 2, 12, 128), (25, 7, 99, 420), (3, 2, 20, 100),
+                         (768, 64, H, W)):
+        words, bits, refs, offs = random_unpack_inputs(rng, ty, tx)
+        kw = dict(ty=ty, tx=tx, height=h, width=w)
+        got = U.decode_modern_device(words, bits, refs, offs, **kw)
+        want = U.decode_modern_plain(words, bits, refs, offs, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs["unpack"] = max(errs["unpack"], err)
+        check(got.shape == (h, w) and err == 0,
+              f"unpack kernel != plain at ty={ty} tx={tx} ({h}x{w}): err {err}")
+        emit("kernels", kernel="unpack_modern", ty=ty, tx=tx, height=h,
+             width=w, max_abs_err=err)
+    cases = [
+        ("u16", (1, 1), np.uint16, 0, 1 << 16),
+        ("u16", (7, 13), np.uint16, 0, 1 << 16),
+        ("u16", (H, W), np.uint16, 0, 1 << 16),
+        ("u32", (2 * H, W), np.uint32, 0, 1 << 32),
+        ("u32", (1000, 1000), np.uint32, (1 << 32) - 4096, 1 << 32),
+    ]
+    for tag, shape, dtype, lo, hi in cases:
+        a = rng.integers(lo, hi, size=shape, dtype=np.uint64).astype(dtype)
+        x = torch.from_numpy(a).to(DEV)
+        got = int(C.device_checksum(x).item())
+        want = int(C.checksum_plain(x).item())
+        ref = host_checksum(a)
+        err = abs(got - want)
+        errs["checksum"] = max(errs["checksum"], err, abs(got - ref))
+        check(got == want == ref,
+              f"checksum {tag}{shape}: kernel {got} plain {want} host {ref}")
+        emit("kernels", kernel="checksum", dtype=tag, shape=list(shape),
+             max_abs_err=err)
+    return errs
+
+
+# -- phase 4 -------------------------------------------------------------------
+
+
+def make_clip(path: Path):
+    """Three 12-bit frames (the bench's recipe), a worst-case frame
+    (full-range noise + one 5-bit tile) and an all-16-bit frame."""
+    rng = np.random.default_rng(11)
+    imgs = []
+    for k in range(3):
+        base = (
+            np.sin(np.arange(W) / (97 + k))[None, :]
+            * np.cos(np.arange(H) / (61 + k))[:, None] * 1200 + 2000
+        )
+        imgs.append(
+            (base + rng.normal(0, 30, size=(H, W))).clip(0, 4095).astype(np.uint16)
+        )
+    worst = rng.integers(0, 1 << 16, size=(H, W), dtype=np.uint16)
+    worst[0:4, 0:64] = rng.integers(0, 32, size=(4, 64), dtype=np.uint16)
+    imgs.append(worst)
+    imgs.append(rng.integers(0, 1 << 16, size=(H, W), dtype=np.uint16))
+
+    writer = E.ContainerWriter(example_container_metadata())
+    payloads = []
+    for i, img in enumerate(imgs):
+        payload = E.encode_modern(img)
+        payloads.append(np.frombuffer(payload, dtype=np.uint8))
+        writer.add_frame(1000 + 33 * i, payload, example_frame_metadata(W, H, 7))
+        writer.add_audio(
+            rng.integers(-3000, 3000, size=2048).astype(np.int16), i * 10**6
+        )
+    path.write_bytes(writer.finish())
+    return imgs, payloads
+
+
+def reset_counters() -> None:
+    U.KERNEL_LAUNCHES = U.PLAIN_CALLS = 0
+    C.KERNEL_LAUNCHES = C.PLAIN_CALLS = 0
+
+
+def phase_main_path(clip: Path, imgs) -> dict:
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        check(len(d.frames) == len(imgs), f"{len(d.frames)} frames in the clip")
+        reset_counters()
+        t0 = time.perf_counter()
+        outs = []
+        for ts in d.frames:
+            img, meta = d.load_frame_device(ts)
+            outs.append((img, C.device_checksum(img), meta))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"unpack_modern": U.KERNEL_LAUNCHES, "checksum": C.KERNEL_LAUNCHES}
+        plain = {"unpack_modern": U.PLAIN_CALLS, "checksum": C.PLAIN_CALLS}
+    n = len(imgs)
+    for i, ((img, cs, meta), src) in enumerate(zip(outs, imgs)):
+        check(img.device.type == "cuda" and img.dtype == torch.uint16
+              and tuple(img.shape) == (H, W), f"frame {i}: {img.dtype} {img.shape}")
+        check(np.array_equal(img.cpu().numpy(), src), f"frame {i} != source image")
+        check(int(cs.item()) == host_checksum(src), f"frame {i}: checksum mismatch")
+    check(launches == {"unpack_modern": n, "checksum": n},
+          f"launch counts {launches}, expected {n} each")
+    check(plain == {"unpack_modern": 0, "checksum": 0}, f"plain calls {plain}")
+    emit("main_path", frames=n, height=H, width=W, seconds=secs,
+         launches=launches, plain_calls=plain, exact=True)
+    return launches
+
+
+# -- phase 5 -------------------------------------------------------------------
+
+
+def phase_cli(clip: Path, work: Path) -> None:
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    runs = {}
+    for name, cmd in (
+        ("mcraw_torch", [sys.executable, "-m", "mcraw_torch", str(clip), "-n", "5"]),
+        ("mcraw", [sys.executable, "-m", "mcraw", str(clip), "-n", "5",
+                   "--backend", "numpy"]),
+    ):
+        cwd = work / name
+        cwd.mkdir()
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                             text=True, timeout=600)
+        runs[name] = (cwd, res, time.perf_counter() - t0)
+        check(res.returncode == 0,
+              f"{' '.join(cmd[1:3])} exited {res.returncode}: {res.stderr[-2000:]}")
+    (a, ra, ta), (b, rb, tb) = runs["mcraw_torch"], runs["mcraw"]
+    check(ra.stdout == rb.stdout, f"stdout differs:\n{ra.stdout}\n--\n{rb.stdout}")
+    names = sorted(p.name for p in a.iterdir())
+    check(names == sorted(p.name for p in b.iterdir()), "output file sets differ")
+    check("audio.wav" in names and sum(n.endswith(".dng") for n in names) == 5,
+          f"outputs: {names}")
+    for n in names:
+        check(filecmp.cmp(a / n, b / n, shallow=False), f"{n} differs")
+    emit("cli", files=names, identical=True, mcraw_torch_s=ta, mcraw_numpy_s=tb)
+
+
+# -- phase 6 -------------------------------------------------------------------
+
+
+def time_cuda(fn, n: int = N_TIMED) -> float:
+    """Median ms of `fn` over n runs by CUDA events, L2 flushed before each."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    fn()
+    times = []
+    for _ in range(n):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_times(payload: np.ndarray, card: str) -> dict:
+    frame = U.prepare_modern(payload, W, H)
+    dev = U.upload(frame, DEV)
+    offs = U.block_offsets(dev.bits, modern_tables(DEV))
+    kw = dict(ty=dev.tiles_y, tx=dev.tiles_x, height=H, width=W)
+    args = (dev.words, dev.bits, dev.refs, offs)
+    img = U.decode_modern_device(*args, **kw)
+    t = {
+        "unpack_ms": time_cuda(lambda: U.decode_modern_device(*args, **kw)),
+        "unpack_plain_ms": time_cuda(lambda: U.decode_modern_plain(*args, **kw)),
+        "checksum_ms": time_cuda(lambda: C.device_checksum(img)),
+        "checksum_plain_ms": time_cuda(lambda: C.checksum_plain(img)),
+    }
+    emit("times_kernels", card=card, frame=f"{W}x{H} 12-bit", n=N_TIMED,
+         payload_bytes=len(payload), **t)
+
+    split = {"host_scans_ms": [], "h2d_ms": [], "device_prep_ms": [],
+             "kernel_ms": [], "load_frame_device_ms": []}
+    clock = time.perf_counter
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = clock()
+        fr = U.prepare_modern(payload, W, H)
+        t1 = clock()
+        dv = U.upload(fr, DEV)
+        torch.cuda.synchronize()
+        t2 = clock()
+        of = U.block_offsets(dv.bits, modern_tables(DEV))
+        torch.cuda.synchronize()
+        t3 = clock()
+        U.decode_modern_device(dv.words, dv.bits, dv.refs, of, **kw)
+        torch.cuda.synchronize()
+        t4 = clock()
+        mcraw_torch.pipeline.decode_modern_frame(payload, W, H, DEV)
+        torch.cuda.synchronize()
+        t5 = clock()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            split[key].append(dt * 1e3)
+    med = {k: statistics.median(v) for k, v in split.items()}
+    emit("times_load_frame_device", card=card, n=10, clock="host, synchronized",
+         **med)
+    return t
+
+
+def main() -> None:
+    card = phase_device()
+    phase_build()
+    rng = np.random.default_rng(2024)
+    errs = phase_kernels(rng)
+    work = Path(tempfile.mkdtemp(prefix="mcraw_torch_smoke_"))
+    try:
+        clip = work / "clip.mcraw"
+        imgs, payloads = make_clip(clip)
+        emit("clip", frames=len(imgs), bytes=clip.stat().st_size,
+             payload_bytes=[len(p) for p in payloads])
+        launches = phase_main_path(clip, imgs)
+        phase_cli(clip, work)
+        t = phase_times(payloads[0], card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check("jax" not in sys.modules, "jax was imported")
+    kernels = [
+        {"name": "unpack_modern", "route": "cuda",
+         "source": "mcraw_torch/csrc/unpack_modern.cu",
+         "replaces": "mcraw/kernels/pallas_unpack.py:491",
+         "launches": launches["unpack_modern"], "max_abs_err": errs["unpack"],
+         "ms": t["unpack_ms"], "plain_ms": t["unpack_plain_ms"]},
+        {"name": "checksum", "route": "cuda",
+         "source": "mcraw_torch/csrc/checksum.cu",
+         "replaces": "mcraw/kernels/checksum.py:27",
+         "launches": launches["checksum"], "max_abs_err": errs["checksum"],
+         "ms": t["checksum_ms"], "plain_ms": t["checksum_plain_ms"]},
+    ]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

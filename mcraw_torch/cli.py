@@ -1,0 +1,113 @@
+"""Command-line interface: the decode path of ``python -m mcraw``.
+
+``python -m mcraw_torch <file> [-n N]`` prints the frame count, writes
+``audio.wav``, then ``frame_%06d.dng`` for the first N frames: stdout and
+files byte-identical to ``python -m mcraw <file> [-n N]`` (and so to the
+C++ reference example). Extras: ``--output-dir``, ``--resume`` (skip DNGs
+that exist) and ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
+plain torch versions). The JAX package's other subcommands are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import sys
+
+from mcraw.emit.dng import write_dng
+from mcraw.emit.wav import write_wav
+from mcraw.errors import MotionCamException
+from mcraw.util import outpath as _outpath
+
+from .pipeline import Decoder
+
+USAGE = "Usage: decoder <input file> [-n number of frames to export]"
+NOT_PORTED = ("info", "encode", "preview", "verify")
+
+
+def _decode_body(args: argparse.Namespace) -> int:
+    try:
+        d = Decoder(args.input, device=args.device)
+        frames = d.frames
+        container_metadata = d.container_metadata
+
+        print(f"Found {len(frames)} frames")
+
+        end_frame = args.num_frames
+        if end_frame is None or end_frame < 0:
+            end_frame = len(frames)
+        end_frame = min(len(frames), max(0, end_frame))
+
+        outdir = args.output_dir
+        os.makedirs(outdir, exist_ok=True)
+
+        write_wav(
+            _outpath(outdir, "audio.wav"),
+            d.audio_sample_rate_hz(),
+            d.num_audio_channels(),
+            d.load_audio(),
+        )
+
+        for i in range(end_frame):
+            path = _outpath(outdir, f"frame_{i:06d}.dng")
+            if args.resume and os.path.exists(path):
+                continue
+            img, metadata = d.load_frame(frames[i])
+            print(f"Writing {path}")
+            write_dng(path, img, metadata, container_metadata)
+    except MotionCamException as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return -1
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print(USAGE)
+        return -1
+    if argv[0] in NOT_PORTED:
+        print(f"Error: '{argv[0]}' is not yet ported to mcraw_torch; use "
+              f"python -m mcraw {argv[0]}", file=sys.stderr)
+        return 2
+
+    # Reference argv edges (mcraw.cli.main): for `<file> ...` a dangling
+    # `-n` is ignored, the -n value is prefix-parsed like std::stoi ("2x" ->
+    # 2), and unrecognized extra arguments are ignored.
+    ref_compat = not argv[0].startswith("-")
+    if ref_compat:
+        if len(argv) == 2 and argv[1] == "-n":
+            argv = argv[:1]
+        elif len(argv) >= 3 and argv[1] == "-n":
+            m = re.match(r"[+-]?\d+", argv[2].strip())
+            if m:
+                argv[2] = m.group(0)
+
+    ap = argparse.ArgumentParser(prog="mcraw_torch")
+    ap.add_argument("input")
+    ap.add_argument("-n", dest="num_frames", type=int, default=None,
+                    help="number of frames to export")
+    ap.add_argument("--output-dir", default=".")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    ap.add_argument("--resume", action="store_true",
+                    help="skip frames whose DNG already exists")
+    if ref_compat:
+        args, _extras = ap.parse_known_args(argv)
+    else:
+        args = ap.parse_args(argv)
+    try:
+        return _decode_body(args)
+    except BrokenPipeError:
+        # stdout consumer (e.g. `| head`) closed early: exit quietly.
+        try:
+            sys.stdout.close()
+        except OSError:
+            pass
+        return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,115 @@
+"""Build the CUDA kernels into one shared library and bind it with ctypes.
+
+The sources are ``mcraw_torch/csrc/*.cu``, each with a plain C entry point.
+``nvcc`` compiles them for Hopper (``sm_90a``) into
+``mcraw_torch/build/libmcraw_torch_<digest>.so`` at first use; the digest
+is the sha256 of the sources and the flags, so an edited source rebuilds
+and an unchanged one loads the library already there. Nothing is
+downloaded. A failed build raises: there is no fallback library.
+
+Every pointer and the stream are ``c_void_p`` and every size ``c_int64``;
+each entry returns ``cudaGetLastError()`` after its launch, and
+:func:`check` raises when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH); the "
+            "mcraw_torch CUDA kernels cannot be built"
+        )
+    return found
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libmcraw_torch_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the stamped library exists; its path.
+
+    The compiler's output (``-Xptxas -v``: registers and shared memory per
+    kernel) is kept beside the library as ``<name>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    log = out.with_suffix(".log")
+    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {res.returncode}):\n{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            cdll = ctypes.CDLL(str(build()))
+            p, i64 = ctypes.c_void_p, ctypes.c_int64
+            cdll.mcraw_unpack_modern.restype = ctypes.c_int
+            cdll.mcraw_unpack_modern.argtypes = [
+                p, i64, p, p, p, p, p, p, i64, i64, i64, p,
+            ]
+            cdll.mcraw_checksum.restype = ctypes.c_int
+            cdll.mcraw_checksum.argtypes = [p, i64, ctypes.c_int32, p, p]
+            cdll.mcraw_cuda_error_string.restype = ctypes.c_char_p
+            cdll.mcraw_cuda_error_string.argtypes = [ctypes.c_int]
+            _lib = cdll
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a C entry reports a CUDA error."""
+    if err != 0:
+        text = lib().mcraw_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {text}")

@@ -1,0 +1,227 @@
+"""Modern-codec (compressionType 7) decode: host prep, device prep, unpack.
+
+The frame's path, as in the JAX package's single-frame device path
+(``pallas_unpack.prepare_modern_light`` + ``decode_modern_device_v6``):
+
+1. :func:`prepare_modern` (host): read and validate the 16-byte header,
+   run the two serial metadata-stream scans (native C++ via
+   :mod:`mcraw.kernels.native`), and build the upload buffer.
+2. :func:`upload` (H2D) and :func:`block_offsets` (device): clamp each
+   block's bit width to 16, map it to a byte length, and take
+   ``16 + exclusive prefix sum`` as an int64 ``torch.cumsum``.
+3. :func:`decode_modern_device`: the hand-written CUDA kernel
+   (``csrc/unpack_modern.cu``) unpacks every block, adds its reference and
+   writes Bayer-de-interleaved rows of the (height, width) uint16 plane.
+
+:func:`decode_modern_plain` is the same function in plain torch. The wrapper
+takes it only for tensors on the CPU; a CUDA tensor goes to the kernel or
+the call raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mcraw.errors import DecodeError
+from mcraw.kernels import numpy_ref as R
+from mcraw.kernels import tables as T
+from mcraw.kernels.native import decode_metadata_stream
+
+from . import build
+from .tables import ModernTables, modern_tables
+
+# Zeroed bytes after the payload: one maximal block, so no word load of the
+# last block can leave the allocation, and the buffer reads as int32 words.
+TAIL_BYTES = T.MODERN_MAX_LENGTH
+
+# Launch counters: the kernel's launches and the plain version's calls.
+KERNEL_LAUNCHES = 0
+PLAIN_CALLS = 0
+
+
+class ModernFrame(NamedTuple):
+    """Host-side result of :func:`prepare_modern` for one frame."""
+
+    words: np.ndarray  # (P,) int32: payload + zeroed tail, little-endian
+    bits: np.ndarray  # (nblk,) uint16 raw bits stream (clamped on device)
+    refs: np.ndarray  # (nblk,) uint16 block references
+    tiles_y: int
+    tiles_x: int
+
+
+def prepare_modern(payload: np.ndarray, width: int, height: int) -> ModernFrame:
+    """Header checks + the two serial metadata scans (host side).
+
+    Raises :class:`DecodeError` with the texts of the JAX package's
+    ``prepare_modern_light``."""
+    payload = np.asarray(payload, dtype=np.uint8)
+    n = len(payload)
+    enc_w, enc_h, bits_off, refs_off = R.read_metadata_header(payload)
+    if bits_off > n or refs_off > n:
+        raise DecodeError("metadata offsets out of bounds")
+    if enc_w % T.MODERN_BLOCK != 0:
+        raise DecodeError("encoded width not a multiple of 64")
+    if enc_w < width:
+        raise DecodeError("encoded width smaller than width")
+
+    bits, _ = decode_metadata_stream(payload, bits_off)
+    refs, _ = decode_metadata_stream(payload, refs_off)
+    ty, tx, nblk = R.modern_block_geometry(enc_w, enc_h)
+    if len(bits) < nblk or len(refs) < nblk:
+        raise DecodeError("metadata streams shorter than block count")
+    bits, refs = bits[:nblk], refs[:nblk]
+    # mode="clip" is the codec's bits <= 16 clamp.
+    total = int(T.MODERN_BLOCK_LENGTH.take(bits, mode="clip").sum(dtype=np.int64))
+    if 16 + total > n:
+        raise DecodeError("main data truncated")
+
+    size = n + TAIL_BYTES
+    size += (-size) % 16
+    buf = np.zeros(size, dtype=np.uint8)
+    buf[:n] = payload
+    return ModernFrame(buf.view("<i4"), bits, refs, ty, tx)
+
+
+class DeviceFrame(NamedTuple):
+    """A frame's inputs on the device, ready for the unpack."""
+
+    words: torch.Tensor  # (P,) int32
+    bits: torch.Tensor  # (nblk,) uint16
+    refs: torch.Tensor  # (nblk,) uint16
+    tiles_y: int
+    tiles_x: int
+
+
+def upload(frame: ModernFrame, device: torch.device) -> DeviceFrame:
+    """Copy a prepared frame's buffers to `device`."""
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(device)
+
+    return DeviceFrame(
+        put(frame.words), put(frame.bits), put(frame.refs),
+        frame.tiles_y, frame.tiles_x,
+    )
+
+
+def block_offsets(bits: torch.Tensor, tables: ModernTables) -> torch.Tensor:
+    """(nblk,) int64 payload byte offset of every main-data block:
+    16 + the exclusive prefix sum of the clamped bits' block lengths."""
+    lengths = tables.block_length[bits.to(torch.int64).clamp_(max=16)]
+    return R.METADATA_OFFSET + torch.cumsum(lengths, 0) - lengths
+
+
+def _check_inputs(words, bits, refs, offsets, ty: int, tx: int) -> None:
+    nblk = 4 * ty * tx
+    for name, t, dtype in (
+        ("words", words, torch.int32),
+        ("bits", bits, torch.uint16),
+        ("refs", refs, torch.uint16),
+        ("offsets", offsets, torch.int64),
+    ):
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous 1-D {dtype} tensor, got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+        if t.device != words.device:
+            raise ValueError(f"{name} is on {t.device}, words on {words.device}")
+    for name, t in (("bits", bits), ("refs", refs), ("offsets", offsets)):
+        if t.numel() != nblk:
+            raise ValueError(f"{name} has {t.numel()} entries, need {nblk}")
+
+
+def _output(height: int, width: int, ty: int, device) -> torch.Tensor:
+    # Rows past 4*ty (a short encodedHeight) are never written: zero them.
+    alloc = torch.zeros if height > 4 * ty else torch.empty
+    return alloc((height, width), dtype=torch.uint16, device=device)
+
+
+def decode_modern_plain(
+    words: torch.Tensor,
+    bits: torch.Tensor,
+    refs: torch.Tensor,
+    offsets: torch.Tensor,
+    *,
+    ty: int,
+    tx: int,
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """Plain torch version of the unpack kernel (any device).
+
+    The semantics of ``numpy_ref.unpack_blocks`` + ``modern_deinterleave``
+    and the crop: (height, width) uint16, rows past 4*ty zero. Computes in
+    int64, since CPU uint16 tensors support neither ``>>`` nor ``+``, and
+    casts at the end (int -> uint16 wraps mod 2^16)."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    _check_inputs(words, bits, refs, offsets, ty, tx)
+    tab = modern_tables(words.device)
+    out = _output(height, width, ty, words.device)
+    rows = min(height, 4 * ty)
+    if rows == 0 or width == 0:
+        return out
+    cls = tab.class_index[bits.to(torch.int64).clamp_(max=16)]  # (nblk,)
+    wi = (offsets >> 2)[:, None, None] + tab.widx[cls]  # (nblk, 64, 3)
+    inside = (wi >= 0) & (wi < words.numel())
+    w = words.to(torch.int64)[wi.clamp(0, max(words.numel() - 1, 0))]
+    w = torch.where(inside, w & 0xFFFFFFFF, 0)
+    nb = tab.nbits[cls]
+    f = ((w >> tab.rsh[cls]) & ((1 << nb) - 1)) << tab.lsh[cls]
+    v = f[..., 0] | f[..., 1] | f[..., 2]  # disjoint fields
+    v = (v + refs.to(torch.int64)[:, None]) & 0xFFFF  # (nblk, 64)
+    img = v.reshape(ty, tx, 2, 2, 2, 32).permute(0, 4, 2, 1, 5, 3)
+    img = img.reshape(4 * ty, 64 * tx)  # (ty, h, q, tx, k, c)
+    out[:rows] = img[:rows, :width].to(torch.uint16)
+    return out
+
+
+def decode_modern_device(
+    words: torch.Tensor,
+    bits: torch.Tensor,
+    refs: torch.Tensor,
+    offsets: torch.Tensor,
+    *,
+    ty: int,
+    tx: int,
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """Unpack + de-interleave + crop one frame: (height, width) uint16.
+
+    words: (P,) int32 payload words (payload + zeroed tail);
+    bits, refs: (4*ty*tx,) uint16 raw metadata streams;
+    offsets: (4*ty*tx,) int64 from :func:`block_offsets`.
+    CUDA tensors launch the kernel on the current stream; CPU tensors take
+    :func:`decode_modern_plain`; any other device raises."""
+    global KERNEL_LAUNCHES
+    if words.device.type == "cpu":
+        return decode_modern_plain(
+            words, bits, refs, offsets, ty=ty, tx=tx, height=height, width=width
+        )
+    if words.device.type != "cuda":
+        raise ValueError(f"no unpack kernel for device {words.device}")
+    _check_inputs(words, bits, refs, offsets, ty, tx)
+    if width > 64 * tx:
+        raise ValueError(f"width {width} exceeds the encoded width {64 * tx}")
+    tab = modern_tables(words.device)
+    out = _output(height, width, ty, words.device)
+    rows = min(height, 4 * ty)
+    if rows == 0 or width == 0:
+        return out
+    lib = build.lib()
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mcraw_unpack_modern(
+            words.data_ptr(), words.numel(),
+            bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
+            tab.packed.data_ptr(), tab.class_index.data_ptr(),
+            out.data_ptr(), tx, rows, width, stream,
+        )
+    build.check(err, "mcraw_unpack_modern")
+    KERNEL_LAUNCHES += 1
+    return out

@@ -1,0 +1,165 @@
+"""Decoder facade on PyTorch: the single-frame surface of mcraw.Decoder.
+
+    d = Decoder(path, device="cuda")
+    d.frames                       # sorted timestamps
+    d.container_metadata           # parsed container JSON
+    img, meta = d.load_frame(ts)   # (H, W) uint16 numpy + frame JSON
+    img, meta = d.load_frame_device(ts)  # (H, W) torch.uint16 on the device
+    d.load_audio() / d.audio_chunks()
+
+Modern-codec (compressionType 7) frames decode through
+:mod:`mcraw_torch.kernels.unpack`: host scans, upload, device prep, and the
+CUDA unpack kernel. ``device="cpu"`` runs the kernel's plain torch version.
+The container, metadata and error model are the JAX package's NumPy-only
+modules, reused as they are.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from mcraw.container import COMPRESSION_TYPE, COMPRESSION_TYPE_LEGACY, ContainerReader
+from mcraw.errors import DecodeError, IOException, MotionCamException
+from mcraw.metadata import ContainerMetadata, FrameMetadata
+from mcraw.pipeline import _modern_payload_rows, _uncompress_error_text
+
+from .kernels import unpack as U
+from .kernels.tables import modern_tables
+
+AudioChunk = tuple[int, np.ndarray]  # (timestampNs or -1, interleaved int16)
+
+
+class NotYetPortedError(MotionCamException, NotImplementedError):
+    """A feature of the JAX package that mcraw_torch does not have yet."""
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """`device` as a torch.device; a CUDA device must exist (no fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise MotionCamException(
+                f"device {str(dev)!r} requested but no CUDA device is "
+                "available (torch.cuda.is_available() is false)"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    return dev
+
+
+def decode_modern_frame(
+    payload: np.ndarray, width: int, height: int, device: torch.device
+) -> torch.Tensor:
+    """One modern payload -> (height, width) uint16 on `device`."""
+    frame = U.prepare_modern(payload, width, height)
+    dev = U.upload(frame, device)
+    offsets = U.block_offsets(dev.bits, modern_tables(device))
+    return U.decode_modern_device(
+        dev.words, dev.bits, dev.refs, offsets,
+        ty=dev.tiles_y, tx=dev.tiles_x, height=height, width=width,
+    )
+
+
+class Decoder:
+    def __init__(self, source, device: torch.device | str = "cuda"):
+        """source: path, raw bytes, or open binary file object.
+        device: "cuda" (the default; raises without a card) or "cpu"."""
+        self._device = resolve_device(device)
+        self._reader = ContainerReader(source)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    # -- container surface ---------------------------------------------------
+
+    @property
+    def frames(self) -> list[int]:
+        return self._reader.frames
+
+    def get_frames(self) -> list[int]:
+        return self._reader.frames
+
+    @property
+    def container_metadata(self) -> dict:
+        return self._reader.container_metadata
+
+    @property
+    def typed_metadata(self) -> ContainerMetadata:
+        return ContainerMetadata(self._reader.container_metadata)
+
+    def audio_sample_rate_hz(self) -> int:
+        return self.typed_metadata.audio_sample_rate
+
+    def num_audio_channels(self) -> int:
+        return self.typed_metadata.audio_channels
+
+    def close(self) -> None:
+        self._reader.close()
+
+    def __enter__(self) -> "Decoder":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- frame decode ----------------------------------------------------------
+
+    def load_frame(self, timestamp: int) -> tuple[np.ndarray, dict]:
+        """Decode one frame to host memory: ((H, W) uint16, frame JSON)."""
+        img, meta = self.load_frame_device(timestamp)
+        return img.cpu().numpy(), meta
+
+    def load_frame_device(self, timestamp: int) -> tuple[torch.Tensor, dict]:
+        """Decode one frame; the (H, W) torch.uint16 result stays on the
+        decoder's device."""
+        payload, meta = self._reader.frame_payload(timestamp)
+        fm = FrameMetadata(meta)
+        ct = fm.compression_type
+        if ct == COMPRESSION_TYPE_LEGACY:
+            raise NotYetPortedError(
+                "legacy codec (compressionType 6) not yet ported to "
+                "mcraw_torch; decode it with mcraw"
+            )
+        if ct != COMPRESSION_TYPE:
+            raise IOException("Invalid compression type")
+        self._reference_return_check(payload, fm)
+        with _uncompress_error_text(True):
+            img = decode_modern_frame(payload, fm.width, fm.height, self._device)
+        return img, meta
+
+    @staticmethod
+    def _reference_return_check(payload, fm: FrameMetadata) -> None:
+        """The reference's outcomes for degenerate modern geometries
+        (mcraw.pipeline.Decoder._reference_return_check): zero encoded rows,
+        zero width or zero height fail as "Failed to uncompress frame".
+        A short encodedHeight (0 < rows < height) is not degenerate here:
+        the kernel writes the rows that exist into a zeroed output."""
+        if fm.width < 0 or fm.height < 0 or fm.width * fm.height > (1 << 31):
+            raise DecodeError(f"invalid frame geometry {fm.width}x{fm.height}")
+        if _modern_payload_rows(payload) == 0 or fm.width == 0 or fm.height == 0:
+            raise IOException("Failed to uncompress frame")
+
+    # -- audio -----------------------------------------------------------------
+
+    def load_audio(self) -> list[AudioChunk]:
+        """Batch load; skips chunks with invalid offsets."""
+        out = []
+        for i in range(self._reader.num_audio_chunks):
+            chunk = self._reader.audio_chunk(i)
+            if chunk is not None:
+                out.append(chunk)
+        return out
+
+    def audio_chunks(self) -> Iterator[AudioChunk]:
+        """Streaming loader; stops at the first failed chunk."""
+        for i in range(self._reader.num_audio_chunks):
+            chunk = self._reader.audio_chunk(i)
+            if chunk is None:
+                return
+            yield chunk

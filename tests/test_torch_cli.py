@@ -1,0 +1,142 @@
+"""python -m mcraw_torch against python -m mcraw --backend numpy: identical
+stdout, byte-identical audio.wav and DNGs, the reference's argv edges, and
+no JAX in a process that only uses mcraw_torch."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from mcraw import cli as ref_cli
+from mcraw import encode as E
+from mcraw.metadata import example_container_metadata, example_frame_metadata
+from mcraw.pipeline import Decoder as JaxDecoder
+from mcraw_torch import cli
+from mcraw_torch.pipeline import Decoder
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def clip(tmp_path_factory):
+    rng = np.random.default_rng(17)
+    writer = E.ContainerWriter(example_container_metadata())
+    for i in range(3):
+        img = rng.integers(0, 4096, size=(16, 192), dtype=np.uint16)
+        writer.add_frame(1000 + i, E.encode_modern(img),
+                         example_frame_metadata(192, 16, 7))
+        writer.add_audio(rng.integers(-3000, 3000, size=256).astype(np.int16),
+                         i * 10**6)
+    p = tmp_path_factory.mktemp("cli") / "clip.mcraw"
+    p.write_bytes(writer.finish())
+    return p
+
+
+def _run(args, cwd):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def _assert_same_outputs(a: Path, b: Path, n_frames: int):
+    names = sorted(p.name for p in a.iterdir())
+    assert names == sorted(p.name for p in b.iterdir())
+    assert "audio.wav" in names
+    assert sum(n.endswith(".dng") for n in names) == n_frames
+    for n in names:
+        assert (a / n).read_bytes() == (b / n).read_bytes(), n
+
+
+@pytest.mark.parametrize("n_arg, n_frames", [("2", 2), ("2x", 2)])
+def test_cli_byte_parity_subprocess(clip, tmp_path, n_arg, n_frames):
+    mine, ref = tmp_path / "mine", tmp_path / "ref"
+    mine.mkdir()
+    ref.mkdir()
+    got = _run(["-m", "mcraw_torch", str(clip), "-n", n_arg, "--device", "cpu"],
+               mine)
+    want = _run(["-m", "mcraw", str(clip), "-n", n_arg, "--backend", "numpy"],
+                ref)
+    assert got.returncode == want.returncode == 0, got.stderr + want.stderr
+    assert got.stdout == want.stdout
+    assert got.stdout.startswith("Found 3 frames\n")
+    _assert_same_outputs(mine, ref, n_frames)
+
+
+@pytest.mark.parametrize(
+    "argv, n_frames",
+    [
+        (["-n"], 3),  # dangling -n is ignored (argc > 3 guard)
+        (["-n", "1", "--bogus", "x"], 1),  # unknown extras are ignored
+        ([], 3),
+        (["-n", "-4"], 3),  # negative: every frame
+        (["-n", "0"], 0),
+    ],
+)
+def test_cli_argv_edges(clip, tmp_path, monkeypatch, capsys, argv, n_frames):
+    """The reference's argv rules, in-process on both sides (the decoder
+    pinned to the CPU / NumPy, since a dangling -n leaves no room for a
+    device flag)."""
+    monkeypatch.setattr(cli, "Decoder", lambda src, device: Decoder(src, "cpu"))
+    monkeypatch.setattr(ref_cli, "Decoder",
+                        lambda src, **kw: JaxDecoder(src, backend="numpy"))
+    outs = {}
+    for name, main in (("mine", cli.main), ("ref", ref_cli.main)):
+        d = tmp_path / name
+        d.mkdir()
+        monkeypatch.chdir(d)
+        rc = main([str(clip), *argv])
+        outs[name] = (rc, capsys.readouterr())
+    (rc_a, a), (rc_b, b) = outs["mine"], outs["ref"]
+    assert rc_a == rc_b == 0
+    assert a.out == b.out and a.err == b.err == ""
+    _assert_same_outputs(tmp_path / "mine", tmp_path / "ref", n_frames)
+
+
+def test_cli_no_args_usage(capsys):
+    assert cli.main([]) == ref_cli.main([]) == -1
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == out[1] == cli.USAGE
+
+
+def test_cli_missing_file_error_parity(tmp_path, capsys):
+    missing = str(tmp_path / "nope.mcraw")
+    rc_a = cli.main([missing, "--device", "cpu"])
+    a = capsys.readouterr()
+    rc_b = ref_cli.main([missing, "--backend", "numpy"])
+    b = capsys.readouterr()
+    assert rc_a == rc_b == -1
+    assert a.out == b.out == ""
+    assert a.err == b.err and a.err.startswith("Error: ")
+
+
+def test_cli_no_card_is_a_clean_error(clip, tmp_path, monkeypatch, capsys):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main([str(clip)]) == -1
+    err = capsys.readouterr().err
+    assert err.startswith("Error: ") and "no CUDA device" in err
+    assert not list(tmp_path.iterdir())
+
+
+def test_cli_unported_subcommand(capsys):
+    assert cli.main(["info", "clip.mcraw"]) == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_fresh_interpreter_never_imports_jax(clip, tmp_path):
+    code = (
+        "import sys, numpy as np, mcraw_torch\n"
+        f"d = mcraw_torch.Decoder({str(clip)!r}, device='cpu')\n"
+        "img, _ = d.load_frame(d.frames[0])\n"
+        "assert img.shape == (16, 192) and img.dtype == np.uint16\n"
+        "import mcraw_torch.cli, mcraw_torch.kernels.checksum\n"
+        "print('jax' in sys.modules)\n"
+    )
+    res = _run(["-c", code], tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "False"

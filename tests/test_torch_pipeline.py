@@ -1,0 +1,119 @@
+"""mcraw_torch.Decoder against mcraw.Decoder (NumPy backend, and the JAX
+backend with Pallas in interpret mode) on the same small synthetic clip."""
+
+import numpy as np
+import pytest
+import torch
+
+from mcraw import encode as E
+from mcraw.errors import DecodeError, IOException, MotionCamException
+from mcraw.metadata import example_container_metadata, example_frame_metadata
+from mcraw.pipeline import Decoder as JaxDecoder
+from mcraw_torch import Decoder, NotYetPortedError
+
+
+def make_clip(seed=0, num_frames=3, h=16, w=192, codec=7):
+    rng = np.random.default_rng(seed)
+    writer = E.ContainerWriter(example_container_metadata())
+    imgs = []
+    for i in range(num_frames):
+        img = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
+        imgs.append(img)
+        payload = E.encode_modern(img) if codec == 7 else E.encode_legacy(img)
+        writer.add_frame(100 + i, payload, example_frame_metadata(w, h, codec))
+        writer.add_audio(rng.integers(-100, 100, size=64).astype(np.int16), i * 1000)
+    return writer.finish(), imgs
+
+
+@pytest.fixture(scope="module")
+def clip():
+    return make_clip()
+
+
+@pytest.mark.parametrize(
+    "backend, kernel", [("numpy", "auto"), ("jax", "pallas")]
+)
+def test_decoder_matches_reference(clip, backend, kernel):
+    blob, imgs = clip
+    ref = JaxDecoder(blob, backend=backend, kernel=kernel)
+    with Decoder(blob, device="cpu") as d:
+        assert d.device == torch.device("cpu")
+        assert d.frames == d.get_frames() == ref.frames
+        assert d.container_metadata == ref.container_metadata
+        assert d.typed_metadata.audio_sample_rate == ref.typed_metadata.audio_sample_rate
+        assert d.audio_sample_rate_hz() == ref.audio_sample_rate_hz()
+        assert d.num_audio_channels() == ref.num_audio_channels()
+        for (ta, sa), (tb, sb) in zip(d.load_audio(), ref.load_audio(), strict=True):
+            assert ta == tb and np.array_equal(sa, sb)
+        for (ta, sa), (tb, sb) in zip(d.audio_chunks(), ref.audio_chunks(), strict=True):
+            assert ta == tb and np.array_equal(sa, sb)
+        for ts, img in zip(d.frames, imgs, strict=True):
+            got, meta = d.load_frame(ts)
+            want, ref_meta = ref.load_frame(ts)
+            assert got.dtype == np.uint16 and meta == ref_meta
+            assert np.array_equal(got, np.asarray(want))
+            assert np.array_equal(got, img)
+
+
+def test_load_frame_device_returns_tensor(clip):
+    blob, imgs = clip
+    d = Decoder(blob, device="cpu")
+    img, meta = d.load_frame_device(d.frames[0])
+    assert isinstance(img, torch.Tensor)
+    assert img.dtype == torch.uint16 and img.device.type == "cpu"
+    assert meta["width"] == 192
+    assert np.array_equal(img.numpy(), imgs[0])
+
+
+def _single_frame(payload, w=128, h=8, codec=7):
+    writer = E.ContainerWriter(example_container_metadata())
+    writer.add_frame(1, payload, example_frame_metadata(w, h, codec))
+    return writer.finish()
+
+
+def test_truncated_frame_raises_reference_text():
+    img = np.random.default_rng(1).integers(0, 4096, size=(8, 128), dtype=np.uint16)
+    blob = _single_frame(E.encode_modern(img)[:40])
+    with pytest.raises(IOException, match="^Failed to uncompress frame$") as got:
+        Decoder(blob, device="cpu").load_frame(1)
+    assert isinstance(got.value.__cause__, DecodeError)
+    with pytest.raises(IOException, match="^Failed to uncompress frame$"):
+        JaxDecoder(blob, backend="numpy").load_frame(1)
+
+
+@pytest.mark.parametrize("w, h", [(0, 8), (128, 0)])
+def test_degenerate_geometry_raises_reference_text(w, h):
+    img = np.random.default_rng(2).integers(0, 4096, size=(8, 128), dtype=np.uint16)
+    blob = _single_frame(E.encode_modern(img), w=w, h=h)
+    with pytest.raises(IOException, match="^Failed to uncompress frame$"):
+        Decoder(blob, device="cpu").load_frame(1)
+    with pytest.raises(IOException, match="^Failed to uncompress frame$"):
+        JaxDecoder(blob, backend="numpy").load_frame(1)
+
+
+def test_invalid_compression_type():
+    img = np.zeros((4, 64), np.uint16)
+    blob = _single_frame(E.encode_modern(img), w=64, h=4, codec=99)
+    with pytest.raises(IOException, match="Invalid compression type"):
+        Decoder(blob, device="cpu").load_frame(1)
+
+
+def test_legacy_clip_raises_not_ported():
+    blob, _ = make_clip(num_frames=1, codec=6)
+    d = Decoder(blob, device="cpu")
+    assert len(d.frames) == 1  # the container surface still works
+    with pytest.raises(NotYetPortedError, match="legacy codec .* not yet ported"):
+        d.load_frame(d.frames[0])
+    assert issubclass(NotYetPortedError, MotionCamException)
+
+
+def test_cuda_without_card_raises(clip, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MotionCamException, match="no CUDA device"):
+        Decoder(clip[0], device="cuda")
+
+
+def test_unknown_device_raises(clip):
+    with pytest.raises(ValueError, match="unsupported device"):
+        Decoder(clip[0], device="meta")
+
