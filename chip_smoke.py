@@ -9,20 +9,29 @@ failure exits non-zero and prints no result:
 1. device: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds the kernels from ``mcraw_torch/csrc``.
 3. kernels: each CUDA kernel against its plain torch version on the card,
-   element-exact (unpack at three geometries with bits 0..65535 and
-   wrapping refs; checksum at odd shapes, 4K uint16, (6144, 4096) uint32).
-4. main path: a 4096x3072 clip (three 12-bit frames, a worst-case frame,
-   an all-16-bit frame, audio) written with mcraw.encode, decoded by
+   element-exact (modern unpack at four geometries with bits 0..65535 and
+   wrapping refs; legacy unpack at five geometries up to 4096x3072 on a
+   synthetic header chain with bits 0..16; checksum at odd shapes, 4K
+   uint16, (6144, 4096) uint32).
+4. main paths, one per codec, each with the launch counters set to 0 just
+   before it and read just after: a 4096x3072 modern clip (three 12-bit
+   frames, a worst-case frame, an all-16-bit frame, audio) and a legacy
+   clip (two 4096x3072 12-bit frames, a full-range 16-bit frame, a
+   4032x3024 frame, a frame without the trailing chunk table, audio),
+   written with mcraw.encode and decoded by
    ``mcraw_torch.Decoder(path, device="cuda").load_frame_device``; every
    frame equals its source image and its device checksum the host's. The
-   launch counters must show one unpack and one checksum launch per frame
-   and no plain-version call.
-5. CLI: ``python -m mcraw_torch clip -n 5`` against
+   counters must show one unpack launch of the clip's codec and one
+   checksum launch per frame, and no plain-version call. The legacy phase
+   prints which host scan walked each frame's header chain and whether the
+   native scans were built.
+5. CLI, per clip: ``python -m mcraw_torch clip -n 5`` against
    ``python -m mcraw clip -n 5 --backend numpy``: identical stdout,
    byte-identical audio.wav and DNGs.
 6. times on the card (printed, not asserted): CUDA-event medians of each
-   kernel and its plain version at the 4K 12-bit frame, and the
-   ``load_frame_device`` split into host scans, H2D, device prep, kernel.
+   kernel and its plain version at the 4K 12-bit frame of its codec, and
+   the ``load_frame_device`` split: host scans (the legacy scan also on
+   its own), H2D, device prep (modern) and kernel.
 
 The line before last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Needs one card, no network and no JAX.
@@ -71,6 +80,7 @@ if not torch.cuda.is_available():
     fail("torch.cuda.is_available() is false: this script needs a CUDA card")
 
 from mcraw import encode as E  # noqa: E402  (NumPy-only fixture writer)
+from mcraw.kernels import native  # noqa: E402  (NumPy-only host scans)
 from mcraw.kernels import tables as T  # noqa: E402
 from mcraw.metadata import (  # noqa: E402
     example_container_metadata,
@@ -80,6 +90,7 @@ from mcraw.metadata import (  # noqa: E402
 import mcraw_torch  # noqa: E402
 from mcraw_torch.kernels import build  # noqa: E402
 from mcraw_torch.kernels import checksum as C  # noqa: E402
+from mcraw_torch.kernels import legacy as L  # noqa: E402
 from mcraw_torch.kernels import unpack as U  # noqa: E402
 from mcraw_torch.kernels.tables import modern_tables  # noqa: E402
 
@@ -147,8 +158,23 @@ def random_unpack_inputs(rng, ty: int, tx: int):
     return w, b, r, U.block_offsets(b, modern_tables(DEV))
 
 
+def random_legacy_inputs(rng, h: int, w: int):
+    """Random payload bytes on a synthetic header chain: bits 0..16 (every
+    value among the first 17 blocks), refs 0..4095, offsets the cumulative
+    sum of 2 + the block length, just past each header."""
+    nblk = L.num_blocks(w, h)
+    bits = rng.integers(0, 17, size=nblk).astype(np.int32)
+    bits[:17] = np.arange(17)
+    refs = rng.integers(0, 4096, size=nblk).astype(np.uint16)
+    step = 2 + T.LEGACY_BLOCK_LENGTH[bits].astype(np.int64)
+    offsets = np.cumsum(step) - step + 2
+    payload = rng.integers(0, 256, size=int(step.sum()) + 1 + L.TAIL_BYTES,
+                           dtype=np.uint8)
+    return [torch.from_numpy(a).to(DEV) for a in (payload, bits, refs, offsets)]
+
+
 def phase_kernels(rng) -> dict:
-    errs = {"unpack": 0, "checksum": 0}
+    errs = {"unpack": 0, "unpack_legacy": 0, "checksum": 0}
     # (ty, tx, height, width): exact, cropped + ragged, short rows, 4K.
     for ty, tx, h, w in ((3, 2, 12, 128), (25, 7, 99, 420), (3, 2, 20, 100),
                          (768, 64, H, W)):
@@ -163,6 +189,17 @@ def phase_kernels(rng) -> dict:
               f"unpack kernel != plain at ty={ty} tx={tx} ({h}x{w}): err {err}")
         emit("kernels", kernel="unpack_modern", ty=ty, tx=tx, height=h,
              width=w, max_abs_err=err)
+    for h, w in ((8, 96), (5, 50), (24, 1000), (3024, 4032), (H, W)):
+        args = random_legacy_inputs(rng, h, w)
+        got = L.decode_legacy_device(*args, height=h, width=w)
+        want = L.decode_legacy_plain(*args, height=h, width=w)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs["unpack_legacy"] = max(errs["unpack_legacy"], err)
+        check(got.shape == (h, w) and err == 0,
+              f"legacy unpack kernel != plain at {h}x{w}: err {err}")
+        emit("kernels", kernel="unpack_legacy", height=h, width=w,
+             blocks=L.num_blocks(w, h), max_abs_err=err)
     cases = [
         ("u16", (1, 1), np.uint16, 0, 1 << 16),
         ("u16", (7, 13), np.uint16, 0, 1 << 16),
@@ -188,19 +225,20 @@ def phase_kernels(rng) -> dict:
 # -- phase 4 -------------------------------------------------------------------
 
 
+def twelve_bit(rng, k: int, h: int = H, w: int = W) -> np.ndarray:
+    """The bench's 12-bit content: a smooth field plus noise."""
+    base = (
+        np.sin(np.arange(w) / (97 + k))[None, :]
+        * np.cos(np.arange(h) / (61 + k))[:, None] * 1200 + 2000
+    )
+    return (base + rng.normal(0, 30, size=(h, w))).clip(0, 4095).astype(np.uint16)
+
+
 def make_clip(path: Path):
     """Three 12-bit frames (the bench's recipe), a worst-case frame
     (full-range noise + one 5-bit tile) and an all-16-bit frame."""
     rng = np.random.default_rng(11)
-    imgs = []
-    for k in range(3):
-        base = (
-            np.sin(np.arange(W) / (97 + k))[None, :]
-            * np.cos(np.arange(H) / (61 + k))[:, None] * 1200 + 2000
-        )
-        imgs.append(
-            (base + rng.normal(0, 30, size=(H, W))).clip(0, 4095).astype(np.uint16)
-        )
+    imgs = [twelve_bit(rng, k) for k in range(3)]
     worst = rng.integers(0, 1 << 16, size=(H, W), dtype=np.uint16)
     worst[0:4, 0:64] = rng.integers(0, 32, size=(4, 64), dtype=np.uint16)
     imgs.append(worst)
@@ -219,14 +257,50 @@ def make_clip(path: Path):
     return imgs, payloads
 
 
+LEGACY_FRAMES = (  # (what, height, width, trailing chunk table)
+    ("12-bit", H, W, True),
+    ("12-bit", H, W, True),
+    ("16-bit", H, W, True),
+    ("12-bit", 3024, 4032, True),
+    ("12-bit", H, W, False),
+)
+
+
+def make_legacy_clip(path: Path):
+    """The legacy clip of LEGACY_FRAMES, 12-bit frames in the bench's
+    recipe, the 16-bit one full-range noise."""
+    rng = np.random.default_rng(12)
+    writer = E.ContainerWriter(example_container_metadata())
+    imgs, payloads = [], []
+    for i, (what, h, w, table) in enumerate(LEGACY_FRAMES):
+        if what == "16-bit":
+            img = rng.integers(0, 1 << 16, size=(h, w), dtype=np.uint16)
+        else:
+            img = twelve_bit(rng, i, h, w)
+        payload = E.encode_legacy(img, add_offset_table=table)
+        imgs.append(img)
+        payloads.append(np.frombuffer(payload, dtype=np.uint8))
+        writer.add_frame(2000 + 33 * i, payload, example_frame_metadata(w, h, 6))
+        writer.add_audio(
+            rng.integers(-3000, 3000, size=2048).astype(np.int16), i * 10**6
+        )
+    path.write_bytes(writer.finish())
+    return imgs, payloads
+
+
+COUNTED = {"unpack_modern": U, "unpack_legacy": L, "checksum": C}
+
+
 def reset_counters() -> None:
-    U.KERNEL_LAUNCHES = U.PLAIN_CALLS = 0
-    C.KERNEL_LAUNCHES = C.PLAIN_CALLS = 0
+    for mod in COUNTED.values():
+        mod.KERNEL_LAUNCHES = mod.PLAIN_CALLS = 0
 
 
-def phase_main_path(clip: Path, imgs) -> dict:
+def phase_main_path(name: str, clip: Path, imgs, kernel: str) -> dict:
+    """Decode every frame of `clip` on the card; `kernel` is the unpack
+    kernel its codec must go through, once per frame."""
     with mcraw_torch.Decoder(str(clip), device="cuda") as d:
-        check(len(d.frames) == len(imgs), f"{len(d.frames)} frames in the clip")
+        check(len(d.frames) == len(imgs), f"{len(d.frames)} frames in {name}")
         reset_counters()
         t0 = time.perf_counter()
         outs = []
@@ -235,20 +309,30 @@ def phase_main_path(clip: Path, imgs) -> dict:
             outs.append((img, C.device_checksum(img), meta))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = {"unpack_modern": U.KERNEL_LAUNCHES, "checksum": C.KERNEL_LAUNCHES}
-        plain = {"unpack_modern": U.PLAIN_CALLS, "checksum": C.PLAIN_CALLS}
+        launches = {k: mod.KERNEL_LAUNCHES for k, mod in COUNTED.items()}
+        plain = {k: mod.PLAIN_CALLS for k, mod in COUNTED.items()}
     n = len(imgs)
     for i, ((img, cs, meta), src) in enumerate(zip(outs, imgs)):
         check(img.device.type == "cuda" and img.dtype == torch.uint16
-              and tuple(img.shape) == (H, W), f"frame {i}: {img.dtype} {img.shape}")
-        check(np.array_equal(img.cpu().numpy(), src), f"frame {i} != source image")
-        check(int(cs.item()) == host_checksum(src), f"frame {i}: checksum mismatch")
-    check(launches == {"unpack_modern": n, "checksum": n},
-          f"launch counts {launches}, expected {n} each")
-    check(plain == {"unpack_modern": 0, "checksum": 0}, f"plain calls {plain}")
-    emit("main_path", frames=n, height=H, width=W, seconds=secs,
+              and img.shape == src.shape,
+              f"{name} frame {i}: {img.dtype} {tuple(img.shape)}")
+        check(np.array_equal(img.cpu().numpy(), src),
+              f"{name} frame {i} != source image")
+        check(int(cs.item()) == host_checksum(src),
+              f"{name} frame {i}: checksum mismatch")
+    want = {k: 0 for k in COUNTED} | {kernel: n, "checksum": n}
+    check(launches == want, f"{name}: launch counts {launches}, expected {want}")
+    check(not any(plain.values()), f"{name}: plain calls {plain}")
+    emit("main_path", clip=name, frames=n,
+         shapes=[list(src.shape) for src in imgs], seconds=secs,
          launches=launches, plain_calls=plain, exact=True)
     return launches
+
+
+def legacy_scans(imgs, payloads) -> list[str]:
+    """Which host scan walks each legacy frame's chain (host only)."""
+    return [L.prepare_legacy(p, img.shape[1], img.shape[0]).scan
+            for img, p in zip(imgs, payloads)]
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -262,7 +346,7 @@ def phase_cli(clip: Path, work: Path) -> None:
         ("mcraw", [sys.executable, "-m", "mcraw", str(clip), "-n", "5",
                    "--backend", "numpy"]),
     ):
-        cwd = work / name
+        cwd = work / f"{clip.stem}_{name}"
         cwd.mkdir()
         t0 = time.perf_counter()
         res = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
@@ -278,7 +362,8 @@ def phase_cli(clip: Path, work: Path) -> None:
           f"outputs: {names}")
     for n in names:
         check(filecmp.cmp(a / n, b / n, shallow=False), f"{n} differs")
-    emit("cli", files=names, identical=True, mcraw_torch_s=ta, mcraw_numpy_s=tb)
+    emit("cli", clip=clip.name, files=names, identical=True,
+         mcraw_torch_s=ta, mcraw_numpy_s=tb)
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -345,6 +430,53 @@ def phase_times(payload: np.ndarray, card: str) -> dict:
     return t
 
 
+def phase_times_legacy(payload: np.ndarray, card: str) -> dict:
+    """The legacy kernel and its plain version at a 4K 12-bit frame, and
+    the legacy load_frame_device split."""
+    frame = L.prepare_legacy(payload, W, H)
+    dev = L.upload(frame, DEV)
+    args = (dev.payload, dev.bits, dev.refs, dev.offsets)
+    kw = dict(height=H, width=W)
+    t = {
+        "unpack_legacy_ms": time_cuda(lambda: L.decode_legacy_device(*args, **kw)),
+        "unpack_legacy_plain_ms": time_cuda(
+            lambda: L.decode_legacy_plain(*args, **kw)),
+    }
+    nblk = L.num_blocks(W, H)
+    moved = len(payload) + 2 * H * W + nblk * (4 + 2 + 8)
+    emit("times_kernels", card=card, frame=f"legacy {W}x{H} 12-bit", n=N_TIMED,
+         scan=frame.scan, payload_bytes=len(payload), blocks=nblk,
+         kernel_bytes=moved, kernel_gbps=moved / t["unpack_legacy_ms"] / 1e6, **t)
+
+    # host_prep_ms is the scan plus the upload buffer; host_scan_ms, timed
+    # on its own, is the scan's part of it.
+    split = {"host_scan_ms": [], "host_prep_ms": [], "h2d_ms": [],
+             "kernel_ms": [], "load_frame_device_ms": []}
+    clock = time.perf_counter
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = clock()
+        L.scan_chain(payload, nblk)
+        t1 = clock()
+        fr = L.prepare_legacy(payload, W, H)
+        t2 = clock()
+        dv = L.upload(fr, DEV)
+        torch.cuda.synchronize()
+        t3 = clock()
+        L.decode_legacy_device(dv.payload, dv.bits, dv.refs, dv.offsets, **kw)
+        torch.cuda.synchronize()
+        t4 = clock()
+        mcraw_torch.pipeline.decode_legacy_frame(payload, W, H, DEV)
+        torch.cuda.synchronize()
+        t5 = clock()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            split[key].append(dt * 1e3)
+    med = {k: statistics.median(v) for k, v in split.items()}
+    emit("times_load_frame_device", card=card, codec="legacy", n=10,
+         clock="host, synchronized", scan=frame.scan, **med)
+    return t
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -354,11 +486,20 @@ def main() -> None:
     try:
         clip = work / "clip.mcraw"
         imgs, payloads = make_clip(clip)
-        emit("clip", frames=len(imgs), bytes=clip.stat().st_size,
+        emit("clip", clip=clip.name, frames=len(imgs), bytes=clip.stat().st_size,
              payload_bytes=[len(p) for p in payloads])
-        launches = phase_main_path(clip, imgs)
+        legacy = work / "legacy.mcraw"
+        t0 = time.perf_counter()
+        limgs, lpayloads = make_legacy_clip(legacy)
+        emit("clip", clip=legacy.name, frames=len(limgs),
+             bytes=legacy.stat().st_size, encode_s=time.perf_counter() - t0,
+             payload_bytes=[len(p) for p in lpayloads],
+             scans=legacy_scans(limgs, lpayloads), native=native.have_native())
+        modern = phase_main_path(clip.name, clip, imgs, "unpack_modern")
+        old = phase_main_path(legacy.name, legacy, limgs, "unpack_legacy")
         phase_cli(clip, work)
-        t = phase_times(payloads[0], card)
+        phase_cli(legacy, work)
+        t = phase_times(payloads[0], card) | phase_times_legacy(lpayloads[0], card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -366,12 +507,18 @@ def main() -> None:
         {"name": "unpack_modern", "route": "cuda",
          "source": "mcraw_torch/csrc/unpack_modern.cu",
          "replaces": "mcraw/kernels/pallas_unpack.py:491",
-         "launches": launches["unpack_modern"], "max_abs_err": errs["unpack"],
+         "launches": modern["unpack_modern"], "max_abs_err": errs["unpack"],
          "ms": t["unpack_ms"], "plain_ms": t["unpack_plain_ms"]},
+        {"name": "unpack_legacy", "route": "cuda",
+         "source": "mcraw_torch/csrc/unpack_legacy.cu",
+         "replaces": "mcraw/kernels/pallas_legacy.py:639, :327, :68",
+         "launches": old["unpack_legacy"], "max_abs_err": errs["unpack_legacy"],
+         "ms": t["unpack_legacy_ms"], "plain_ms": t["unpack_legacy_plain_ms"]},
         {"name": "checksum", "route": "cuda",
          "source": "mcraw_torch/csrc/checksum.cu",
          "replaces": "mcraw/kernels/checksum.py:27",
-         "launches": launches["checksum"], "max_abs_err": errs["checksum"],
+         "launches": modern["checksum"] + old["checksum"],
+         "max_abs_err": errs["checksum"],
          "ms": t["checksum_ms"], "plain_ms": t["checksum_plain_ms"]},
     ]
     print(card, flush=True)

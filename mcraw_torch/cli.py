@@ -3,10 +3,10 @@
 ``python -m mcraw_torch <file> [-n N]`` prints the frame count, writes
 ``audio.wav``, then ``frame_%06d.dng`` for the first N frames: stdout and
 files byte-identical to ``python -m mcraw <file> [-n N]`` (and so to the
-C++ reference example). Extras: ``--output-dir``, ``--resume`` (skip DNGs
-that exist) and ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
-plain torch versions). The JAX package's other subcommands are not ported
-yet.
+C++ reference example), for clips of either codec or a mix of both.
+Extras: ``--output-dir``, ``--resume`` (skip DNGs that exist) and
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain torch
+versions). The JAX package's other subcommands are not ported yet.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Build the CUDA kernels into one shared library and bind it with ctypes.
 
 The sources are ``mcraw_torch/csrc/*.cu``, each with a plain C entry point.
-``nvcc`` compiles them for Hopper (``sm_90a``) into
-``mcraw_torch/build/libmcraw_torch_<digest>.so`` at first use; the digest
-is the sha256 of the sources and the flags, so an edited source rebuilds
-and an unchanged one loads the library already there. Nothing is
-downloaded. A failed build raises: there is no fallback library.
+At first use ``nvcc`` compiles them for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into
+``mcraw_torch/build/libmcraw_torch_<digest>.so``; the digest is the sha256
+of the sources and the flags, so an edited source rebuilds and an
+unchanged one loads the library already there. Nothing is downloaded. A
+failed build raises: there is no fallback library.
 
 Every pointer and the stream are ``c_void_p`` and every size ``c_int64``;
 each entry returns ``cudaGetLastError()`` after its launch, and
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]
@@ -27,7 +29,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -75,17 +77,35 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}):\n{res.stdout}{res.stderr}"
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    tmp = out.with_suffix(f".{tag}")
+    cmds = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        for src, obj in zip(_sources(), objs)
+    ]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+
+    def run(cmd):
+        return cmd, subprocess.run(cmd, capture_output=True, text=True)
+
+    try:
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            results = list(pool.map(run, cmds))
+        if all(res.returncode == 0 for _, res in results):
+            results.append(run(link))
+        text = "".join(
+            " ".join(cmd) + "\n" + res.stdout + res.stderr for cmd, res in results
         )
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        out.with_suffix(".log").write_text(text)
+        failed = [res.returncode for _, res in results if res.returncode != 0]
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed (exit {failed[0]}):\n{text}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -99,6 +119,10 @@ def lib() -> ctypes.CDLL:
             cdll.mcraw_unpack_modern.restype = ctypes.c_int
             cdll.mcraw_unpack_modern.argtypes = [
                 p, i64, p, p, p, p, p, p, i64, i64, i64, p,
+            ]
+            cdll.mcraw_unpack_legacy.restype = ctypes.c_int
+            cdll.mcraw_unpack_legacy.argtypes = [
+                p, i64, p, p, p, p, i64, i64, i64, p,
             ]
             cdll.mcraw_checksum.restype = ctypes.c_int
             cdll.mcraw_checksum.argtypes = [p, i64, ctypes.c_int32, p, p]

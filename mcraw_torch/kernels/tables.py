@@ -1,10 +1,13 @@
-"""Modern-codec descriptor tables as torch tensors.
+"""Both codecs' field tables as torch tensors.
 
 The single source is :mod:`mcraw.kernels.tables`, which the JAX package
-decodes from as well: per class (10) and value (64), up to three
-little-endian word fields (widx, rsh, nbits, lsh), plus the 17-entry
-bits -> class and bits -> block length lookups. The codec has no learned
-parameters; these tables are all that carries across.
+decodes from as well. Modern codec: per class (10) and value (64), up to
+three little-endian word fields (widx, rsh, nbits, lsh), plus the 17-entry
+bits -> class and bits -> block length lookups. Legacy codec: per class
+(12) and value (16), up to two byte fields (pos, rsh, msk, lsh), plus the
+17-entry clamped bits -> class row, field width and block length lookups.
+The codec has no learned parameters; these tables are all that carries
+across.
 """
 
 from __future__ import annotations
@@ -35,26 +38,50 @@ def pack_descriptors() -> np.ndarray:
     return (widx | (rsh << 5) | (nb << 10) | (lsh << 15)).astype(np.int32)
 
 
-_cache: dict[str, ModernTables] = {}
+class LegacyTables(NamedTuple):
+    pos: torch.Tensor  # (12, 16, 2) int64 byte within the block
+    rsh: torch.Tensor  # (12, 16, 2) int64 right shift within the byte
+    msk: torch.Tensor  # (12, 16, 2) int64 field mask; 0 = unused slot
+    lsh: torch.Tensor  # (12, 16, 2) int64 left shift into the value
+    class_index: torch.Tensor  # (17,) int64 clamped bits -> class row
+    class_of_bits: torch.Tensor  # (17,) int64 clamped bits -> field width
+    block_length: torch.Tensor  # (17,) int64 clamped bits -> payload bytes
+
+
+_cache: dict[tuple[str, str], NamedTuple] = {}
+
+
+def _put(a: np.ndarray, device, dtype=torch.int64) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
 
 def modern_tables(device: torch.device | str = "cpu") -> ModernTables:
-    """The tables on `device` (built once per device)."""
-    key = str(torch.device(device))
+    """The modern tables on `device` (built once per device)."""
+    key = ("modern", str(torch.device(device)))
     if key not in _cache:
-
-        def put(a, dtype=torch.int64):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                device=device, dtype=dtype
-            )
-
         _cache[key] = ModernTables(
-            widx=put(T.MODERN_WIDX),
-            rsh=put(T.MODERN_WRSH),
-            nbits=put(T.MODERN_WNB),
-            lsh=put(T.MODERN_WLSH),
-            packed=put(pack_descriptors(), torch.int32),
-            class_index=put(T.MODERN_CLASS_INDEX),
-            block_length=put(T.MODERN_BLOCK_LENGTH),
+            widx=_put(T.MODERN_WIDX, device),
+            rsh=_put(T.MODERN_WRSH, device),
+            nbits=_put(T.MODERN_WNB, device),
+            lsh=_put(T.MODERN_WLSH, device),
+            packed=_put(pack_descriptors(), device, torch.int32),
+            class_index=_put(T.MODERN_CLASS_INDEX, device),
+            block_length=_put(T.MODERN_BLOCK_LENGTH, device),
+        )
+    return _cache[key]
+
+
+def legacy_tables(device: torch.device | str = "cpu") -> LegacyTables:
+    """The legacy tables on `device` (built once per device)."""
+    key = ("legacy", str(torch.device(device)))
+    if key not in _cache:
+        _cache[key] = LegacyTables(
+            pos=_put(T.LEGACY_POS, device),
+            rsh=_put(T.LEGACY_RSH, device),
+            msk=_put(T.LEGACY_MSK, device),
+            lsh=_put(T.LEGACY_LSH, device),
+            class_index=_put(T.LEGACY_CLASS_INDEX, device),
+            class_of_bits=_put(T.LEGACY_CLASS_OF_BITS, device),
+            block_length=_put(T.LEGACY_BLOCK_LENGTH, device),
         )
     return _cache[key]

@@ -8,10 +8,12 @@
     d.load_audio() / d.audio_chunks()
 
 Modern-codec (compressionType 7) frames decode through
-:mod:`mcraw_torch.kernels.unpack`: host scans, upload, device prep, and the
-CUDA unpack kernel. ``device="cpu"`` runs the kernel's plain torch version.
-The container, metadata and error model are the JAX package's NumPy-only
-modules, reused as they are.
+:mod:`mcraw_torch.kernels.unpack` (host scans, upload, device prep, the CUDA
+modern unpack kernel), legacy-codec (compressionType 6) frames through
+:mod:`mcraw_torch.kernels.legacy` (host header-chain scan, upload, the CUDA
+legacy unpack kernel); a clip may mix both. ``device="cpu"`` runs the
+kernels' plain torch versions. The container, metadata and error model are
+the JAX package's NumPy-only modules, reused as they are.
 """
 
 from __future__ import annotations
@@ -27,13 +29,10 @@ from mcraw.metadata import ContainerMetadata, FrameMetadata
 from mcraw.pipeline import _modern_payload_rows, _uncompress_error_text
 
 from .kernels import unpack as U
+from .kernels.legacy import decode_legacy as decode_legacy_frame
 from .kernels.tables import modern_tables
 
 AudioChunk = tuple[int, np.ndarray]  # (timestampNs or -1, interleaved int16)
-
-
-class NotYetPortedError(MotionCamException, NotImplementedError):
-    """A feature of the JAX package that mcraw_torch does not have yet."""
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -121,29 +120,31 @@ class Decoder:
         payload, meta = self._reader.frame_payload(timestamp)
         fm = FrameMetadata(meta)
         ct = fm.compression_type
-        if ct == COMPRESSION_TYPE_LEGACY:
-            raise NotYetPortedError(
-                "legacy codec (compressionType 6) not yet ported to "
-                "mcraw_torch; decode it with mcraw"
-            )
-        if ct != COMPRESSION_TYPE:
+        if ct not in (COMPRESSION_TYPE, COMPRESSION_TYPE_LEGACY):
             raise IOException("Invalid compression type")
-        self._reference_return_check(payload, fm)
-        with _uncompress_error_text(True):
-            img = decode_modern_frame(payload, fm.width, fm.height, self._device)
+        modern = ct == COMPRESSION_TYPE
+        self._reference_return_check(payload, fm, modern)
+        decode = decode_modern_frame if modern else decode_legacy_frame
+        with _uncompress_error_text(modern):
+            img = decode(payload, fm.width, fm.height, self._device)
         return img, meta
 
     @staticmethod
-    def _reference_return_check(payload, fm: FrameMetadata) -> None:
-        """The reference's outcomes for degenerate modern geometries
-        (mcraw.pipeline.Decoder._reference_return_check): zero encoded rows,
-        zero width or zero height fail as "Failed to uncompress frame".
-        A short encodedHeight (0 < rows < height) is not degenerate here:
-        the kernel writes the rows that exist into a zeroed output."""
+    def _reference_return_check(payload, fm: FrameMetadata, modern: bool) -> None:
+        """The reference's outcomes for degenerate geometries
+        (mcraw.pipeline.Decoder._reference_return_check): for the modern
+        codec, zero encoded rows, zero width or zero height fail as "Failed
+        to uncompress frame"; for the legacy codec, zero width or zero
+        height fail as "Failed to uncompress legacy frame". A short modern
+        encodedHeight (0 < rows < height) is not degenerate here: the kernel
+        writes the rows that exist into a zeroed output."""
         if fm.width < 0 or fm.height < 0 or fm.width * fm.height > (1 << 31):
             raise DecodeError(f"invalid frame geometry {fm.width}x{fm.height}")
-        if _modern_payload_rows(payload) == 0 or fm.width == 0 or fm.height == 0:
-            raise IOException("Failed to uncompress frame")
+        if modern:
+            if _modern_payload_rows(payload) == 0 or fm.width == 0 or fm.height == 0:
+                raise IOException("Failed to uncompress frame")
+        elif fm.width == 0 or fm.height == 0:
+            raise IOException("Failed to uncompress legacy frame")
 
     # -- audio -----------------------------------------------------------------
 

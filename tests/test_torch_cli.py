@@ -35,6 +35,25 @@ def clip(tmp_path_factory):
     return p
 
 
+@pytest.fixture(scope="module")
+def legacy_clip(tmp_path_factory):
+    """Codec 6 at ragged and plain widths, with and without the trailing
+    chunk table, and one full-range frame."""
+    rng = np.random.default_rng(18)
+    writer = E.ContainerWriter(example_container_metadata())
+    for i, (w, maxv, table) in enumerate(
+        [(200, 4095, True), (200, 65535, True), (200, 4095, False)]
+    ):
+        img = rng.integers(0, maxv + 1, size=(16, w), dtype=np.uint16)
+        writer.add_frame(1000 + i, E.encode_legacy(img, add_offset_table=table),
+                         example_frame_metadata(w, 16, 6))
+        writer.add_audio(rng.integers(-3000, 3000, size=256).astype(np.int16),
+                         i * 10**6)
+    p = tmp_path_factory.mktemp("cli") / "legacy.mcraw"
+    p.write_bytes(writer.finish())
+    return p
+
+
 def _run(args, cwd):
     env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
@@ -52,6 +71,15 @@ def _assert_same_outputs(a: Path, b: Path, n_frames: int):
 
 @pytest.mark.parametrize("n_arg, n_frames", [("2", 2), ("2x", 2)])
 def test_cli_byte_parity_subprocess(clip, tmp_path, n_arg, n_frames):
+    _assert_cli_parity(clip, tmp_path, n_arg, n_frames)
+
+
+@pytest.mark.parametrize("n_arg, n_frames", [("3", 3), ("1", 1)])
+def test_legacy_cli_byte_parity_subprocess(legacy_clip, tmp_path, n_arg, n_frames):
+    _assert_cli_parity(legacy_clip, tmp_path, n_arg, n_frames)
+
+
+def _assert_cli_parity(clip, tmp_path, n_arg, n_frames):
     mine, ref = tmp_path / "mine", tmp_path / "ref"
     mine.mkdir()
     ref.mkdir()
@@ -128,12 +156,16 @@ def test_cli_unported_subcommand(capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
-def test_fresh_interpreter_never_imports_jax(clip, tmp_path):
+def test_fresh_interpreter_never_imports_jax(clip, legacy_clip, tmp_path):
     code = (
         "import sys, numpy as np, mcraw_torch\n"
         f"d = mcraw_torch.Decoder({str(clip)!r}, device='cpu')\n"
         "img, _ = d.load_frame(d.frames[0])\n"
         "assert img.shape == (16, 192) and img.dtype == np.uint16\n"
+        f"d = mcraw_torch.Decoder({str(legacy_clip)!r}, device='cpu')\n"
+        "img, meta = d.load_frame(d.frames[0])\n"
+        "assert meta['compressionType'] == 6\n"
+        "assert img.shape == (16, 200) and img.dtype == np.uint16\n"
         "import mcraw_torch.cli, mcraw_torch.kernels.checksum\n"
         "print('jax' in sys.modules)\n"
     )

@@ -1,7 +1,8 @@
 """mcraw_torch modern unpack: host prep, device prep and the plain decode
 held against the NumPy oracle and the JAX package's v6 path (Pallas in
-interpret mode), on the same numpy-seeded inputs. Exact: the codec is
-integer-only. The CUDA kernel is checked on the card by test_torch_gpu.py."""
+interpret mode), on the same numpy-seeded inputs, and the routes of the
+older kernel generations' entry points. Exact: the codec is integer-only.
+The CUDA kernel is checked on the card by test_torch_gpu.py."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ from mcraw.errors import DecodeError
 from mcraw.kernels import numpy_ref as R
 from mcraw.kernels import pallas_unpack as PK
 from mcraw.kernels import tables as T
+from mcraw.kernels import unpack as JU
 from mcraw.metadata import example_container_metadata, example_frame_metadata
 from mcraw.pipeline import Decoder as JaxDecoder
 from mcraw_torch import Decoder
@@ -223,3 +225,40 @@ def test_plain_counter_counts_cpu_calls():
     )
     assert (U.PLAIN_CALLS, U.KERNEL_LAUNCHES) == (before[0] + 1, before[1])
 
+
+@pytest.mark.parametrize("maxv", [4095, 65535])
+@pytest.mark.parametrize("shape", [(16, 256), (8, 100)])
+def test_routes_decode_modern_pallas(shape, maxv):
+    """_unpack_kernel_v4's entry point, decode_modern_pallas, routes to the
+    port's modern decode (kernel #1's CUDA kernel on the card)."""
+    h, w = shape
+    img = np.random.default_rng(maxv + w).integers(0, maxv + 1, size=(h, w),
+                                                  dtype=np.uint16)
+    payload = np.frombuffer(E.encode_modern(img), dtype=np.uint8)
+    out = decode_modern_frame(payload, w, h, torch.device("cpu")).numpy()
+    want = np.asarray(PK.decode_modern_pallas(payload, w, h, interpret=True))
+    assert np.array_equal(out, want) and np.array_equal(out, img)
+
+
+@pytest.mark.parametrize("maxv", [4095, 65535])
+@pytest.mark.parametrize("shape", [(16, 256), (8, 100)])
+def test_routes_unpack_blocks_pallas_v2(shape, maxv):
+    """_unpack_kernel_v2 (via _unpack_blocks_pallas_v2 over prepare_chunked)
+    gives per-block values with each block's reference already added; its
+    de-interleave with zero refs, cropped, equals the port's decode."""
+    h, w = shape
+    img = np.random.default_rng(maxv + h).integers(0, maxv + 1, size=(h, w),
+                                                  dtype=np.uint16)
+    payload = np.frombuffer(E.encode_modern(img), dtype=np.uint8)
+    plan = JU.prepare_modern(payload, w, h)
+    payload2d, base_rows, meta, num_chunks, n = PK.prepare_chunked(plan)
+    vals = np.asarray(
+        PK._unpack_blocks_pallas_v2(
+            jnp.asarray(payload2d), jnp.asarray(base_rows), jnp.asarray(meta),
+            num_chunks=num_chunks, interpret=True,
+        )
+    )[:n]
+    zero = np.zeros(n, np.uint16)
+    want = R.modern_deinterleave(vals, zero, plan.tiles_y, plan.tiles_x)[:h, :w]
+    out = decode_modern_frame(payload, w, h, torch.device("cpu")).numpy()
+    assert np.array_equal(out, want) and np.array_equal(out, img)
