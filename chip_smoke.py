@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of mcraw_torch on one CUDA card: build, check, decode, time.
+"""Smoke run of mcraw_torch on one CUDA card: build, check, decode, develop,
+time.
 
     python3 chip_smoke.py
 
@@ -8,30 +9,45 @@ failure exits non-zero and prints no result:
 
 1. device: torch and CUDA versions, the card's name and power limit.
 2. build: nvcc builds the kernels from ``mcraw_torch/csrc``.
-3. kernels: each CUDA kernel against its plain torch version on the card,
-   element-exact (modern unpack at four geometries with bits 0..65535 and
-   wrapping refs; legacy unpack at five geometries up to 4096x3072 on a
-   synthetic header chain with bits 0..16; checksum at odd shapes, 4K
-   uint16, (6144, 4096) uint32).
-4. main paths, one per codec, each with the launch counters set to 0 just
-   before it and read just after: a 4096x3072 modern clip (three 12-bit
-   frames, a worst-case frame, an all-16-bit frame, audio) and a legacy
-   clip (two 4096x3072 12-bit frames, a full-range 16-bit frame, a
-   4032x3024 frame, a frame without the trailing chunk table, audio),
-   written with mcraw.encode and decoded by
-   ``mcraw_torch.Decoder(path, device="cuda").load_frame_device``; every
-   frame equals its source image and its device checksum the host's. The
-   counters must show one unpack launch of the clip's codec and one
-   checksum launch per frame, and no plain-version call. The legacy phase
-   prints which host scan walked each frame's header chain and whether the
-   native scans were built.
-5. CLI, per clip: ``python -m mcraw_torch clip -n 5`` against
+3. kernels: each CUDA kernel against its plain torch version on the card:
+   element-exact for the integer kernels (modern unpack at four geometries
+   with bits 0..65535 and wrapping refs; legacy unpack at five geometries
+   up to 4096x3072 on a synthetic header chain with bits 0..16; checksum at
+   odd shapes, 4K uint16, (6144, 4096) uint32), <= 1 LSB per channel with
+   alpha 255 for develop (both demosaic modes at (16, 128), (36, 250),
+   (3, 64) and (3024, 4032); (3072, 4096) in the bench's parameters; all
+   four CFAs at a small size; the small ones also against the f64 model;
+   and a (2, 3072, 4096) batch bit-equal to two single calls).
+4. main paths, each with the launch counters set to 0 just before it and
+   read just after:
+   - decode, one per codec: a 4096x3072 modern clip (three 12-bit frames,
+     a worst-case frame, an all-16-bit frame, audio) and a legacy clip (two
+     4096x3072 12-bit frames, a full-range 16-bit frame, a 4032x3024 frame,
+     a frame without the trailing chunk table, audio), written with
+     mcraw.encode and decoded by
+     ``mcraw_torch.Decoder(path, device="cuda").load_frame_device``; every
+     frame equals its source image and its device checksum the host's. The
+     counters must show one unpack launch of the clip's codec and one
+     checksum launch per frame, and no plain-version call. The legacy phase
+     prints which host scan walked each frame's header chain and whether
+     the native scans were built.
+   - develop: a clip of three 4096x3072 12-bit modern frames and one
+     4032x3024 legacy frame (white 4095, black (64, 60, 70, 64), bggr,
+     dual-illuminant matrices, a warm neutral) through
+     ``mcraw_torch.preview.preview_frame_rgba`` on the card, every frame
+     bilinear and two in Malvar; each RGBA within 1 LSB of the f64 model
+     of its source image; one develop launch per call, no plain call, no
+     height <= 2 develop; ``preview_clip`` gives the same RGBA (device
+     checksum) as ``preview_frame_rgba`` for every frame.
+5. CLI: per decode clip, ``python -m mcraw_torch clip -n 5`` against
    ``python -m mcraw clip -n 5 --backend numpy``: identical stdout,
-   byte-identical audio.wav and DNGs.
+   byte-identical audio.wav and DNGs; ``python -m mcraw_torch preview
+   <develop clip> -n 2 --demosaic malvar``: PPMs within 1 of the f64 model.
 6. times on the card (printed, not asserted): CUDA-event medians of each
-   kernel and its plain version at the 4K 12-bit frame of its codec, and
-   the ``load_frame_device`` split: host scans (the legacy scan also on
-   its own), H2D, device prep (modern) and kernel.
+   kernel and its plain version at the 4K 12-bit frame of its codec (both
+   demosaic modes for develop), the ``load_frame_device`` split: host
+   scans (the legacy scan also on its own), H2D, device prep (modern) and
+   kernel, and the ``preview_frame_rgba`` split: decode and develop.
 
 The line before last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Needs one card, no network and no JAX.
@@ -78,18 +94,27 @@ import torch  # noqa: E402
 
 if not torch.cuda.is_available():
     fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+# The plain versions hold no matmul or conv; TF32 stays off all the same.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 from mcraw import encode as E  # noqa: E402  (NumPy-only fixture writer)
+from mcraw.color import interpolated_matrices  # noqa: E402  (NumPy only)
 from mcraw.kernels import native  # noqa: E402  (NumPy-only host scans)
 from mcraw.kernels import tables as T  # noqa: E402
 from mcraw.metadata import (  # noqa: E402
+    CFA_PATTERNS,
+    ContainerMetadata,
+    FrameMetadata,
     example_container_metadata,
     example_frame_metadata,
 )
 
 import mcraw_torch  # noqa: E402
+from mcraw_torch import preview as P  # noqa: E402
 from mcraw_torch.kernels import build  # noqa: E402
 from mcraw_torch.kernels import checksum as C  # noqa: E402
+from mcraw_torch.kernels import develop as D  # noqa: E402
 from mcraw_torch.kernels import legacy as L  # noqa: E402
 from mcraw_torch.kernels import unpack as U  # noqa: E402
 from mcraw_torch.kernels.tables import modern_tables  # noqa: E402
@@ -219,7 +244,90 @@ def phase_kernels(rng) -> dict:
               f"checksum {tag}{shape}: kernel {got} plain {want} host {ref}")
         emit("kernels", kernel="checksum", dtype=tag, shape=list(shape),
              max_abs_err=err)
+    errs["develop"] = phase_kernels_develop(rng)
     return errs
+
+
+# Develop parameters: the CPU tests' (black, white, neutral, forward matrix)
+# and the bench's (bench.py:465-470).
+DEVELOP_ARGS = (
+    np.array([64, 60, 70, 64], np.float32), 4095.0,
+    np.array([0.61, 1.0, 0.72], np.float32),
+    np.array([[0.86, 0.08, 0.02], [0.04, 0.91, 0.05], [0.01, 0.06, 0.76]],
+             np.float32),
+)
+BENCH_DEVELOP_ARGS = (
+    np.zeros(4, np.float32), 4095.0, np.ones(3, np.float32),
+    np.diag([0.9642, 1.0, 0.8249]).astype(np.float32),
+)
+MODES = ("bilinear", "malvar")
+RGGB = tuple(CFA_PATTERNS["rggb"])
+F64_MAX_PIXELS = 1 << 16  # the kernels phase holds shapes up to this to the model
+
+
+def rgba_channels(rgba: torch.Tensor, what: str) -> torch.Tensor:
+    """(..., 3) int16 channels of uint32 RGBA8888, on rgba's device; fails
+    unless every alpha is 255."""
+    a = rgba.to(torch.int64)
+    check(bool(((a >> 24) == 0xFF).all()), f"{what}: alpha != 255")
+    return torch.stack([(a >> s) & 0xFF for s in (0, 8, 16)], -1).to(torch.int16)
+
+
+def channel_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
+    """(max |a - b|, count of channels that differ) of two channel tensors."""
+    d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+    return int(d.max().item()), int((d != 0).sum().item())
+
+
+def develop_check(raw: np.ndarray, args, cfa, demosaic: str, what: str) -> int:
+    """The develop kernel against its plain version on the card (and the
+    f64 model at small shapes), <= 1 LSB per channel; the max error against
+    the plain version."""
+    x = torch.from_numpy(raw).to(DEV)
+    params = D.pack_develop_params(*args)
+    got = D.develop_rgba_device(x, params, cfa=cfa, demosaic=demosaic)
+    want = D.develop_rgba_plain(x, params, cfa=cfa, demosaic=demosaic)
+    torch.cuda.synchronize()
+    check(got.shape == raw.shape and got.dtype == torch.uint32,
+          f"develop {what}: {got.dtype} {tuple(got.shape)}")
+    g = rgba_channels(got, f"develop {what}")
+    err, ndiff = channel_diff(g, rgba_channels(want, f"develop plain {what}"))
+    row = dict(kernel="develop", case=what, shape=list(raw.shape), cfa=list(cfa),
+               demosaic=demosaic, max_abs_err=err, channels_differ=ndiff)
+    if raw.size <= F64_MAX_PIXELS:
+        model = torch.from_numpy(P.develop_f64(raw, *args, cfa, demosaic=demosaic))
+        row["f64_err"], row["f64_channels_differ"] = channel_diff(g.cpu(), model)
+        check(row["f64_err"] <= 1, f"develop {what} {demosaic}: {row['f64_err']} from f64")
+    check(err <= 1, f"develop kernel vs plain {what} {demosaic}: err {err}")
+    emit("kernels", **row)
+    return err
+
+
+def phase_kernels_develop(rng) -> int:
+    err = 0
+    bggr = tuple(CFA_PATTERNS["bggr"])
+    for demosaic in MODES:
+        for h, w in ((16, 128), (36, 250), (3, 64), (3024, 4032)):
+            raw = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
+            err = max(err, develop_check(raw, DEVELOP_ARGS, bggr, demosaic, "test"))
+        err = max(err, develop_check(twelve_bit(rng, 0), BENCH_DEVELOP_ARGS, RGGB,
+                                     demosaic, "bench"))
+        for sensor, cfa in CFA_PATTERNS.items():
+            raw = rng.integers(0, 4096, size=(20, 50), dtype=np.uint16)
+            err = max(err, develop_check(raw, DEVELOP_ARGS, tuple(cfa), demosaic,
+                                         f"cfa {sensor}"))
+        # Two frames in one launch against two single calls, bit for bit.
+        x = torch.from_numpy(np.stack([twelve_bit(rng, k) for k in (1, 2)])).to(DEV)
+        params = D.pack_develop_params(*BENCH_DEVELOP_ARGS)
+        batched = D.develop_rgba_device(x, params, cfa=RGGB, demosaic=demosaic)
+        singles = torch.stack(
+            [D.develop_rgba_device(f, params, cfa=RGGB, demosaic=demosaic) for f in x])
+        torch.cuda.synchronize()
+        check(torch.equal(batched.to(torch.int64), singles.to(torch.int64)),
+              f"develop batched {demosaic} != single calls")
+        emit("kernels", kernel="develop", case="batched", shape=list(x.shape),
+             demosaic=demosaic, equals_single_calls=True)
+    return err
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -288,7 +396,7 @@ def make_legacy_clip(path: Path):
     return imgs, payloads
 
 
-COUNTED = {"unpack_modern": U, "unpack_legacy": L, "checksum": C}
+COUNTED = {"unpack_modern": U, "unpack_legacy": L, "checksum": C, "develop": D}
 
 
 def reset_counters() -> None:
@@ -335,6 +443,117 @@ def legacy_scans(imgs, payloads) -> list[str]:
             for img, p in zip(imgs, payloads)]
 
 
+# Matrix pairs of tests/test_preview.py: XYZ->camera at D65 / Standard A and
+# the (white-balanced camera)->XYZ(D50) forward matrices.
+_CM1 = [0.79, -0.23, -0.07, -0.43, 1.32, 0.05, -0.07, 0.18, 0.54]
+_CM2 = [0.92, -0.31, -0.01, -0.50, 1.42, 0.08, -0.04, 0.22, 0.42]
+_FM1 = [0.62, 0.22, 0.12, 0.26, 0.72, 0.02, 0.03, 0.12, 0.67]
+_FM2 = [0.68, 0.18, 0.10, 0.30, 0.68, 0.02, 0.05, 0.10, 0.67]
+# The camera's neutral under Standard A (x, y = 0.4476, 0.4074) by CM2: a
+# warm as-shot neutral, so the forward matrix interpolates near FM2.
+_XYZ_A = np.array([0.4476 / 0.4074, 1.0, (1 - 0.4476 - 0.4074) / 0.4074])
+WARM = (np.reshape(_CM2, (3, 3)) @ _XYZ_A)
+WARM = (WARM / WARM[1]).tolist()
+DEVELOP_FRAMES = (  # (codec, height, width)
+    (7, H, W), (7, H, W), (7, H, W), (6, 3024, 4032),
+)
+DEVELOP_RUNS = tuple((i, "bilinear") for i in range(len(DEVELOP_FRAMES))) + (
+    (0, "malvar"), (3, "malvar"),
+)
+
+
+def make_develop_clip(path: Path):
+    """The develop clip of DEVELOP_FRAMES, 12-bit frames in the bench's
+    recipe, in a container whose white level (4095) fits them: (source
+    images, container JSON)."""
+    cm = example_container_metadata(sensor="bggr", black_level=(64, 60, 70, 64),
+                                    white_level=4095.0)
+    cm.update(colorMatrix1=_CM1, colorMatrix2=_CM2, forwardMatrix1=_FM1,
+              forwardMatrix2=_FM2)
+    rng = np.random.default_rng(13)
+    writer = E.ContainerWriter(cm)
+    imgs = []
+    for i, (codec, h, w) in enumerate(DEVELOP_FRAMES):
+        img = twelve_bit(rng, 3 + i, h, w)
+        payload = E.encode_modern(img) if codec == 7 else E.encode_legacy(img)
+        fm = example_frame_metadata(w, h, codec)
+        fm["asShotNeutral"] = WARM
+        writer.add_frame(3000 + 33 * i, payload, fm)
+        imgs.append(img)
+    path.write_bytes(writer.finish())
+    return imgs, cm
+
+
+class DevelopModel:
+    """The f64 model of each develop-clip frame, computed once per (frame,
+    demosaic) and kept as (H, W, 3) uint8."""
+
+    def __init__(self, imgs, container: dict):
+        cm = ContainerMetadata(container)
+        fwd, _, weight = interpolated_matrices(cm, WARM)
+        self.args = (cm.black_level, cm.white_level, WARM, fwd, tuple(cm.cfa_pattern))
+        self.weight = float(weight)
+        self.imgs = imgs
+        self.seconds = 0.0
+        self._cache = {}
+
+    def __call__(self, i: int, demosaic: str) -> torch.Tensor:
+        if (i, demosaic) not in self._cache:
+            t0 = time.perf_counter()
+            rgb = P.develop_f64(self.imgs[i], *self.args, demosaic=demosaic)
+            self._cache[i, demosaic] = torch.from_numpy(rgb.astype(np.uint8))
+            self.seconds += time.perf_counter() - t0
+        return self._cache[i, demosaic]
+
+
+def phase_develop_path(clip: Path, model: DevelopModel) -> dict:
+    """preview_frame_rgba on the card over DEVELOP_RUNS: every frame within
+    1 LSB of the f64 model, one develop launch per call and no plain or
+    height <= 2 call; then preview_clip against it by device checksum."""
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        check(len(d.frames) == len(DEVELOP_FRAMES), f"{len(d.frames)} develop frames")
+        reset_counters()
+        P.DEVELOP_CALLS = 0
+        t0 = time.perf_counter()
+        outs = []
+        for i, demosaic in DEVELOP_RUNS:
+            rgba = P.preview_frame_rgba(d, d.frames[i], demosaic=demosaic)
+            outs.append((rgba, C.device_checksum(rgba)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: mod.KERNEL_LAUNCHES for k, mod in COUNTED.items()}
+        plain = {k: mod.PLAIN_CALLS for k, mod in COUNTED.items()}
+        develop_calls = P.DEVELOP_CALLS
+        clip_sums = [(ts, int(C.device_checksum(rgba).item()))
+                     for ts, rgba in P.preview_clip(d)]
+        frames = d.frames
+    errs = []
+    for (i, demosaic), (rgba, _) in zip(DEVELOP_RUNS, outs):
+        h, w = DEVELOP_FRAMES[i][1:]
+        what = f"develop frame {i} {demosaic}"
+        check(rgba.device.type == "cuda" and rgba.dtype == torch.uint32
+              and rgba.shape == (h, w), f"{what}: {rgba.dtype} {tuple(rgba.shape)}")
+        err, ndiff = channel_diff(rgba_channels(rgba, what).cpu(), model(i, demosaic))
+        check(err <= 1, f"{what}: {err} from the f64 model")
+        errs.append({"frame": i, "demosaic": demosaic, "shape": [h, w],
+                     "f64_err": err, "channels_differ": ndiff})
+    bilinear = {frames[i]: int(cs.item())
+                for (i, demosaic), (_, cs) in zip(DEVELOP_RUNS, outs)
+                if demosaic == "bilinear"}
+    check(dict(clip_sums) == bilinear and len(clip_sums) == len(frames),
+          f"preview_clip checksums {clip_sums} != preview_frame_rgba {bilinear}")
+    n_modern = sum(DEVELOP_FRAMES[i][0] == 7 for i, _ in DEVELOP_RUNS)
+    want = {"unpack_modern": n_modern, "unpack_legacy": len(DEVELOP_RUNS) - n_modern,
+            "checksum": len(DEVELOP_RUNS), "develop": len(DEVELOP_RUNS)}
+    check(launches == want, f"develop path: launch counts {launches}, expected {want}")
+    check(not any(plain.values()), f"develop path: plain calls {plain}")
+    check(develop_calls == 0, f"develop path: {develop_calls} height <= 2 develop calls")
+    emit("main_path", clip=clip.name, path="preview_frame_rgba", seconds=secs,
+         launches=launches, plain_calls=plain, develop_calls=develop_calls,
+         frames=errs, preview_clip_equal=True, f64_weight=model.weight)
+    return launches
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 
@@ -364,6 +583,38 @@ def phase_cli(clip: Path, work: Path) -> None:
         check(filecmp.cmp(a / n, b / n, shallow=False), f"{n} differs")
     emit("cli", clip=clip.name, files=names, identical=True,
          mcraw_torch_s=ta, mcraw_numpy_s=tb)
+
+
+def phase_cli_preview(clip: Path, work: Path, model: DevelopModel) -> None:
+    """python -m mcraw_torch preview -n 2 --demosaic malvar: each PPM within
+    1 of the f64 model (python -m mcraw preview needs JAX, absent here)."""
+    cwd = work / "preview"
+    cwd.mkdir()
+    cmd = [sys.executable, "-m", "mcraw_torch", "preview", str(clip), "-n", "2",
+           "--demosaic", "malvar", "--output-dir", "out"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=cwd, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(res.returncode == 0, f"mcraw_torch preview exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    names = [f"preview_{i:06d}.ppm" for i in range(2)]
+    check(res.stdout == "".join(f"Writing out/{n}\n" for n in names),
+          f"preview stdout: {res.stdout!r}")
+    errs = []
+    for i, name in enumerate(names):
+        h, w = DEVELOP_FRAMES[i][1:]
+        data = (cwd / "out" / name).read_bytes()
+        header = b"P6\n%d %d\n255\n" % (w, h)
+        check(data.startswith(header) and len(data) == len(header) + h * w * 3,
+              f"{name}: header {data[:20]!r}, {len(data)} bytes")
+        rgb = torch.frombuffer(bytearray(data[len(header):]), dtype=torch.uint8)
+        rgb = rgb.reshape(h, w, 3)
+        err, ndiff = channel_diff(rgb, model(i, "malvar"))
+        check(err <= 1, f"{name}: {err} from the f64 model")
+        errs.append({"file": name, "f64_err": err, "channels_differ": ndiff})
+    emit("cli", clip=clip.name, command="preview -n 2 --demosaic malvar",
+         files=errs, seconds=secs)
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -477,6 +728,48 @@ def phase_times_legacy(payload: np.ndarray, card: str) -> dict:
     return t
 
 
+def phase_times_develop(clip: Path, card: str) -> dict:
+    """The develop kernel and its plain version at a 4K 12-bit frame in both
+    modes, and the preview_frame_rgba split into decode and develop."""
+    x = torch.from_numpy(twelve_bit(np.random.default_rng(14), 0)).to(DEV)
+    params = D.pack_develop_params(*BENCH_DEVELOP_ARGS)
+    moved = H * W * (2 + 4)  # read uint16, write uint32
+    t = {}
+    for demosaic in MODES:
+        kw = dict(cfa=RGGB, demosaic=demosaic)
+        ms = time_cuda(lambda: D.develop_rgba_device(x, params, **kw))
+        plain_ms = time_cuda(lambda: D.develop_rgba_plain(x, params, **kw))
+        emit("times_kernels", card=card, frame=f"develop {W}x{H} 12-bit",
+             demosaic=demosaic, n=N_TIMED, kernel_bytes=moved,
+             kernel_gbps=moved / ms / 1e6, develop_ms=ms, develop_plain_ms=plain_ms)
+        t[f"develop_{demosaic}_ms"], t[f"develop_{demosaic}_plain_ms"] = ms, plain_ms
+
+    split = {"decode_ms": [], "develop_ms": [], "preview_frame_rgba_ms": []}
+    clock = time.perf_counter
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        cm = ContainerMetadata(d.container_metadata)
+        cfa = tuple(cm.cfa_pattern)
+        ts = d.frames[0]
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = clock()
+            img, meta = d.load_frame_device(ts)
+            torch.cuda.synchronize()
+            t1 = clock()
+            P._frame_rgba(img, FrameMetadata(meta), cm, cfa)
+            torch.cuda.synchronize()
+            t2 = clock()
+            P.preview_frame_rgba(d, ts)
+            torch.cuda.synchronize()
+            t3 = clock()
+            for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                split[key].append(dt * 1e3)
+    med = {k: statistics.median(v) for k, v in split.items()}
+    emit("times_preview_frame_rgba", card=card, frame=f"modern {W}x{H} 12-bit",
+         demosaic="bilinear", n=10, clock="host, synchronized", **med)
+    return t
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -495,11 +788,22 @@ def main() -> None:
              bytes=legacy.stat().st_size, encode_s=time.perf_counter() - t0,
              payload_bytes=[len(p) for p in lpayloads],
              scans=legacy_scans(limgs, lpayloads), native=native.have_native())
+        develop = work / "develop.mcraw"
+        t0 = time.perf_counter()
+        dimgs, dcm = make_develop_clip(develop)
+        emit("clip", clip=develop.name, frames=len(dimgs),
+             bytes=develop.stat().st_size, encode_s=time.perf_counter() - t0,
+             shapes=[list(img.shape) for img in dimgs])
         modern = phase_main_path(clip.name, clip, imgs, "unpack_modern")
         old = phase_main_path(legacy.name, legacy, limgs, "unpack_legacy")
+        model = DevelopModel(dimgs, dcm)
+        dev = phase_develop_path(develop, model)
         phase_cli(clip, work)
         phase_cli(legacy, work)
-        t = phase_times(payloads[0], card) | phase_times_legacy(lpayloads[0], card)
+        phase_cli_preview(develop, work, model)
+        emit("f64_model", calls=len(model._cache), seconds=model.seconds)
+        t = (phase_times(payloads[0], card) | phase_times_legacy(lpayloads[0], card)
+             | phase_times_develop(develop, card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -517,9 +821,14 @@ def main() -> None:
         {"name": "checksum", "route": "cuda",
          "source": "mcraw_torch/csrc/checksum.cu",
          "replaces": "mcraw/kernels/checksum.py:27",
-         "launches": modern["checksum"] + old["checksum"],
+         "launches": modern["checksum"] + old["checksum"] + dev["checksum"],
          "max_abs_err": errs["checksum"],
          "ms": t["checksum_ms"], "plain_ms": t["checksum_plain_ms"]},
+        {"name": "develop", "route": "cuda",
+         "source": "mcraw_torch/csrc/develop.cu",
+         "replaces": "mcraw/kernels/pallas_develop.py:66, :338",
+         "launches": dev["develop"], "max_abs_err": errs["develop"],
+         "ms": t["develop_bilinear_ms"], "plain_ms": t["develop_bilinear_plain_ms"]},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

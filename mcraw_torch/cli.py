@@ -6,7 +6,13 @@ files byte-identical to ``python -m mcraw <file> [-n N]`` (and so to the
 C++ reference example), for clips of either codec or a mix of both.
 Extras: ``--output-dir``, ``--resume`` (skip DNGs that exist) and
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain torch
-versions). The JAX package's other subcommands are not ported yet.
+versions).
+
+``python -m mcraw_torch preview <file> [-n N] [--output-dir D]
+[--demosaic bilinear|malvar] [--device cuda|cpu]`` develops the first N
+frames (default 1) to ``preview_%06d.ppm`` (binary P6 sRGB), as
+``python -m mcraw preview`` does. The JAX package's other subcommands are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -22,9 +28,10 @@ from mcraw.errors import MotionCamException
 from mcraw.util import outpath as _outpath
 
 from .pipeline import Decoder
+from .preview import preview_frame
 
 USAGE = "Usage: decoder <input file> [-n number of frames to export]"
-NOT_PORTED = ("info", "encode", "preview", "verify")
+NOT_PORTED = ("info", "encode", "verify")
 
 
 def _decode_body(args: argparse.Namespace) -> int:
@@ -63,16 +70,7 @@ def _decode_body(args: argparse.Namespace) -> int:
     return 0
 
 
-def main(argv: list[str] | None = None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv:
-        print(USAGE)
-        return -1
-    if argv[0] in NOT_PORTED:
-        print(f"Error: '{argv[0]}' is not yet ported to mcraw_torch; use "
-              f"python -m mcraw {argv[0]}", file=sys.stderr)
-        return 2
-
+def _decode_args(argv: list[str]) -> argparse.Namespace:
     # Reference argv edges (mcraw.cli.main): for `<file> ...` a dangling
     # `-n` is ignored, the -n value is prefix-parsed like std::stoi ("2x" ->
     # 2), and unrecognized extra arguments are ignored.
@@ -98,8 +96,57 @@ def main(argv: list[str] | None = None) -> int:
         args, _extras = ap.parse_known_args(argv)
     else:
         args = ap.parse_args(argv)
+    return args
+
+
+def _preview_body(args: argparse.Namespace) -> int:
+    """Develop frames to viewable sRGB images (binary PPM, no deps)."""
     try:
-        return _decode_body(args)
+        d = Decoder(args.input, device=args.device)
+        frames = d.frames
+        n = len(frames) if args.num_frames is None else min(args.num_frames, len(frames))
+        os.makedirs(args.output_dir, exist_ok=True)
+        for i in range(n):
+            rgb = preview_frame(d, frames[i], demosaic=args.demosaic).cpu().numpy()
+            path = os.path.join(args.output_dir, f"preview_{i:06d}.ppm")
+            with open(path, "wb") as f:
+                f.write(b"P6\n%d %d\n255\n" % (rgb.shape[1], rgb.shape[0]))
+                f.write(rgb.tobytes())
+            print(f"Writing {path}")
+    except MotionCamException as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return -1
+    return 0
+
+
+def _preview_args(argv: list[str]) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="mcraw_torch preview")
+    ap.add_argument("input")
+    ap.add_argument("-n", dest="num_frames", type=int, default=1)
+    ap.add_argument("--output-dir", default=".")
+    ap.add_argument("--demosaic", default="bilinear",
+                    choices=("bilinear", "malvar"),
+                    help="malvar: 5x5 gradient-corrected (MHC) demosaic")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print(USAGE)
+        return -1
+    if argv[0] in NOT_PORTED:
+        print(f"Error: '{argv[0]}' is not yet ported to mcraw_torch; use "
+              f"python -m mcraw {argv[0]}", file=sys.stderr)
+        return 2
+    if argv[0] == "preview":
+        body, args = _preview_body, _preview_args(argv[1:])
+    else:
+        body, args = _decode_body, _decode_args(argv)
+    try:
+        return body(args)
     except BrokenPipeError:
         # stdout consumer (e.g. `| head`) closed early: exit quietly.
         try:

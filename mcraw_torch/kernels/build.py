@@ -126,6 +126,10 @@ def lib() -> ctypes.CDLL:
             ]
             cdll.mcraw_checksum.restype = ctypes.c_int
             cdll.mcraw_checksum.argtypes = [p, i64, ctypes.c_int32, p, p]
+            cdll.mcraw_develop.restype = ctypes.c_int
+            cdll.mcraw_develop.argtypes = [
+                p, p, i64, i64, i64, p, p, ctypes.c_int32, p,
+            ]
             cdll.mcraw_cuda_error_string.restype = ctypes.c_char_p
             cdll.mcraw_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = cdll

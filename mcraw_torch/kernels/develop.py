@@ -1,0 +1,243 @@
+"""Develop: Bayer uint16 -> packed RGBA8888, in one pass.
+
+The port of the JAX package's fused develop kernel
+(``mcraw/kernels/pallas_develop.py::_develop_kernel`` + ``_develop_emit``,
+launched by ``develop_rgba_pallas``). Per pixel, in float32:
+
+1. normalize every tap by its CFA site: ``clip((raw - black) * 1/(white -
+   black), 0, 1)``; taps outside the frame are 0;
+2. demosaic, bilinear or Malvar-He-Cutler 5x5, with white balance (the
+   gains 1/as_shot_neutral) after the normalized convolution (bilinear) or
+   on every tap before it (Malvar); clip;
+3. the 3x3 matrix XYZ(D50)->sRGB @ forward matrix, clip, the sRGB curve
+   ``1.055 * exp(log(x) / 2.4) - 0.055`` (linear below 0.0031308), and
+   ``round(x * 255)`` half to even;
+4. pack R | G<<8 | B<<16 | 0xFF<<24 into one uint32.
+
+:func:`develop_rgba_plain` is that function in plain torch, with the
+kernel's arithmetic and order of operations; :func:`develop_rgba_device`
+is the wrapper: the plain version only for CPU tensors, the hand-written
+CUDA kernel (``csrc/develop.cu``) for CUDA tensors, anything else raises.
+A (B, H, W) batch develops each frame on its own: no tap reads a
+neighbouring frame.
+
+Not ported: the streamed-table normalizer (``inv2d``), ``gamma_mode="poly"``,
+``ablate`` and ``band_rows``, which select TPU variants and timings.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mcraw.metadata import CFA_PATTERNS
+
+from . import build
+
+DEMOSAICS = ("bilinear", "malvar")
+# The four 2x2 Bayer patterns: 0=R, 1=G, 2=B, the two G sites on a diagonal.
+BAYER_CFAS = tuple(tuple(cfa) for cfa in CFA_PATTERNS.values())
+N_PARAMS = 17  # b0..b3, white, g0..g2, m00..m22
+
+# Launch counters: the kernel's launches and the plain version's calls.
+KERNEL_LAUNCHES = 0
+PLAIN_CALLS = 0
+
+
+def pack_develop_params(
+    black_level, white_level, as_shot_neutral, forward_matrix
+) -> np.ndarray:
+    """(1, 128) float32 parameter row: [b0..b3, white, 1/neutral (3),
+    m = XYZ(D50)->sRGB @ forward_matrix (9, row-major), 0...]. The same
+    row, bit for bit, as ``pallas_develop.pack_develop_params``."""
+    from ..preview import _XYZ_D50_TO_SRGB
+
+    p = np.zeros((1, 128), dtype=np.float32)
+    p[0, 0:4] = np.asarray(black_level, dtype=np.float32)
+    p[0, 4] = np.float32(white_level)
+    p[0, 5:8] = 1.0 / np.asarray(as_shot_neutral, dtype=np.float32)
+    m = _XYZ_D50_TO_SRGB @ np.asarray(
+        forward_matrix, dtype=np.float32
+    ).reshape(3, 3)
+    p[0, 8:17] = m.reshape(-1)
+    return p
+
+
+def _params_row(params) -> np.ndarray:
+    p = np.ascontiguousarray(np.asarray(params, dtype=np.float32).reshape(-1))
+    if p.size < N_PARAMS:
+        raise ValueError(f"params has {p.size} values, need {N_PARAMS}")
+    return p
+
+
+def _check(raw: torch.Tensor, cfa, demosaic: str) -> None:
+    if raw.dtype != torch.uint16 or raw.dim() not in (2, 3):
+        raise ValueError(
+            f"raw must be a (H, W) or (B, H, W) uint16 tensor, got {raw.dtype} "
+            f"{tuple(raw.shape)}"
+        )
+    if tuple(cfa) not in BAYER_CFAS:
+        raise ValueError(f"cfa must be one of the Bayer patterns {BAYER_CFAS}, got {cfa}")
+    if demosaic not in DEMOSAICS:
+        raise ValueError(f"demosaic must be one of {DEMOSAICS}, got {demosaic!r}")
+
+
+def _bilinear_inv(h: int, w: int, cfa, device) -> list[torch.Tensor]:
+    """Closed-form 1/conv(mask) for R, G, B (``pallas_develop.py:269-318``),
+    each broadcastable to (h, w).
+
+    R/B: kernel and single-phase mask factorize, so the normalizer is
+    fac(row) * fac(col) with fac in {0, 1/2, 1}. G: a G site's cross arms
+    are never G, so 1/4 there; a non-G site's arms are all G, so 1/(4 -
+    clipped arms). Every value is the correctly rounded float32 of 1/n,
+    equal bit for bit to the table where the table is finite."""
+    rows = torch.arange(h, device=device)[:, None]
+    cols = torch.arange(w, device=device)[None, :]
+
+    def fac(idx, par, last):
+        b0 = (idx & 1) == par
+        bm = (idx > 0) & (((idx - 1) & 1) == par)
+        bp = (idx < last) & (((idx + 1) & 1) == par)
+        f = b0.to(torch.float32) * 2.0 + bm.to(torch.float32) + bp.to(torch.float32)
+        return torch.where(f > 0, 1.0 / f, 0.0)
+
+    pos = {ch: i for i, ch in enumerate(cfa)}  # channel -> 2x2 index
+    inv = {
+        c: fac(rows, pos[c] // 2, h - 1) * fac(cols, pos[c] % 2, w - 1)
+        for c in (0, 2)
+    }
+    arms = ((rows == 0).to(torch.int64) + (rows == h - 1).to(torch.int64)
+            + (cols == 0).to(torch.int64) + (cols == w - 1).to(torch.int64))
+    by_arms = torch.tensor([0.25, 1.0 / 3.0, 0.5, 1.0, 1.0], device=device)
+    chan = site_map(torch.tensor(cfa, device=device), h, w)
+    inv[1] = torch.where(chan == 1, 0.25, by_arms[arms])
+    return [inv[0], inv[1], inv[2]]
+
+
+def site_map(v: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(h, w) map of the per-site values v[0..3] (2x2 index by parity)."""
+    yy = (torch.arange(h, device=v.device) % 2 == 0)[:, None]
+    xx = (torch.arange(w, device=v.device) % 2 == 0)[None, :]
+    return torch.where(yy, torch.where(xx, v[0], v[1]), torch.where(xx, v[2], v[3]))
+
+
+def pack_rgba(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """uint32 R | G<<8 | B<<16 | 0xFF<<24 of three 0..255 channel tensors,
+    packed in int64 (torch has no shifts on uint32)."""
+    r, g, b = (c.to(torch.int64) for c in (r, g, b))
+    return (r | (g << 8) | (b << 16) | (0xFF << 24)).to(torch.uint32)
+
+
+def develop_rgba_plain(
+    raw: torch.Tensor, params, *, cfa, demosaic: str = "bilinear"
+) -> torch.Tensor:
+    """Plain torch version of the develop kernel, on raw's device.
+
+    raw: (H, W) or (B, H, W) uint16; params: the host row of
+    :func:`pack_develop_params`. Returns uint32 RGBA8888 of raw's shape.
+
+    float32 throughout, with the kernel's order of operations: the taps of
+    each sum added in the same order, products and sums rounded one at a
+    time. Shifts are zero padding + slices per frame; there is no conv2d
+    and no matmul, so TF32 cannot enter on the card. The transcendentals
+    are torch's, so kernel and plain version may still differ by one LSB at
+    a rounding boundary."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    _check(raw, cfa, demosaic)
+    cfa = tuple(int(c) for c in cfa)
+    p = [float(v) for v in _params_row(params)[:N_PARAMS]]
+    b, wf, g, m = p[0:4], np.float32(p[4]), p[5:8], p[8:17]
+    frames = raw if raw.dim() == 3 else raw[None]
+    _, h, w = frames.shape
+    dev = raw.device
+    if h == 0 or w == 0:
+        return torch.empty(raw.shape, dtype=torch.uint32, device=dev)
+
+    inv_sc = [float(np.float32(1.0) / (wf - np.float32(bk))) for bk in b]
+    bl = site_map(torch.tensor(b, device=dev), h, w)
+    isc = site_map(torch.tensor(inv_sc, device=dev), h, w)
+    x = ((frames.to(torch.float32) - bl) * isc).clamp(0.0, 1.0)
+    chan = site_map(torch.tensor(cfa, device=dev), h, w)
+
+    def shifts(t, r):
+        # sh(dy, dx)[..., y, x] = t[..., y + dy, x + dx], 0 outside the frame.
+        tp = torch.nn.functional.pad(t, (r, r, r, r))
+        return lambda dy, dx: tp[:, r + dy : r + dy + h, r + dx : r + dx + w]
+
+    if demosaic == "malvar":
+        gs = site_map(torch.tensor([g[c] for c in cfa], device=dev), h, w)
+        sh = shifts(x * gs, 2)
+        mid = sh(0, 0)
+        h1 = sh(0, 1) + sh(0, -1)
+        h2 = sh(0, 2) + sh(0, -2)
+        v1 = sh(-1, 0) + sh(1, 0)
+        v2 = sh(-2, 0) + sh(2, 0)
+        d1 = sh(-1, 1) + sh(-1, -1) + sh(1, 1) + sh(1, -1)
+        k1 = (4.0 * mid + 2.0 * (h1 + v1) - (h2 + v2)) * 0.125
+        k2 = (5.0 * mid + 4.0 * h1 - d1 - h2 + 0.5 * v2) * 0.125
+        k3 = (5.0 * mid + 4.0 * v1 - d1 - v2 + 0.5 * h2) * 0.125
+        k4 = (6.0 * mid + 2.0 * d1 - 1.5 * (h2 + v2)) * 0.125
+        # Channel of the horizontally adjacent site: tells the G phases apart.
+        hcm = site_map(torch.tensor([cfa[1], cfa[0], cfa[3], cfa[2]], device=dev), h, w)
+        gg = torch.where(chan == 1, mid, k1)
+        rr = torch.where(chan == 0, mid,
+                         torch.where(chan == 1, torch.where(hcm == 0, k2, k3), k4))
+        bb = torch.where(chan == 2, mid,
+                         torch.where(chan == 1, torch.where(hcm == 2, k2, k3), k4))
+        rgb = [t.clamp(0.0, 1.0) for t in (rr, gg, bb)]
+    else:
+        inv = _bilinear_inv(h, w, cfa, dev)
+        rgb = []
+        for c in range(3):
+            sh = shifts(torch.where(chan == c, x, 0.0), 1)
+            if c == 1:  # cross: 4 * mid + up + down + right + left
+                num = 4.0 * sh(0, 0) + sh(-1, 0) + sh(1, 0) + sh(0, 1) + sh(0, -1)
+            else:  # [1, 2, 1]^T x [1, 2, 1], separable: rows, then columns
+                v = {dx: sh(-1, dx) + 2.0 * sh(0, dx) + sh(1, dx) for dx in (-1, 0, 1)}
+                num = 2.0 * v[0] + v[1] + v[-1]
+            rgb.append((num * inv[c] * g[c]).clamp(0.0, 1.0))
+
+    out = []
+    for r in range(3):
+        lin = m[3 * r] * rgb[0] + m[3 * r + 1] * rgb[1] + m[3 * r + 2] * rgb[2]
+        lin = lin.clamp(0.0, 1.0)
+        curve = 1.055 * torch.exp(torch.log(lin.clamp_min(1e-12)) / 2.4) - 0.055
+        srgb = torch.where(lin <= 0.0031308, 12.92 * lin, curve)
+        out.append(torch.round(srgb.clamp(0.0, 1.0) * 255.0))
+    return pack_rgba(*out).reshape(raw.shape)
+
+
+def develop_rgba_device(
+    raw: torch.Tensor, params, *, cfa, demosaic: str = "bilinear"
+) -> torch.Tensor:
+    """Develop (H, W) or (B, H, W) uint16 Bayer to uint32 RGBA8888.
+
+    params: the host (1, 128) float32 row of :func:`pack_develop_params`;
+    cfa: one of :data:`BAYER_CFAS`; demosaic: "bilinear" or "malvar".
+    CUDA tensors launch the kernel on the current stream (the parameters
+    go in by value, no copy to the device); CPU tensors take
+    :func:`develop_rgba_plain`; any other device raises."""
+    global KERNEL_LAUNCHES
+    if raw.device.type == "cpu":
+        return develop_rgba_plain(raw, params, cfa=cfa, demosaic=demosaic)
+    if raw.device.type != "cuda":
+        raise ValueError(f"no develop kernel for device {raw.device}")
+    _check(raw, cfa, demosaic)
+    raw = raw.contiguous()
+    prm = _params_row(params)
+    cfa32 = np.asarray(cfa, dtype=np.int32)
+    frames, h, w = (raw.shape if raw.dim() == 3 else (1, *raw.shape))
+    out = torch.empty(raw.shape, dtype=torch.uint32, device=raw.device)
+    if out.numel() == 0:
+        return out
+    lib = build.lib()
+    with torch.cuda.device(raw.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mcraw_develop(
+            raw.data_ptr(), out.data_ptr(), frames, h, w,
+            prm.ctypes.data, cfa32.ctypes.data, DEMOSAICS.index(demosaic), stream,
+        )
+    build.check(err, "mcraw_develop")
+    KERNEL_LAUNCHES += 1
+    return out

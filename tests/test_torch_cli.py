@@ -2,6 +2,8 @@
 stdout, byte-identical audio.wav and DNGs, the reference's argv edges, and
 no JAX in a process that only uses mcraw_torch."""
 
+import contextlib
+import io
 import os
 import subprocess
 import sys
@@ -58,6 +60,13 @@ def _run(args, cwd):
     env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300)
+
+
+@contextlib.contextmanager
+def _captured_stdout():
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        yield buf
 
 
 def _assert_same_outputs(a: Path, b: Path, n_frames: int):
@@ -156,6 +165,46 @@ def test_cli_unported_subcommand(capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+def test_preview_cli_parity(clip, legacy_clip, tmp_path, monkeypatch, demosaic):
+    """python -m mcraw_torch preview against mcraw.cli preview (the JAX
+    package's Pallas develop in interpret mode): the same stdout, PPM
+    headers and sizes, pixel bytes within 1 (<= 1 LSB develop contract)."""
+    for src in (clip, legacy_clip):
+        mine, ref = tmp_path / src.stem / "mine", tmp_path / src.stem / "ref"
+        mine.mkdir(parents=True)
+        ref.mkdir()
+        args = ["preview", str(src), "-n", "2", "--output-dir", "out",
+                "--demosaic", demosaic]
+        got = _run(["-m", "mcraw_torch", *args, "--device", "cpu"], mine)
+        assert got.returncode == 0, got.stderr
+        monkeypatch.chdir(ref)
+        with _captured_stdout() as out:
+            assert ref_cli.main(args) == 0
+        assert got.stdout == out.getvalue()
+        assert got.stdout == "Writing out/preview_000000.ppm\nWriting out/preview_000001.ppm\n"
+        for name in ("preview_000000.ppm", "preview_000001.ppm"):
+            a = (mine / "out" / name).read_bytes()
+            b = (ref / "out" / name).read_bytes()
+            w = 192 if src == clip else 200
+            header = b"P6\n%d 16\n255\n" % w
+            assert a[: len(header)] == b[: len(header)] == header
+            assert len(a) == len(b) == len(header) + 16 * w * 3
+            pa = np.frombuffer(a[len(header):], np.uint8).astype(np.int64)
+            pb = np.frombuffer(b[len(header):], np.uint8).astype(np.int64)
+            assert np.abs(pa - pb).max() <= 1
+
+
+def test_preview_cli_error(tmp_path, capsys):
+    missing = str(tmp_path / "nope.mcraw")
+    assert cli.main(["preview", missing, "--device", "cpu"]) == -1
+    a = capsys.readouterr()
+    assert ref_cli.main(["preview", missing]) == -1
+    b = capsys.readouterr()
+    assert a.out == b.out == ""
+    assert a.err == b.err and a.err.startswith("Error: ")
+
+
 def test_fresh_interpreter_never_imports_jax(clip, legacy_clip, tmp_path):
     code = (
         "import sys, numpy as np, mcraw_torch\n"
@@ -166,6 +215,9 @@ def test_fresh_interpreter_never_imports_jax(clip, legacy_clip, tmp_path):
         "img, meta = d.load_frame(d.frames[0])\n"
         "assert meta['compressionType'] == 6\n"
         "assert img.shape == (16, 200) and img.dtype == np.uint16\n"
+        "from mcraw_torch.preview import preview_frame_rgba\n"
+        "rgba = preview_frame_rgba(d, d.frames[0], demosaic='malvar')\n"
+        "assert rgba.shape == (16, 200) and str(rgba.dtype) == 'torch.uint32'\n"
         "import mcraw_torch.cli, mcraw_torch.kernels.checksum\n"
         "print('jax' in sys.modules)\n"
     )

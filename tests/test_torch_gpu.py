@@ -12,9 +12,11 @@ import torch
 
 from mcraw import encode as E
 from mcraw.kernels import tables as T
-from mcraw.metadata import example_container_metadata, example_frame_metadata
+from mcraw.metadata import CFA_PATTERNS, example_container_metadata, example_frame_metadata
 from mcraw_torch import Decoder
+from mcraw_torch import preview as P
 from mcraw_torch.kernels import checksum as C
+from mcraw_torch.kernels import develop as D
 from mcraw_torch.kernels import legacy as L
 from mcraw_torch.kernels import unpack as U
 from mcraw_torch.kernels.tables import modern_tables
@@ -26,6 +28,9 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    # The plain versions hold no matmul or conv; TF32 stays off all the same.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -127,3 +132,92 @@ def test_decoder_on_card(cuda):
     assert (U.KERNEL_LAUNCHES, U.PLAIN_CALLS, L.KERNEL_LAUNCHES, L.PLAIN_CALLS) == (
         counts[0] + 3, counts[1], counts[2] + 3, counts[3]
     )
+
+
+def _channels(rgba: torch.Tensor) -> np.ndarray:
+    a = rgba.to(torch.int64).cpu().numpy()
+    assert ((a >> 24) == 0xFF).all()
+    return np.stack([a & 0xFF, (a >> 8) & 0xFF, (a >> 16) & 0xFF], -1)
+
+
+DEVELOP_ARGS = (
+    np.array([64, 60, 70, 64], np.float32), 4095.0,
+    np.array([0.61, 1.0, 0.72], np.float32),
+    np.array([[0.86, 0.08, 0.02], [0.04, 0.91, 0.05], [0.01, 0.06, 0.76]], np.float32),
+)
+
+
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+@pytest.mark.parametrize(
+    "shape, sensor",
+    [((16, 128), "rggb"), ((36, 250), "bggr"), ((3, 64), "grbg"), ((5, 7), "gbrg"),
+     ((3024, 4032), "bggr")],
+)
+def test_develop_kernel_equals_plain_and_f64(cuda, shape, sensor, demosaic):
+    """<= 1 LSB per channel against the plain version on the card and the
+    f64 model; alpha 255."""
+    h, w = shape
+    cfa = tuple(CFA_PATTERNS[sensor])
+    raw = np.random.default_rng(h + w).integers(0, 4096, size=shape, dtype=np.uint16)
+    params = D.pack_develop_params(*DEVELOP_ARGS)
+    x = torch.from_numpy(raw).to(cuda)
+    launches = D.KERNEL_LAUNCHES
+    got = D.develop_rgba_device(x, params, cfa=cfa, demosaic=demosaic)
+    want = D.develop_rgba_plain(x, params, cfa=cfa, demosaic=demosaic)
+    torch.cuda.synchronize()
+    assert D.KERNEL_LAUNCHES == launches + 1
+    assert got.shape == shape and got.dtype == torch.uint32
+    g = _channels(got)
+    assert np.abs(g - _channels(want)).max() <= 1
+    if h * w <= 1 << 16:
+        model = P.develop_f64(raw, *DEVELOP_ARGS, cfa, demosaic=demosaic)
+        assert np.abs(g - model).max() <= 1
+
+
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+@pytest.mark.parametrize("h", [3, 5, 66])
+def test_develop_kernel_batched_equals_single(cuda, h, demosaic):
+    """Black, white and noise frames in one launch: no frame reads its
+    neighbour's rows."""
+    w = 70
+    frames = np.stack([
+        np.zeros((h, w), np.uint16), np.full((h, w), 4095, np.uint16),
+        np.random.default_rng(h).integers(0, 4096, size=(h, w), dtype=np.uint16),
+    ])
+    params = D.pack_develop_params(*DEVELOP_ARGS)
+    x = torch.from_numpy(frames).to(cuda)
+    kw = dict(cfa=(1, 0, 2, 1), demosaic=demosaic)
+    batched = D.develop_rgba_device(x, params, **kw)
+    singles = torch.stack([D.develop_rgba_device(f, params, **kw) for f in x])
+    assert torch.equal(batched.to(torch.int64), singles.to(torch.int64))
+
+
+def test_preview_on_card(cuda):
+    """A modern and a legacy frame through preview_frame_rgba on the card:
+    one develop launch each, no plain call, within 1 LSB of the f64 model."""
+    from mcraw.color import interpolated_matrices
+    from mcraw.metadata import ContainerMetadata
+
+    rng = np.random.default_rng(6)
+    cm = example_container_metadata(sensor="bggr", black_level=(64, 60, 70, 64),
+                                    white_level=4095.0)
+    writer = E.ContainerWriter(cm)
+    imgs = [rng.integers(0, 4096, size=(64, 256), dtype=np.uint16),
+            rng.integers(0, 4096, size=(24, 200), dtype=np.uint16)]
+    for i, img in enumerate(imgs):
+        h, w = img.shape
+        payload = E.encode_modern(img) if i == 0 else E.encode_legacy(img)
+        writer.add_frame(i, payload, example_frame_metadata(w, h, 7 if i == 0 else 6))
+    d = Decoder(writer.finish(), device="cuda")
+    counts = (D.KERNEL_LAUNCHES, D.PLAIN_CALLS, P.DEVELOP_CALLS)
+    outs = [P.preview_frame_rgba(d, ts, demosaic="malvar") for ts in d.frames]
+    assert (D.KERNEL_LAUNCHES, D.PLAIN_CALLS, P.DEVELOP_CALLS) == (
+        counts[0] + 2, counts[1], counts[2]
+    )
+    meta = ContainerMetadata(d.container_metadata)
+    neutral = example_frame_metadata(1, 1)["asShotNeutral"]
+    fwd, _, _ = interpolated_matrices(meta, neutral)
+    for img, rgba in zip(imgs, outs):
+        model = P.develop_f64(img, meta.black_level, meta.white_level, neutral, fwd,
+                              tuple(meta.cfa_pattern), demosaic="malvar")
+        assert np.abs(_channels(rgba) - model).max() <= 1
