@@ -11,20 +11,24 @@ failure exits non-zero and prints no result:
 2. build: nvcc builds the kernels from ``mcraw_torch/csrc``.
 3. kernels: each CUDA kernel against its plain torch version on the card:
    element-exact for the integer kernels (modern unpack at four geometries
-   with bits 0..65535 and wrapping refs; legacy unpack at five geometries
-   up to 4096x3072 on a synthetic header chain with bits 0..16; checksum at
-   odd shapes, 4K uint16, (6144, 4096) uint32), <= 1 LSB per channel with
-   alpha 255 for develop (both demosaic modes at (16, 128), (36, 250),
-   (3, 64) and (3024, 4032); (3072, 4096) in the bench's parameters; all
-   four CFAs at a small size; the small ones also against the f64 model;
-   and a (2, 3072, 4096) batch bit-equal to two single calls).
+   with bits 0..65535 and wrapping refs, and at the tiled kernel's edges:
+   widths 4032, 4000 (W % 64 != 0), 4036 and 4090 (W % 8 != 0), a short
+   encodedHeight, bits 0..16 one width a tile, all-16-bit blocks, shuffled
+   offsets; legacy unpack at five geometries up to 4096x3072 on a synthetic
+   header chain with bits 0..16; checksum at odd shapes, 4K uint16,
+   (6144, 4096) uint32), <= 1 LSB per channel with alpha 255 for develop
+   (both demosaic modes at (16, 128), (36, 250), (3, 64) and (3024, 4032);
+   the tiled kernel's edges (37, 251), (65, 130), (3, 101), (5, 7),
+   (33, 66); (3072, 4096) in the bench's parameters; all four CFAs at a
+   small size; the small ones also against the f64 model; a (3, 5, 250)
+   and a (2, 3072, 4096) batch bit-equal to single calls).
 4. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - decode, one per codec: a 4096x3072 modern clip (three 12-bit frames,
      a worst-case frame, an all-16-bit frame, audio) and a legacy clip (two
      4096x3072 12-bit frames, a full-range 16-bit frame, a 4032x3024 frame,
      a frame without the trailing chunk table, audio), written with
-     mcraw.encode and decoded by
+     mcraw_torch.encode and decoded by
      ``mcraw_torch.Decoder(path, device="cuda").load_frame_device``; every
      frame equals its source image and its device checksum the host's. The
      counters must show one unpack launch of the clip's codec and one
@@ -49,8 +53,14 @@ failure exits non-zero and prints no result:
    scans (the legacy scan also on its own), H2D, device prep (modern) and
    kernel, and the ``preview_frame_rgba`` split: decode and develop.
 
-The line before last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``. Needs one card, no network and no JAX.
+The line before last is ``{"kernels": [...]}``: one entry per TPU kernel
+of the repo (eight; the routed ones carry the numbers of the CUDA kernel
+that computes them) with its launches on the main paths, its error, its
+times, its bound from this run's bytes and operations, and the time of
+one torch call that computes the same function where there is one. The
+last line is ``{"ok": true, "device": {...}}``. Needs one card, no network,
+no JAX and nothing of mcraw (the CLI phase runs ``python -m mcraw`` as a
+separate process to compare with).
 """
 
 from __future__ import annotations
@@ -70,6 +80,15 @@ ROOT = Path(__file__).resolve().parent
 H, W = 3072, 4096
 N_TIMED = 20
 L2_FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2
+SPIN_CYCLES = 200_000  # ~0.11 ms at the H100's 1.755 GHz boost clock
+# H100 SXM data sheet, at the 700 W limit: HBM3 rate, float32 outside the
+# tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# float32 operations per pixel of the develop function (plain version's
+# arithmetic): normalize 4; demosaic ~41 bilinear (R and B 16 each, G 9),
+# ~40 Malvar; matrix + clip 21; curve + round 27 (a pow counted as 3).
+DEVELOP_FP32_OPS_PER_PIXEL = 93
 
 
 def fail(msg: str):
@@ -98,26 +117,25 @@ if not torch.cuda.is_available():
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from mcraw import encode as E  # noqa: E402  (NumPy-only fixture writer)
-from mcraw.color import interpolated_matrices  # noqa: E402  (NumPy only)
-from mcraw.kernels import native  # noqa: E402  (NumPy-only host scans)
-from mcraw.kernels import tables as T  # noqa: E402
-from mcraw.metadata import (  # noqa: E402
+import mcraw_torch  # noqa: E402
+from mcraw_torch import encode as E  # noqa: E402  (the fixture writer)
+from mcraw_torch import preview as P  # noqa: E402
+from mcraw_torch.color import interpolated_matrices  # noqa: E402
+from mcraw_torch.kernels import build  # noqa: E402
+from mcraw_torch.kernels import checksum as C  # noqa: E402
+from mcraw_torch.kernels import develop as D  # noqa: E402
+from mcraw_torch.kernels import legacy as L  # noqa: E402
+from mcraw_torch.kernels import native  # noqa: E402  (the C++ host scans)
+from mcraw_torch.kernels import tables as T  # noqa: E402
+from mcraw_torch.kernels import unpack as U  # noqa: E402
+from mcraw_torch.kernels.tables import modern_tables  # noqa: E402
+from mcraw_torch.metadata import (  # noqa: E402
     CFA_PATTERNS,
     ContainerMetadata,
     FrameMetadata,
     example_container_metadata,
     example_frame_metadata,
 )
-
-import mcraw_torch  # noqa: E402
-from mcraw_torch import preview as P  # noqa: E402
-from mcraw_torch.kernels import build  # noqa: E402
-from mcraw_torch.kernels import checksum as C  # noqa: E402
-from mcraw_torch.kernels import develop as D  # noqa: E402
-from mcraw_torch.kernels import legacy as L  # noqa: E402
-from mcraw_torch.kernels import unpack as U  # noqa: E402
-from mcraw_torch.kernels.tables import modern_tables  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -183,6 +201,46 @@ def random_unpack_inputs(rng, ty: int, tx: int):
     return w, b, r, U.block_offsets(b, modern_tables(DEV))
 
 
+def edge_unpack_inputs(rng, ty: int, tx: int, content: str):
+    """Unpack inputs whose bits follow `content`: "per_tile" (every block of
+    tile i at bits i % 17, so each tile holds one width and all of 0..16
+    occur), "all16" (every block 16-bit: the straight copy), "scrambled"
+    (random bits, the offsets shuffled: the kernel reads such a run word by
+    word from device memory) or "random"."""
+    nblk = 4 * ty * tx
+    if content == "per_tile":
+        bits = (np.arange(nblk) // 4 % 17).astype(np.uint16)
+    elif content == "all16":
+        bits = rng.integers(11, 17, size=nblk, dtype=np.uint16)
+    else:
+        bits = rng.integers(0, 17, size=nblk, dtype=np.uint16)
+    refs = rng.integers(0, 1 << 16, size=nblk, dtype=np.uint16)
+    size = 16 + int(T.MODERN_BLOCK_LENGTH[bits].sum()) + U.TAIL_BYTES
+    size += (-size) % 16
+    payload = rng.integers(0, 256, size=size, dtype=np.uint8)
+    w, b, r = (torch.from_numpy(a).to(DEV) for a in (payload.view("<i4"), bits, refs))
+    offs = U.block_offsets(b, modern_tables(DEV))
+    if content == "scrambled":
+        offs = offs[torch.from_numpy(rng.permutation(nblk)).to(DEV)].contiguous()
+    return w, b, r, offs
+
+
+# (ty, tx, height, width, content): the unpack kernel's edges. 4032: the
+# last tile column cropped away; 4000: a tile crosses the crop (W % 64 !=
+# 0); 4036, 4090: W % 8 != 0, masked stores; 40 of 50 rows encoded (a
+# short encodedHeight: the rest stay zero); every tile one width 0..16.
+UNPACK_EDGES = (
+    (768, 64, H, 4032, "per_tile"),
+    (768, 63, H, 4000, "random"),
+    (768, 64, H, 4036, "per_tile"),
+    (768, 64, H, 4090, "random"),
+    (10, 8, 50, 512, "random"),
+    (768, 64, H, W, "per_tile"),
+    (7, 5, 28, 300, "all16"),
+    (9, 4, 36, 256, "scrambled"),
+)
+
+
 def random_legacy_inputs(rng, h: int, w: int):
     """Random payload bytes on a synthetic header chain: bits 0..16 (every
     value among the first 17 blocks), refs 0..4095, offsets the cumulative
@@ -199,7 +257,7 @@ def random_legacy_inputs(rng, h: int, w: int):
 
 
 def phase_kernels(rng) -> dict:
-    errs = {"unpack": 0, "unpack_legacy": 0, "checksum": 0}
+    errs = {"unpack_modern": 0, "unpack_legacy": 0, "checksum": 0}
     # (ty, tx, height, width): exact, cropped + ragged, short rows, 4K.
     for ty, tx, h, w in ((3, 2, 12, 128), (25, 7, 99, 420), (3, 2, 20, 100),
                          (768, 64, H, W)):
@@ -209,11 +267,24 @@ def phase_kernels(rng) -> dict:
         want = U.decode_modern_plain(words, bits, refs, offs, **kw)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
-        errs["unpack"] = max(errs["unpack"], err)
+        errs["unpack_modern"] = max(errs["unpack_modern"], err)
         check(got.shape == (h, w) and err == 0,
               f"unpack kernel != plain at ty={ty} tx={tx} ({h}x{w}): err {err}")
         emit("kernels", kernel="unpack_modern", ty=ty, tx=tx, height=h,
              width=w, max_abs_err=err)
+    for ty, tx, h, w, content in UNPACK_EDGES:
+        words, bits, refs, offs = edge_unpack_inputs(rng, ty, tx, content)
+        kw = dict(ty=ty, tx=tx, height=h, width=w)
+        got = U.decode_modern_device(words, bits, refs, offs, **kw)
+        want = U.decode_modern_plain(words, bits, refs, offs, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        errs["unpack_modern"] = max(errs["unpack_modern"], err)
+        check(got.shape == (h, w) and err == 0,
+              f"unpack kernel != plain at edge ty={ty} tx={tx} ({h}x{w}) {content}: "
+              f"err {err}")
+        emit("kernels", kernel="unpack_modern", case="edge", content=content, ty=ty,
+             tx=tx, height=h, width=w, max_abs_err=err)
     for h, w in ((8, 96), (5, 50), (24, 1000), (3024, 4032), (H, W)):
         args = random_legacy_inputs(rng, h, w)
         got = L.decode_legacy_device(*args, height=h, width=w)
@@ -295,7 +366,10 @@ def develop_check(raw: np.ndarray, args, cfa, demosaic: str, what: str) -> int:
     row = dict(kernel="develop", case=what, shape=list(raw.shape), cfa=list(cfa),
                demosaic=demosaic, max_abs_err=err, channels_differ=ndiff)
     if raw.size <= F64_MAX_PIXELS:
-        model = torch.from_numpy(P.develop_f64(raw, *args, cfa, demosaic=demosaic))
+        frames = raw.reshape(-1, *raw.shape[-2:])
+        model = torch.from_numpy(np.stack(
+            [P.develop_f64(f, *args, cfa, demosaic=demosaic) for f in frames]
+        ).reshape(*raw.shape, 3))
         row["f64_err"], row["f64_channels_differ"] = channel_diff(g.cpu(), model)
         check(row["f64_err"] <= 1, f"develop {what} {demosaic}: {row['f64_err']} from f64")
     check(err <= 1, f"develop kernel vs plain {what} {demosaic}: err {err}")
@@ -310,6 +384,23 @@ def phase_kernels_develop(rng) -> int:
         for h, w in ((16, 128), (36, 250), (3, 64), (3024, 4032)):
             raw = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
             err = max(err, develop_check(raw, DEVELOP_ARGS, bggr, demosaic, "test"))
+        # Edges of the tiled kernel: odd W and H, W % 4 != 0 (masked
+        # stores), H = 3, tiles cut on both axes.
+        for h, w in ((37, 251), (65, 130), (3, 101), (5, 7), (33, 66)):
+            raw = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
+            err = max(err, develop_check(raw, DEVELOP_ARGS, bggr, demosaic, "edge"))
+        # A (3, 5, 250) batch: frames 1250 pixels apart, so not 16-byte
+        # aligned; bit-equal to three single calls, <= 1 of plain and f64.
+        small = rng.integers(0, 4096, size=(3, 5, 250), dtype=np.uint16)
+        err = max(err, develop_check(small, DEVELOP_ARGS, bggr, demosaic, "batch"))
+        x = torch.from_numpy(small).to(DEV)
+        params = D.pack_develop_params(*DEVELOP_ARGS)
+        batched = D.develop_rgba_device(x, params, cfa=bggr, demosaic=demosaic)
+        singles = torch.stack(
+            [D.develop_rgba_device(f, params, cfa=bggr, demosaic=demosaic) for f in x])
+        torch.cuda.synchronize()
+        check(torch.equal(batched.to(torch.int64), singles.to(torch.int64)),
+              f"develop (3, 5, 250) batch {demosaic} != single calls")
         err = max(err, develop_check(twelve_bit(rng, 0), BENCH_DEVELOP_ARGS, RGGB,
                                      demosaic, "bench"))
         for sensor, cfa in CFA_PATTERNS.items():
@@ -621,12 +712,16 @@ def phase_cli_preview(clip: Path, work: Path, model: DevelopModel) -> None:
 
 
 def time_cuda(fn, n: int = N_TIMED) -> float:
-    """Median ms of `fn` over n runs by CUDA events, L2 flushed before each."""
+    """Median ms of `fn` over n runs by CUDA events, L2 flushed before each.
+    A spin of ~0.1 ms on the card after the flush keeps it busy while the
+    host enqueues `fn`, so the events time the card's work and not the
+    host's launch path."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
     fn()
     times = []
     for _ in range(n):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -635,6 +730,27 @@ def time_cuda(fn, n: int = N_TIMED) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def library_sum_ms(img: torch.Tensor) -> float | None:
+    """The checksum's yardstick: one torch call, an int64 sum of the uint16
+    plane (the checksum is its low 32 bits); None where torch has no such
+    sum for uint16 on the card."""
+    try:
+        img.sum(dtype=torch.int64)
+    except (RuntimeError, NotImplementedError):
+        return None
+    return time_cuda(lambda: img.sum(dtype=torch.int64))
+
+
+def bound(nbytes: int, fp32_ops: int = 0) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the float32 operations over the float32 rate
+    outside the tensor cores; and which of the two it is. The integer
+    kernels count bytes only (the peak table has no int32 rate)."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = fp32_ops / PEAK_FP32_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def phase_times(payload: np.ndarray, card: str) -> dict:
@@ -649,6 +765,10 @@ def phase_times(payload: np.ndarray, card: str) -> dict:
         "unpack_plain_ms": time_cuda(lambda: U.decode_modern_plain(*args, **kw)),
         "checksum_ms": time_cuda(lambda: C.device_checksum(img)),
         "checksum_plain_ms": time_cuda(lambda: C.checksum_plain(img)),
+        "checksum_library_ms": library_sum_ms(img),
+        # payload, bits + refs + int64 offsets per block, the uint16 plane
+        "unpack_bytes": len(payload) + dev.bits.numel() * (2 + 2 + 8) + 2 * H * W,
+        "checksum_bytes": 2 * H * W + 4,
     }
     emit("times_kernels", card=card, frame=f"{W}x{H} 12-bit", n=N_TIMED,
          payload_bytes=len(payload), **t)
@@ -695,6 +815,7 @@ def phase_times_legacy(payload: np.ndarray, card: str) -> dict:
     }
     nblk = L.num_blocks(W, H)
     moved = len(payload) + 2 * H * W + nblk * (4 + 2 + 8)
+    t["unpack_legacy_bytes"] = moved
     emit("times_kernels", card=card, frame=f"legacy {W}x{H} 12-bit", n=N_TIMED,
          scan=frame.scan, payload_bytes=len(payload), blocks=nblk,
          kernel_bytes=moved, kernel_gbps=moved / t["unpack_legacy_ms"] / 1e6, **t)
@@ -733,8 +854,9 @@ def phase_times_develop(clip: Path, card: str) -> dict:
     modes, and the preview_frame_rgba split into decode and develop."""
     x = torch.from_numpy(twelve_bit(np.random.default_rng(14), 0)).to(DEV)
     params = D.pack_develop_params(*BENCH_DEVELOP_ARGS)
-    moved = H * W * (2 + 4)  # read uint16, write uint32
-    t = {}
+    # read uint16, write uint32, the quantizer table
+    moved = H * W * (2 + 4) + D.quantizer_table().nbytes
+    t = {"develop_bytes": moved, "develop_fp32_ops": DEVELOP_FP32_OPS_PER_PIXEL * H * W}
     for demosaic in MODES:
         kw = dict(cfa=RGGB, demosaic=demosaic)
         ms = time_cuda(lambda: D.develop_rgba_device(x, params, **kw))
@@ -768,6 +890,50 @@ def phase_times_develop(clip: Path, card: str) -> dict:
     emit("times_preview_frame_rgba", card=card, frame=f"modern {W}x{H} 12-bit",
          demosaic="bilinear", n=10, clock="host, synchronized", **med)
     return t
+
+
+# Every TPU kernel of the repo (each function that reaches pl.pallas_call)
+# and the CUDA kernel that computes it: (name, TPU kernel, CUDA kernel).
+TPU_KERNELS = (
+    ("unpack_modern", "mcraw/kernels/pallas_unpack.py:491", "unpack_modern"),
+    ("unpack_modern_v4", "mcraw/kernels/pallas_unpack.py:148", "unpack_modern"),
+    ("unpack_modern_v2", "mcraw/kernels/pallas_unpack.py:1982", "unpack_modern"),
+    ("checksum", "mcraw/kernels/checksum.py:27", "checksum"),
+    ("unpack_legacy", "mcraw/kernels/pallas_legacy.py:639", "unpack_legacy"),
+    ("unpack_legacy_v5", "mcraw/kernels/pallas_legacy.py:327", "unpack_legacy"),
+    ("unpack_legacy_v1", "mcraw/kernels/pallas_legacy.py:68", "unpack_legacy"),
+    ("develop", "mcraw/kernels/pallas_develop.py:66, :338", "develop"),
+)
+
+
+def kernels_line(t: dict, errs: dict, modern: dict, old: dict, dev: dict) -> list:
+    """The {"kernels": [...]} entries: launches on the main paths, errors of
+    phase 3, times of phase 6, bounds from this run's inputs. A routed TPU
+    kernel carries the numbers of the CUDA kernel that computes it."""
+    launches = {k: modern[k] + old[k] + dev[k] for k in COUNTED}
+    cuda = {
+        "unpack_modern": (t["unpack_ms"], t["unpack_plain_ms"], None,
+                          bound(t["unpack_bytes"])),
+        "unpack_legacy": (t["unpack_legacy_ms"], t["unpack_legacy_plain_ms"], None,
+                          bound(t["unpack_legacy_bytes"])),
+        "checksum": (t["checksum_ms"], t["checksum_plain_ms"], t["checksum_library_ms"],
+                     bound(t["checksum_bytes"])),
+        "develop": (t["develop_bilinear_ms"], t["develop_bilinear_plain_ms"], None,
+                    bound(t["develop_bytes"], t["develop_fp32_ops"])),
+    }
+    rows = []
+    for name, replaces, kernel in TPU_KERNELS:
+        ms, plain_ms, library_ms, (bound_ms, bound_by) = cuda[kernel]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"mcraw_torch/csrc/{kernel}.cu",
+            "replaces": replaces, "launches": launches[kernel],
+            "max_abs_err": errs[kernel], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        })
+        if kernel == "develop":
+            rows[-1]["malvar_ms"] = t["develop_malvar_ms"]
+            rows[-1]["malvar_plain_ms"] = t["develop_malvar_plain_ms"]
+    return rows
 
 
 def main() -> None:
@@ -807,29 +973,7 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
-    kernels = [
-        {"name": "unpack_modern", "route": "cuda",
-         "source": "mcraw_torch/csrc/unpack_modern.cu",
-         "replaces": "mcraw/kernels/pallas_unpack.py:491",
-         "launches": modern["unpack_modern"], "max_abs_err": errs["unpack"],
-         "ms": t["unpack_ms"], "plain_ms": t["unpack_plain_ms"]},
-        {"name": "unpack_legacy", "route": "cuda",
-         "source": "mcraw_torch/csrc/unpack_legacy.cu",
-         "replaces": "mcraw/kernels/pallas_legacy.py:639, :327, :68",
-         "launches": old["unpack_legacy"], "max_abs_err": errs["unpack_legacy"],
-         "ms": t["unpack_legacy_ms"], "plain_ms": t["unpack_legacy_plain_ms"]},
-        {"name": "checksum", "route": "cuda",
-         "source": "mcraw_torch/csrc/checksum.cu",
-         "replaces": "mcraw/kernels/checksum.py:27",
-         "launches": modern["checksum"] + old["checksum"] + dev["checksum"],
-         "max_abs_err": errs["checksum"],
-         "ms": t["checksum_ms"], "plain_ms": t["checksum_plain_ms"]},
-        {"name": "develop", "route": "cuda",
-         "source": "mcraw_torch/csrc/develop.cu",
-         "replaces": "mcraw/kernels/pallas_develop.py:66, :338",
-         "launches": dev["develop"], "max_abs_err": errs["develop"],
-         "ms": t["develop_bilinear_ms"], "plain_ms": t["develop_bilinear_plain_ms"]},
-    ]
+    kernels = kernels_line(t, errs, modern, old, dev)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

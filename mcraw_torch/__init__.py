@@ -4,12 +4,13 @@ The port of :mod:`mcraw` (JAX and Pallas on a TPU) to an NVIDIA Hopper GPU.
 The hot passes are hand-written CUDA kernels (``csrc/``, built with nvcc
 at first use): the block unpack of each codec, the develop of a Bayer
 frame to RGBA8888 (:mod:`mcraw_torch.preview`) and the checksum that gates
-them. Container, metadata, DNG/WAV emit, colour math and the NumPy oracle
-are the JAX package's NumPy-only modules, imported as they are. Nothing
-here imports JAX.
+them. Container, metadata, errors, DNG/WAV emit, colour math, the fixture
+encoder, the codec tables and the host scans (C++, built with g++ at first
+use) are the port's own copies of the JAX package's NumPy-only modules:
+nothing here imports JAX or anything of :mod:`mcraw`.
 """
 
-from mcraw.errors import (  # noqa: F401
+from .errors import (  # noqa: F401
     DecodeError,
     IOException,
     MetadataError,

@@ -22,13 +22,12 @@ import os
 import re
 import sys
 
-from mcraw.emit.dng import write_dng
-from mcraw.emit.wav import write_wav
-from mcraw.errors import MotionCamException
-from mcraw.util import outpath as _outpath
-
+from .emit.dng import write_dng
+from .emit.wav import write_wav
+from .errors import MotionCamException
 from .pipeline import Decoder
 from .preview import preview_frame
+from .util import outpath as _outpath
 
 USAGE = "Usage: decoder <input file> [-n number of frames to export]"
 NOT_PORTED = ("info", "encode", "verify")

@@ -5,21 +5,54 @@
 // function, not their machinery: the row bands with double-buffered DMA,
 // the 16-sublane-aligned halo scratch, the per-frame top padding and frame
 // blocks, lane rolls with the wrapped lane zeroed and 128-lane width
-// padding exist for VMEM and vregs; an H100 reads device memory by address.
+// padding exist for VMEM and vregs.
 //
-// One thread per output pixel (x, y) of frame blockIdx.z, 32x8 threads a
-// block, so a warp stores 32 neighbouring uint32. Each thread loads the
-// taps it needs once from global memory (through L1/L2: neighbouring
-// threads share them): the 3x3 neighbourhood for bilinear, the 13 taps of
-// the 5x5 cross-and-diagonal that Malvar-He-Cutler uses. Every tap is
-// normalized on its own CFA site, clip((raw - black) * 1/(white - black),
-// 0, 1); a tap outside [0, height) x [0, width) of its own frame is 0, so
-// any width and any height work with no padding, and no frame reads its
-// neighbour's rows. Which site a tap sits on follows from the parities of
-// its offset, so each thread picks its four sites' parameters once (Sites)
-// and every index after that is a compile-time constant.
+// What bounds it: at 4096x3072 it reads 25.2 MB of uint16 and writes
+// 50.3 MB of uint32, 75.5 MB in all, >= 0.0225 ms at 3.35 TB/s; the
+// arithmetic is ~100 float and integer operations per pixel, so the design
+// is about issuing few instructions per byte:
 //
-// Arithmetic, in float32, is that of the plain version
+// - The grid is persistent: a block walks 64x32 tiles (of every frame of
+//   a batch) and loads the next tile's raw values, 4 a step in coalesced
+//   4-byte pairs, while it develops the current one. Its 256 threads stage
+//   the tile and a 2-pixel halo (the Malvar reach; bilinear reads 1 of it)
+//   in shared memory as float32, normalizing each value once, on its own
+//   CFA site:
+//   clip((raw - black) * 1/(white - black), 0, 1), and for Malvar times its
+//   site's white-balance gain. A tap outside [0, height) x [0, width) of its
+//   own frame is 0 (Malvar: 0 times the gain), so any width and height work
+//   unpadded and no frame reads its neighbour's rows. A tile whose staged
+//   rectangle lies inside its frame (all but the border tiles) takes a
+//   path without bounds tests. The walk steps its tile coordinates by the
+//   grid's, so the loop divides only at a frame change.
+// - Integer <-> float conversions issue at 1/8 of the float rate on this
+//   card, so there are none per value: a raw value becomes a float by a
+//   byte permute and an exact subtract, a bucket index is read off the
+//   float's bits (below).
+// - Each thread then develops two side-by-side 2x2 quads (4 x 2 pixels)
+//   aligned to even coordinates, reading its 6x8 window with 16-byte shared
+//   loads. Every output's CFA site is fixed by its place in the quad, and
+//   the CFA is a template argument, so which taps belong to which channel
+//   is known at compile time: absent taps of the bilinear sums are not
+//   added (None below) and the Malvar selects vanish.
+// - Each output row of 4 pixels goes out as one 16-byte store when
+//   width % 4 == 0, else as masked 4-byte stores.
+// - The sRGB curve is an exact 8-bit quantizer: code(lin) =
+//   round(255 * srgb(lin)) as mcraw_torch.preview.develop_f64 defines it,
+//   monotone in lin, so it is the count of thresholds thr[1..255] (float32,
+//   computed on the host in float64) at or below lin. Over buckets even in
+//   log2 lin, 128 an octave, the curve climbs less than one code a bucket,
+//   so a bucket holds at most one threshold (checked on the host): the code
+//   is the bucket's base plus one compare, from one 8-byte entry
+//   (threshold, base). No logf, expf or division is left per pixel. The
+//   table (1666 entries, 13 KB) is copied from device memory into shared
+//   memory once per block. Log buckets, not 4096 even ones of [0, 1]: a
+//   warp's 32 lookups then fall in fewer, closer entries, and fewer of
+//   them collide in a shared-memory bank.
+// - Clips are two NaN-propagating min/max instructions (the one before the
+//   quantizer maps NaN to 0).
+//
+// Arithmetic before the curve, in float32, is that of the plain version
 // (mcraw_torch/kernels/develop.py::develop_rgba_plain), step for step:
 //   bilinear: per channel c, the taps of channel c only; R/B as the
 //     separable [1,2,1]^T x [1,2,1] sum (rows, then columns), G as the cross
@@ -29,153 +62,170 @@
 //   malvar: gain on every tap first, then the four MHC estimators k1..k4
 //     and the per-site select (the horizontally adjacent site's channel
 //     tells the two G phases apart); clip;
-//   emit: m = XYZ(D50)->sRGB @ forward matrix as scalar multiply-adds, clip,
-//     the sRGB curve 1.055 * expf(logf(max(x, 1e-12)) / 2.4) - 0.055 above
-//     0.0031308 (12.92 * x below), round half to even (rintf) of x * 255.
+//   emit: m = XYZ(D50)->sRGB @ forward matrix as scalar multiply-adds, clip.
 // Every product and sum goes through __fmul_rn / __fadd_rn / __fsub_rn, so
 // nvcc contracts none of them into an FMA: each rounds once, as the plain
-// version's torch ops do. expf, logf and the division are the accurate ones
-// (the build has no fast-math). The contract is <= 1 LSB per channel
-// against the f64 model (mcraw_torch.preview.develop_f64).
-//
-// What bounds it: at 4096x3072 it reads 25.2 MB of uint16 and writes
-// 50.3 MB of uint32, 75.5 MB in all, >= 0.023 ms at 3.35 TB/s. It takes
-// about ten times that (0.29 ms bilinear, 0.26 ms Malvar on an H100 SXM at
-// 700 W: 256 and 289 GB/s), so instruction issue bounds it, not bytes: each
-// raw value is loaded and normalized again by each of the 9 or 13 threads
-// whose window holds it, and every pixel runs three accurate logf + expf
-// pairs and IEEE divisions. Staging a normalized tile in shared memory is
-// the next step, and work for a later change.
+// version's torch ops do. A dropped absent tap was a +0.0 term of a sum of
+// non-negative values, so the sums are bit for bit those of the plain
+// version. The contract is <= 1 LSB per channel against the f64 model.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
+constexpr int kTileW = 64;                 // output pixels per block, across
+constexpr int kTileH = 32;                 // and down
+constexpr int kHalo = 2;                   // the Malvar reach
+constexpr int kRowW = kTileW + 2 * kHalo;  // 68 floats: rows stay 16-byte aligned
+constexpr int kRows = kTileH + 2 * kHalo;  // 36
+constexpr int kQuadsPerRow = kRowW / 4;    // 4 staged values a step
+constexpr int kQuads = kRows * kQuadsPerRow;
+constexpr int kThreadsX = kTileW / 4;      // each thread: 4 columns
+constexpr int kThreadsY = kTileH / 2;      // and 2 rows
+constexpr int kThreads = kThreadsX * kThreadsY;
+constexpr int kQuadSteps = (kQuads + kThreads - 1) / kThreads;
+// The sRGB quantizer's buckets (kernels/develop.py SRGB_BUCKET_BASE): lin's
+// float bits >> 16, less this base, floored at 0; 1.0 is the last entry.
+constexpr int kBucketBase = (0x39000000 >> 16) - 1;  // 2^-13
+constexpr int kQuantizer = (0x3F800000 >> 16) - kBucketBase + 1;
+
+static_assert(kRowW % 4 == 0, "rows must stay 16-byte aligned");
 
 struct DevelopParams {
   float black[4];      // per 2x2 site
   float inv_scale[4];  // 1 / (white - black), per site
-  float gain[3];       // 1 / as_shot_neutral, per channel
+  float gain_site[4];  // white-balance gain of each site's channel (Malvar)
+  float gain[3];       // 1 / as_shot_neutral, per channel (bilinear)
   float m[9];          // XYZ(D50)->sRGB @ forward matrix, row-major
-  int cfa[4];          // channel (0 R, 1 G, 2 B) of each 2x2 site
-  int pos[3];          // the 2x2 site of R (pos[0]) and of B (pos[2])
-};
+};  // by value (__grid_constant__): static indices compile to constant loads
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
 // clip to [0, 1]; NaN stays NaN, as torch.clamp and jnp.clip leave it.
+// Two NaN-propagating min/max instructions.
 __device__ __forceinline__ float clip01(float v) {
-  return v < 0.f ? 0.f : (v > 1.f ? 1.f : v);
+  float lo, r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(lo) : "f"(v));
+  asm("min.NaN.f32 %0, %1, 0f3F800000;" : "=f"(r) : "f"(lo));
+  return r;
 }
 
-template <typename T>
-__device__ __forceinline__ T pick(const T (&a)[4], int k) {
-  return k == 0 ? a[0] : (k == 1 ? a[1] : (k == 2 ? a[2] : a[3]));
-}
+// A tap that is not of the channel being summed: sums drop it at compile
+// time (it stood for a +0.0 term).
+struct None {};
+__device__ __forceinline__ None plus(None, None) { return {}; }
+__device__ __forceinline__ float plus(float a, None) { return a; }
+__device__ __forceinline__ float plus(None, float b) { return b; }
+__device__ __forceinline__ float plus(float a, float b) { return add(a, b); }
+__device__ __forceinline__ None times(float, None) { return {}; }
+__device__ __forceinline__ float times(float k, float b) { return mul(k, b); }
 
-// The parameters of the 2x2 sites as seen from one pixel: entry r belongs to
-// every tap (y + dy, x + dx) with r = (dy & 1) << 1 | (dx & 1), i.e. to site
-// k ^ r of the pixel's own site k = (y & 1) << 1 | (x & 1). Picked once per
-// thread with selects, so that every later
-// index is known at compile time: indexing the by-value parameters at run
-// time would copy them to local memory.
-struct Sites {
-  float black[4], inv_scale[4], gain[4];
-  int chan[4];
+// The Bayer pattern as a type: chan(site) for the 2x2 site
+// (y & 1) << 1 | (x & 1), pos(c) the site of channel c (R or B).
+template <int C0, int C1, int C2, int C3>
+struct Cfa {
+  __host__ __device__ static constexpr int chan(int site) {
+    return site == 0 ? C0 : (site == 1 ? C1 : (site == 2 ? C2 : C3));
+  }
+  __host__ __device__ static constexpr int pos(int c) {
+    return C0 == c ? 0 : (C1 == c ? 1 : (C2 == c ? 2 : 3));
+  }
 };
 
-__device__ __forceinline__ Sites sites_of(const DevelopParams& p, int y, int x) {
-  const int k = ((y & 1) << 1) | (x & 1);
-  Sites s;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    s.black[r] = pick(p.black, k ^ r);
-    s.inv_scale[r] = pick(p.inv_scale, k ^ r);
-    s.chan[r] = pick(p.cfa, k ^ r);
-    s.gain[r] = s.chan[r] == 0 ? p.gain[0] : (s.chan[r] == 1 ? p.gain[1] : p.gain[2]);
+// The window w[6][8] of a thread: rows y - 2 .. y + 3 and columns
+// x - 2 .. x + 5 around its first output (y, x), both even. Output
+// (OY, OX), OY in 0..1 and OX in 0..3, sits at w[2 + OY][2 + OX] on site
+// OY << 1 | (OX & 1); its tap (DY, DX) on site ((OY + DY) & 1) << 1 |
+// ((OX + DX) & 1).
+template <class P, int OY, int OX>
+struct At {
+  template <int DY, int DX>
+  __host__ __device__ static constexpr int site() {
+    return (((OY + DY + 4) & 1) << 1) | ((OX + DX + 4) & 1);
   }
-  return s;
-}
-
-__device__ __forceinline__ constexpr int rel(int dy, int dx) { return ((dy & 1) << 1) | (dx & 1); }
-
-// t[R + dy][R + dx]: the normalized tap at (y + dy, x + dx), 0 outside the
-// frame. Each tap is loaded once; taps the demosaic does not use are dead
-// code and not loaded.
-template <int R>
-__device__ __forceinline__ void load_taps(const uint16_t* __restrict__ raw, int height,
-                                          int width, int y, int x, const Sites& s,
-                                          float (&t)[2 * R + 1][2 * R + 1]) {
-#pragma unroll
-  for (int dy = -R; dy <= R; ++dy) {
-#pragma unroll
-    for (int dx = -R; dx <= R; ++dx) {
-      const int yy = y + dy;
-      const int xx = x + dx;
-      float v = 0.f;
-      if (yy >= 0 && yy < height && xx >= 0 && xx < width) {
-        const float raw_v = static_cast<float>(raw[static_cast<int64_t>(yy) * width + xx]);
-        v = clip01(mul(sub(raw_v, s.black[rel(dy, dx)]), s.inv_scale[rel(dy, dx)]));
-      }
-      t[R + dy][R + dx] = v;
+  template <int DY, int DX>
+  __device__ static __forceinline__ float tap(const float (&w)[6][8]) {
+    return w[2 + OY + DY][2 + OX + DX];
+  }
+  // The tap if it lies on a site of channel C, else None.
+  template <int C, int DY, int DX>
+  __device__ static __forceinline__ auto of(const float (&w)[6][8]) {
+    if constexpr (P::chan(site<DY, DX>()) == C) {
+      return tap<DY, DX>(w);
+    } else {
+      return None{};
     }
   }
+};
+
+// 1 / (the [1,2,1] sum of one parity's mask along an axis), {0, 1/2, 1}:
+// idx's parity is IdxPar, known at compile time.
+template <int Par, int IdxPar>
+__device__ __forceinline__ float fac(int idx, int last) {
+  if constexpr (Par == IdxPar) {
+    return 0.5f;  // the centre tap (2) alone: its neighbours are off-phase
+  } else {
+    const int f = (idx > 0) + (idx < last);
+    return f == 2 ? 0.5f : (f == 1 ? 1.f : 0.f);
+  }
 }
 
-// 1 / (the [1,2,1] sum of one parity's mask along an axis): {0, 1/2, 1}.
-__device__ __forceinline__ float fac(int idx, int par, int last) {
-  const bool b0 = (idx & 1) == par;
-  const bool bm = idx > 0 && ((idx - 1) & 1) == par;
-  const bool bp = idx < last && ((idx + 1) & 1) == par;
-  const float f = (b0 ? 2.f : 0.f) + (bm ? 1.f : 0.f) + (bp ? 1.f : 0.f);
-  return f > 0.f ? 1.f / f : 0.f;
-}
-
-__device__ __forceinline__ void bilinear(const DevelopParams& p, const Sites& s,
-                                         const float (&t)[3][3], int y, int x, int height,
-                                         int width, float (&rgb)[3]) {
-  // The tap at (dy, dx) if its site is channel c, else 0.
-  auto of = [&](int c, int dy, int dx) {
-    return s.chan[rel(dy, dx)] == c ? t[1 + dy][1 + dx] : 0.f;
+// kEdge: the pixel may touch the frame's border; inside it every fac is
+// 1/2 and no G arm is clipped.
+template <class P, bool kEdge, int OY, int OX>
+__device__ __forceinline__ void bilinear(const DevelopParams& p, const float (&w)[6][8],
+                                         int y, int x, int height, int width,
+                                         float (&rgb)[3]) {
+  using A = At<P, OY, OX>;
+  // R and B: separable [1,2,1] x [1,2,1] over the taps of the channel.
+  auto rb = [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    auto vm = plus(plus(A::template of<C, -1, -1>(w), times(2.f, A::template of<C, 0, -1>(w))),
+                   A::template of<C, 1, -1>(w));
+    auto v0 = plus(plus(A::template of<C, -1, 0>(w), times(2.f, A::template of<C, 0, 0>(w))),
+                   A::template of<C, 1, 0>(w));
+    auto vp = plus(plus(A::template of<C, -1, 1>(w), times(2.f, A::template of<C, 0, 1>(w))),
+                   A::template of<C, 1, 1>(w));
+    const float num = plus(plus(times(2.f, v0), vp), vm);  // a Bayer 3x3 holds every channel
+    constexpr int pos = P::pos(C);
+    const float inv = kEdge ? mul(fac<(pos >> 1), (OY & 1)>(y, height - 1),
+                                  fac<(pos & 1), (OX & 1)>(x, width - 1))
+                            : mul(0.5f, 0.5f);
+    return clip01(mul(mul(num, inv), p.gain[C]));
   };
-#pragma unroll
-  for (int c = 0; c < 3; c += 2) {  // R and B: separable [1,2,1] x [1,2,1]
-    float v[3];
-#pragma unroll
-    for (int dx = -1; dx <= 1; ++dx) {
-      v[1 + dx] = add(add(of(c, -1, dx), mul(2.f, of(c, 0, dx))), of(c, 1, dx));
-    }
-    const float num = add(add(mul(2.f, v[1]), v[2]), v[0]);
-    const float inv = mul(fac(y, p.pos[c] >> 1, height - 1), fac(x, p.pos[c] & 1, width - 1));
-    rgb[c] = clip01(mul(mul(num, inv), p.gain[c]));
-  }
+  rgb[0] = rb(std::integral_constant<int, 0>{});
+  rgb[2] = rb(std::integral_constant<int, 2>{});
   // G: the cross 4 * mid + up + down + right + left.
-  const float num = add(add(add(add(mul(4.f, of(1, 0, 0)), of(1, -1, 0)), of(1, 1, 0)),
-                            of(1, 0, 1)),
-                        of(1, 0, -1));
+  const float num = plus(plus(plus(plus(times(4.f, A::template of<1, 0, 0>(w)),
+                                        A::template of<1, -1, 0>(w)),
+                                   A::template of<1, 1, 0>(w)),
+                              A::template of<1, 0, 1>(w)),
+                         A::template of<1, 0, -1>(w));
   float inv = 0.25f;
-  if (s.chan[0] != 1) {
+  if constexpr (kEdge && P::chan(((OY & 1) << 1) | (OX & 1)) != 1) {
     const int arms = (y == 0) + (y == height - 1) + (x == 0) + (x == width - 1);
     inv = arms == 0 ? 0.25f : (arms == 1 ? 1.f / 3.f : (arms == 2 ? 0.5f : 1.f));
   }
   rgb[1] = clip01(mul(mul(num, inv), p.gain[1]));
 }
 
-__device__ __forceinline__ void malvar(const Sites& s, const float (&t)[5][5],
-                                       float (&rgb)[3]) {
-  // The tap at (dy, dx) times its site's white-balance gain.
-  auto wb = [&](int dy, int dx) { return mul(t[2 + dy][2 + dx], s.gain[rel(dy, dx)]); };
-  const float mid = wb(0, 0);
-  const float h1 = add(wb(0, 1), wb(0, -1));
-  const float h2 = add(wb(0, 2), wb(0, -2));
-  const float v1 = add(wb(-1, 0), wb(1, 0));
-  const float v2 = add(wb(-2, 0), wb(2, 0));
-  const float d1 = add(add(add(wb(-1, 1), wb(-1, -1)), wb(1, 1)), wb(1, -1));
+template <class P, int OY, int OX>
+__device__ __forceinline__ void malvar(const float (&w)[6][8], float (&rgb)[3]) {
+  using A = At<P, OY, OX>;
+  // Every tap was multiplied by its site's gain when the tile was staged.
+  const float mid = A::template tap<0, 0>(w);
+  const float h1 = add(A::template tap<0, 1>(w), A::template tap<0, -1>(w));
+  const float h2 = add(A::template tap<0, 2>(w), A::template tap<0, -2>(w));
+  const float v1 = add(A::template tap<-1, 0>(w), A::template tap<1, 0>(w));
+  const float v2 = add(A::template tap<-2, 0>(w), A::template tap<2, 0>(w));
+  const float d1 = add(add(add(A::template tap<-1, 1>(w), A::template tap<-1, -1>(w)),
+                           A::template tap<1, 1>(w)),
+                       A::template tap<1, -1>(w));
   const float hv2 = add(h2, v2);
   const float k1 = mul(sub(add(mul(4.f, mid), mul(2.f, add(h1, v1))), hv2), 0.125f);
   const float k2 =
@@ -183,47 +233,288 @@ __device__ __forceinline__ void malvar(const Sites& s, const float (&t)[5][5],
   const float k3 =
       mul(add(sub(sub(add(mul(5.f, mid), mul(4.f, v1)), d1), v2), mul(0.5f, h2)), 0.125f);
   const float k4 = mul(sub(add(mul(6.f, mid), mul(2.f, d1)), mul(1.5f, hv2)), 0.125f);
-  const int cm = s.chan[0];
-  const int hcm = s.chan[1];  // the horizontally adjacent site's channel
+  constexpr int site = ((OY & 1) << 1) | (OX & 1);
+  constexpr int cm = P::chan(site);
+  constexpr int hcm = P::chan(site ^ 1);  // the horizontally adjacent site's channel
   rgb[0] = clip01(cm == 0 ? mid : (cm == 1 ? (hcm == 0 ? k2 : k3) : k4));
   rgb[1] = clip01(cm == 1 ? mid : k1);
   rgb[2] = clip01(cm == 2 ? mid : (cm == 1 ? (hcm == 2 ? k2 : k3) : k4));
 }
 
-__device__ __forceinline__ uint32_t emit(const float (&m)[9], const float (&rgb)[3]) {
+// The code round(255 * srgb(lin)) of lin in [0, 1]: q[k] = (the next
+// threshold's bits, the code at the bucket's start) of bucket k, read off
+// lin's exponent and top 7 mantissa bits (an arithmetic shift: -0.0 is
+// negative and lands in bucket 0). No float-to-int conversion, which
+// issues at 1/8 of the float rate.
+__device__ __forceinline__ uint32_t quantize(float lin, const uint2* q) {
+  const int k = max(__float_as_int(lin) >> 16, kBucketBase) - kBucketBase;
+  const uint2 e = q[k];
+  return e.y + (__uint_as_float(e.x) <= lin ? 1u : 0u);
+}
+
+__device__ __forceinline__ uint32_t emit(const DevelopParams& p, const float (&rgb)[3],
+                                         const uint2* q) {
   uint32_t packed = 0xFF000000u;
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
-    const float lin = clip01(
-        add(add(mul(m[3 * r], rgb[0]), mul(m[3 * r + 1], rgb[1])), mul(m[3 * r + 2], rgb[2])));
-    const float lo = lin < 1e-12f ? 1e-12f : lin;
-    const float curve = sub(mul(1.055f, expf(__fdiv_rn(logf(lo), 2.4f))), 0.055f);
-    const float v = clip01(lin <= 0.0031308f ? mul(12.92f, lin) : curve);
-    packed |= static_cast<uint32_t>(__float2int_rn(mul(v, 255.f))) << (8 * r);
+    const float lin = add(add(mul(p.m[3 * r], rgb[0]), mul(p.m[3 * r + 1], rgb[1])),
+                          mul(p.m[3 * r + 2], rgb[2]));
+    // clip to [0, 1], NaN to 0 (fmaxf returns the number): the quantizer's
+    // index stays inside its table.
+    packed |= quantize(fminf(fmaxf(lin, 0.f), 1.f), q) << (8 * r);
   }
   return packed;
 }
 
-template <bool kMalvar>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-    develop_kernel(const uint16_t* __restrict__ raw, uint32_t* __restrict__ out,
-                   int height, int width, const DevelopParams p) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  if (x >= width || y >= height) return;
-  const int64_t base = static_cast<int64_t>(blockIdx.z) * height * width;
-  const Sites s = sites_of(p, y, x);
+template <class P, bool kMalvar, bool kEdge, int OY, int OX>
+__device__ __forceinline__ uint32_t pixel(const DevelopParams& p, const float (&w)[6][8],
+                                          int y, int x, int height, int width,
+                                          const uint2* q) {
   float rgb[3];
   if constexpr (kMalvar) {
-    float t[5][5];
-    load_taps<2>(raw + base, height, width, y, x, s, t);
-    malvar(s, t, rgb);
+    malvar<P, OY, OX>(w, rgb);
   } else {
-    float t[3][3];
-    load_taps<1>(raw + base, height, width, y, x, s, t);
-    bilinear(p, s, t, y, x, height, width, rgb);
+    bilinear<P, kEdge, OY, OX>(p, w, y + OY, x + OX, height, width, rgb);
   }
-  out[base + static_cast<int64_t>(y) * width + x] = emit(p.m, rgb);
+  return emit(p, rgb, q);
+}
+
+template <class P, bool kMalvar, bool kEdge, int OY>
+__device__ __forceinline__ void store_row(const DevelopParams& p, const float (&w)[6][8],
+                                          uint32_t* __restrict__ frame_out, int y, int x,
+                                          int height, int width, const uint2* q) {
+  if (y + OY >= height) return;
+  const uint32_t v0 = pixel<P, kMalvar, kEdge, OY, 0>(p, w, y, x, height, width, q);
+  const uint32_t v1 = pixel<P, kMalvar, kEdge, OY, 1>(p, w, y, x, height, width, q);
+  const uint32_t v2 = pixel<P, kMalvar, kEdge, OY, 2>(p, w, y, x, height, width, q);
+  const uint32_t v3 = pixel<P, kMalvar, kEdge, OY, 3>(p, w, y, x, height, width, q);
+  uint32_t* o = frame_out + static_cast<int64_t>(y + OY) * width + x;
+  if ((width & 3) == 0 && x + 3 < width) {
+    *reinterpret_cast<uint4*>(o) = make_uint4(v0, v1, v2, v3);
+  } else {
+    if (x < width) o[0] = v0;
+    if (x + 1 < width) o[1] = v1;
+    if (x + 2 < width) o[2] = v2;
+    if (x + 3 < width) o[3] = v3;
+  }
+}
+
+// Where a tile's staged values come from: frame f, rows y0 - 2 .., columns
+// x0 - 2 ..; `interior`: the staged rectangle lies inside the frame and
+// every even column's pair is 4-byte aligned, so no value needs a bounds
+// test. Uniform over the block.
+struct TileAt {
+  int f, y0, x0;
+  bool interior;
+};
+
+// Loads the raw values of one tile and its halo, 4 a step (two pairs,
+// each one 4-byte load where it is aligned), 0 outside the frame. `paired`:
+// every even column's pair is 4-byte aligned (even width, aligned frame).
+// (sy, sx) of step k is the thread's staged row and column.
+template <bool kInterior>
+__device__ __forceinline__ void load_tile(const uint16_t* __restrict__ fr, int y0, int x0,
+                                          int height, int width, bool paired,
+                                          const int (&sy)[kQuadSteps],
+                                          const int (&sx)[kQuadSteps],
+                                          uint2 (&raw)[kQuadSteps]) {
+#pragma unroll
+  for (int k = 0; k < kQuadSteps; ++k) {
+    const int gy = y0 - kHalo + sy[k];
+    const int gx = x0 - kHalo + sx[k];  // even
+    uint32_t v[2] = {0u, 0u};
+    const uint16_t* row = fr + static_cast<int64_t>(gy) * width;
+    if (kInterior) {
+      if (sy[k] < kRows) {
+        v[0] = __ldg(reinterpret_cast<const uint32_t*>(row + gx));
+        v[1] = __ldg(reinterpret_cast<const uint32_t*>(row + gx + 2));
+      }
+    } else if (sy[k] < kRows && static_cast<unsigned>(gy) < static_cast<unsigned>(height)) {
+      if (paired && gx >= 0 && gx + 3 < width) {
+        v[0] = __ldg(reinterpret_cast<const uint32_t*>(row + gx));
+        v[1] = __ldg(reinterpret_cast<const uint32_t*>(row + gx + 2));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (static_cast<unsigned>(gx + e) < static_cast<unsigned>(width)) {
+            v[e >> 1] |= static_cast<uint32_t>(__ldg(row + gx + e)) << (16 * (e & 1));
+          }
+        }
+      }
+    }
+    raw[k] = make_uint2(v[0], v[1]);
+  }
+}
+
+// The uint16 in half `hi` of `word` as a float, exactly: the bits
+// 0x4B00uuuu are 2^23 + u, and 2^23 + u - 2^23 is exact. A byte permute and
+// an add, where an int-to-float conversion issues at 1/8 of the float rate.
+__device__ __forceinline__ float u16_to_float(uint32_t word, bool hi) {
+  return sub(__uint_as_float(__byte_perm(word, 0x4B00u, hi ? 0x5432u : 0x5410u)), 8388608.f);
+}
+
+// Normalizes the loaded values into the shared tile: each once, on its own
+// site; for Malvar also times its site's gain; 0 outside the frame.
+template <bool kMalvar, bool kInterior>
+__device__ __forceinline__ void stage_tile(const DevelopParams& p, int y0, int x0, int height,
+                                           int width, const int (&sy)[kQuadSteps],
+                                           const int (&sx)[kQuadSteps],
+                                           const uint2 (&raw)[kQuadSteps],
+                                           float (*tile)[kRowW]) {
+#pragma unroll
+  for (int k = 0; k < kQuadSteps; ++k) {
+    if (sy[k] >= kRows) break;
+    const int gy = y0 - kHalo + sy[k];
+    const int gx = x0 - kHalo + sx[k];
+    const bool row_in = kInterior || static_cast<unsigned>(gy) < static_cast<unsigned>(height);
+    const int r = gy & 1;  // gy may be negative: & keeps the parity
+    const float b0 = r ? p.black[2] : p.black[0], b1 = r ? p.black[3] : p.black[1];
+    const float s0 = r ? p.inv_scale[2] : p.inv_scale[0];
+    const float s1 = r ? p.inv_scale[3] : p.inv_scale[1];
+    const float g0 = r ? p.gain_site[2] : p.gain_site[0];
+    const float g1 = r ? p.gain_site[3] : p.gain_site[1];
+    const uint32_t words[2] = {raw[k].x, raw[k].y};
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool odd = e & 1;
+      const float u = u16_to_float(words[e >> 1], odd);
+      const bool in = kInterior || (row_in && static_cast<unsigned>(gx + e) <
+                                                  static_cast<unsigned>(width));
+      v[e] = in ? clip01(mul(sub(u, odd ? b1 : b0), odd ? s1 : s0)) : 0.f;
+      if constexpr (kMalvar) v[e] = mul(v[e], odd ? g1 : g0);
+    }
+    *reinterpret_cast<float4*>(&tile[sy[k]][sx[k]]) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// A persistent grid: each block walks tiles blockIdx.x, + gridDim.x, ...
+// (frame-major, then rows of tiles), loading the next tile's raw values
+// while it develops the current one. The quantizer table (in device
+// memory) is copied to shared memory once.
+template <class P, bool kMalvar>
+__global__ void __launch_bounds__(kThreads, 3)
+    develop_kernel(const uint16_t* __restrict__ raw, uint32_t* __restrict__ out, int height,
+                   int width, int tiles_x, int tiles_y, int tiles,
+                   const uint2* __restrict__ quantizer, const __grid_constant__ DevelopParams p) {
+  __shared__ __align__(16) float s_tile[kRows][kRowW];
+  __shared__ uint2 s_q[kQuantizer];
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kQuantizer; i += kThreads) s_q[i] = quantizer[i];
+  const bool paired = (width & 1) == 0 && (reinterpret_cast<uintptr_t>(raw) & 3) == 0;
+  const int64_t plane = static_cast<int64_t>(height) * width;
+  int sy[kQuadSteps], sx[kQuadSteps];  // the thread's staged places, per step
+#pragma unroll
+  for (int k = 0; k < kQuadSteps; ++k) {
+    const int q = tid + k * kThreads;
+    sy[k] = q / kQuadsPerRow;  // >= kRows: no place at this step
+    sx[k] = 4 * (q - sy[k] * kQuadsPerRow);
+  }
+
+  // The walk over tiles blockIdx.x, + gridDim.x, ... (frame-major, then rows
+  // of tiles) steps its (frame, tile row, tile column) by the grid's
+  // (rows, columns), so no division is left in the loop but at a frame
+  // change. 32-bit index math: the host keeps tiles < 2^31.
+  const int per_frame = tiles_x * tiles_y;
+  const int step_y = static_cast<int>(gridDim.x) / tiles_x;
+  const int step_x = static_cast<int>(gridDim.x) - step_y * tiles_x;
+  int f = static_cast<int>(blockIdx.x) / per_frame;
+  int ty = (static_cast<int>(blockIdx.x) - f * per_frame) / tiles_x;
+  int tx = static_cast<int>(blockIdx.x) - f * per_frame - ty * tiles_x;
+  auto at = [&]() {
+    const int y0 = ty * kTileH, x0 = tx * kTileW;
+    const bool interior = paired && y0 >= kHalo && x0 >= kHalo &&
+                          y0 + kTileH + kHalo <= height && x0 + kTileW + kHalo <= width;
+    return TileAt{f, y0, x0, interior};
+  };
+  auto advance = [&]() {
+    tx += step_x;
+    ty += step_y;
+    if (tx >= tiles_x) {
+      tx -= tiles_x;
+      ++ty;
+    }
+    if (ty >= tiles_y) {
+      const int df = ty / tiles_y;
+      f += df;
+      ty -= df * tiles_y;
+    }
+  };
+  auto load = [&](const TileAt& t, uint2 (&dst)[kQuadSteps]) {
+    const uint16_t* fr = raw + static_cast<int64_t>(t.f) * plane;
+    if (t.interior) {
+      load_tile<true>(fr, t.y0, t.x0, height, width, paired, sy, sx, dst);
+    } else {
+      load_tile<false>(fr, t.y0, t.x0, height, width, paired, sy, sx, dst);
+    }
+  };
+
+  uint2 cur[kQuadSteps];
+  TileAt t = at();
+  load(t, cur);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    if (t.interior) {
+      stage_tile<kMalvar, true>(p, t.y0, t.x0, height, width, sy, sx, cur, s_tile);
+    } else {
+      stage_tile<kMalvar, false>(p, t.y0, t.x0, height, width, sy, sx, cur, s_tile);
+    }
+    __syncthreads();
+    const int y0 = t.y0, x0 = t.x0, frame = t.f;
+    if (tile + static_cast<int>(gridDim.x) < tiles) {  // in flight while this tile develops
+      advance();
+      t = at();
+      load(t, cur);
+    }
+
+    const int qx = tid % kThreadsX;
+    const int qy = tid / kThreadsX;
+    const int x = x0 + 4 * qx;
+    const int y = y0 + 2 * qy;
+    if (x < width && y < height) {
+      float w[6][8];
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        const float4 lo = *reinterpret_cast<const float4*>(&s_tile[2 * qy + r][4 * qx]);
+        const float4 hi = *reinterpret_cast<const float4*>(&s_tile[2 * qy + r][4 * qx + 4]);
+        w[r][0] = lo.x; w[r][1] = lo.y; w[r][2] = lo.z; w[r][3] = lo.w;
+        w[r][4] = hi.x; w[r][5] = hi.y; w[r][6] = hi.z; w[r][7] = hi.w;
+      }
+      uint32_t* __restrict__ fo = out + static_cast<int64_t>(frame) * plane;
+      if (kMalvar || (x > 0 && x + 4 < width && y > 0 && y + 2 < height)) {
+        store_row<P, kMalvar, false, 0>(p, w, fo, y, x, height, width, s_q);
+        store_row<P, kMalvar, false, 1>(p, w, fo, y, x, height, width, s_q);
+      } else {
+        store_row<P, kMalvar, true, 0>(p, w, fo, y, x, height, width, s_q);
+        store_row<P, kMalvar, true, 1>(p, w, fo, y, x, height, width, s_q);
+      }
+    }
+    __syncthreads();  // the tile is restaged next
+  }
+}
+
+template <class P, bool kMalvar>
+cudaError_t launch_one(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x,
+                       int tiles_y, int tiles, const uint2* quantizer,
+                       const DevelopParams& p, cudaStream_t s) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, develop_kernel<P, kMalvar>, kThreads,
+                                                0);
+  const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);  // tiles < 2^31
+  develop_kernel<P, kMalvar><<<grid, kThreads, 0, s>>>(raw, out, h, w, tiles_x, tiles_y,
+                                                       tiles, quantizer, p);
+  return cudaGetLastError();
+}
+
+template <class P>
+cudaError_t launch(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x, int tiles_y,
+                   int tiles, const uint2* quantizer, const DevelopParams& p, bool malvar,
+                   cudaStream_t s) {
+  return malvar ? launch_one<P, true>(raw, out, h, w, tiles_x, tiles_y, tiles, quantizer, p, s)
+                : launch_one<P, false>(raw, out, h, w, tiles_x, tiles_y, tiles, quantizer, p, s);
 }
 
 }  // namespace
@@ -231,41 +522,56 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
 // Develops `frames` (height, width) uint16 frames laid out one after
 // another in `raw` into as many uint32 RGBA8888 frames in `out`.
 // params: host pointer to pack_develop_params's row (at least 17 floats);
-// cfa: host pointer to 4 int32 channels; malvar: 0 bilinear, 1 Malvar. Both
-// are copied into the kernel's by-value argument, so nothing is uploaded.
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a size the grid cannot hold.
+// cfa: host pointer to 4 int32 channels, one of the four Bayer patterns
+// (both copied into the kernel's by-value argument); quantizer: device
+// pointer to the kQuantizer (threshold bits, code) pairs of
+// develop.quantizer_table; malvar: 0 bilinear, 1 Malvar. Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a size the kernel cannot index or another CFA.
 extern "C" int mcraw_develop(const uint16_t* raw, uint32_t* out, int64_t frames,
                              int64_t height, int64_t width, const float* params,
-                             const int32_t* cfa, int32_t malvar, void* stream) {
+                             const int32_t* cfa, const uint2* quantizer, int32_t malvar,
+                             void* stream) {
   if (frames <= 0 || height <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
-  const int64_t gx = (width + kBlockX - 1) / kBlockX;
-  const int64_t gy = (height + kBlockY - 1) / kBlockY;
-  if (gx > 0x7FFFFFFF || gy > 65535 || frames > 65535 || height * width > (int64_t{1} << 31)) {
+  const int64_t gx = (width + kTileW - 1) / kTileW;
+  const int64_t gy = (height + kTileH - 1) / kTileH;
+  if (height * width > (int64_t{1} << 31) || gx * gy * frames > 0x7FFFFFFF) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DevelopParams p;
   const float white = params[4];
   for (int k = 0; k < 4; ++k) {
+    if (cfa[k] < 0 || cfa[k] > 2) return static_cast<int>(cudaErrorInvalidValue);
     p.black[k] = params[k];
     p.inv_scale[k] = 1.f / (white - params[k]);
-    p.cfa[k] = cfa[k];
-    if (cfa[k] < 0 || cfa[k] > 2) return static_cast<int>(cudaErrorInvalidValue);
-    p.pos[cfa[k]] = k;
+    p.gain_site[k] = params[5 + cfa[k]];
   }
   for (int c = 0; c < 3; ++c) p.gain[c] = params[5 + c];
   for (int i = 0; i < 9; ++i) p.m[i] = params[8 + i];
 
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
-                  static_cast<unsigned>(frames));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int h = static_cast<int>(height);
   const int w = static_cast<int>(width);
-  if (malvar) {
-    develop_kernel<true><<<grid, block, 0, s>>>(raw, out, h, w, p);
-  } else {
-    develop_kernel<false><<<grid, block, 0, s>>>(raw, out, h, w, p);
+  const int tx = static_cast<int>(gx);
+  const int ty = static_cast<int>(gy);
+  const int tiles = static_cast<int>(gx * gy * frames);
+  const bool m = malvar != 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (((cfa[0] * 3 + cfa[1]) * 3 + cfa[2]) * 3 + cfa[3]) {
+    case ((0 * 3 + 1) * 3 + 1) * 3 + 2:  // rggb
+      err = launch<Cfa<0, 1, 1, 2>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m, s);
+      break;
+    case ((2 * 3 + 1) * 3 + 1) * 3 + 0:  // bggr
+      err = launch<Cfa<2, 1, 1, 0>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m, s);
+      break;
+    case ((1 * 3 + 0) * 3 + 2) * 3 + 1:  // grbg
+      err = launch<Cfa<1, 0, 2, 1>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m, s);
+      break;
+    case ((1 * 3 + 2) * 3 + 0) * 3 + 1:  // gbrg
+      err = launch<Cfa<1, 2, 0, 1>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m, s);
+      break;
+    default:
+      break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

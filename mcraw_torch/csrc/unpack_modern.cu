@@ -4,113 +4,248 @@
 // _unpack_image_pallas_v5). It computes the same function, not the same
 // machinery: the TPU kernel's chunk DMA, one-hot row picks, byte planes,
 // subgroup layout and static field-pass count exist to work around the
-// TPU's lack of a gather; an H100 reads device memory by address.
+// TPU's lack of a gather.
 //
-// One thread per output pixel (r, x) of the (height, width) plane, so that
-// neighbouring threads store neighbouring pixels:
-//   t = r / 4, h = (r / 2) % 2, q = r % 2, txi = x / 64, k = (x % 64) / 2,
-//   c = x % 2; block b = 4 * (t * tx + txi) + 2q + c, value j = 32h + k
-// (the transpose (ty, h, q, tx, k, c) of numpy_ref.modern_deinterleave).
-// Value j of block b is the OR of at most three little-endian word fields
+// The function: value j of block b is the OR of at most three
+// little-endian word fields
 //   ((word[offset[b] / 4 + widx] >> rsh) & (2^nbits - 1)) << lsh
-// from the class's descriptors (mcraw/kernels/tables.py MODERN_W*), plus
-// the block's reference, wrapped to 16 bits. Class 0 yields the reference.
+// from the class's descriptors (mcraw_torch/kernels/tables.py MODERN_W*),
+// plus the block's reference, wrapped to 16 bits; class 0 yields the
+// reference. Output pixel (r, x): t = r / 4, h = (r / 2) % 2, q = r % 2,
+// txi = x / 64, k = (x % 64) / 2, c = x % 2; block b = 4 * (t * tx + txi)
+// + 2q + c, value j = 32h + k (the transpose (ty, h, q, tx, k, c) of
+// numpy_ref.modern_deinterleave).
 //
-// Bound by bytes, not operations: a 4096x3072 frame reads a ~15 MB payload
-// plus 196,608 blocks x (uint16 bits, uint16 ref, int64 offset) and writes
-// 25.2 MB. There is no matrix product and no bulk tile copy, so wgmma and
-// TMA have no role. The 10x64x3 descriptor table lives in shared memory,
-// packed one int32 per slot (7.5 KB): neighbouring lanes read different
-// entries, which __constant__ memory would serialise. The grid is sized to
-// keep every SM busy and strides over the plane, so each block loads the
-// table once.
+// What bounds it: bytes. A 4096x3072 12-bit frame reads a ~15 MB payload
+// plus 196,608 x (uint16 bits, uint16 ref, int64 offset) = 2.4 MB and
+// writes 25.2 MB, >= 0.0126 ms at 3.35 TB/s. The design follows one fact
+// of the format: the four blocks of a 4-row x 64-column tile are
+// consecutive in the stream, and so are the tiles along the stream, so a
+// run of tiles reads one contiguous span of the payload.
+//
+// - A block of 8 warps takes a run of kRunTiles consecutive tiles. It loads
+//   each block's bits, reference and offset once, into shared memory, and
+//   copies the run's payload span [offset of its first block, offset of
+//   its last + 128) into shared memory with 16-byte cp.async copies.
+// - One warp per tile: lane l writes row l / 8 of the tile, columns
+//   8 (l % 8) .. + 7: four values of each of the row's two blocks, taken
+//   from shared memory, packed into one 16-byte store (a warp writes 4
+//   rows x 128 bytes). A tile that crosses the cropped width, or any tile
+//   when width % 8 != 0, takes masked 2-byte stores instead.
+// - Values 4i .. 4i + 3 of a block come from the same bytes of 8-byte
+//   SIMD groups, so in every class but the 16-bit one their fields share
+//   the word and the mask and their right shifts step by 8: one int4 per
+//   field (widx, rsh, mask, lsh) serves all four values
+//   (tables.pack_quad_descriptors), and each field's word is read once.
+//   Blocks of the 16-bit class take the straight copy: their four values
+//   are 8 consecutive bytes.
+// - Rows past `rows` (a short encodedHeight) are not written; the caller
+//   zeroes them. Offsets the host prep cannot produce (not ascending, not
+//   8-byte aligned, or a span larger than the staging buffer) send the run
+//   to per-word reads from device memory; either way a word outside the
+//   payload reads as 0, so a malformed offset never reads past the buffer.
 
 #include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kClasses = 10;
-constexpr int kBlock = 64;
+constexpr int kQuads = 16;                // groups of 4 values in a block
 constexpr int kFields = 3;
-constexpr int kDesc = kClasses * kBlock * kFields;
+constexpr int kDescRow = kQuads * kFields + 1;  // + (field count, 0, 0, 0)
+constexpr int kDesc = kClasses * kDescRow;      // int4 entries
 constexpr int kBitsLut = 17;
-constexpr int kThreads = 256;
+constexpr int kClass16 = kClasses - 1;    // the 16-bit class: straight copy
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTilesPerWarp = 4;
+constexpr int kRunTiles = kTilesPerWarp * kWarps;
+constexpr int kRunBlocks = 4 * kRunTiles;
+constexpr int kMaxBlockBytes = 128;
+// The run's span, 16-byte aligned at both ends.
+constexpr int kSpanBytes = kRunBlocks * kMaxBlockBytes + 32;
+constexpr int kSpanWords = kSpanBytes / 4;
 
-// desc: packed per slot as widx | rsh << 5 | nbits << 10 | lsh << 15
-// (see mcraw_torch/kernels/tables.py); class_index maps clamped bits
-// (0..16) to a descriptor row.
+static_assert(kRunBlocks <= kThreads, "one thread loads each block's metadata");
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// The block's words: from the staged span, or (kStaged false) from device
+// memory by index, 0 outside [0, n_words).
+template <bool kStaged>
+struct Words {
+  const uint32_t* staged;  // the block's first word in the span
+  const int32_t* words;
+  int64_t first;           // the block's first word in the payload
+  int64_t n_words;
+  __device__ __forceinline__ uint32_t operator[](int i) const {
+    if constexpr (kStaged) {
+      return staged[i];
+    } else {
+      const int64_t wi = first + i;
+      return (wi >= 0 && wi < n_words) ? static_cast<uint32_t>(words[wi]) : 0u;
+    }
+  }
+};
+
+// Values j0 .. j0 + 3 of a block of class `cls`, references not added.
+template <bool kStaged>
+__device__ __forceinline__ void block_values(const Words<kStaged>& w, const int4* desc,
+                                             int cls, int j0, uint32_t (&v)[4]) {
+  if (cls == kClass16) {
+    const uint32_t w0 = w[j0 >> 1];
+    const uint32_t w1 = w[(j0 >> 1) + 1];
+    v[0] = w0 & 0xFFFFu;
+    v[1] = w0 >> 16;
+    v[2] = w1 & 0xFFFFu;
+    v[3] = w1 >> 16;
+    return;
+  }
+  const int4* d = desc + cls * kDescRow;
+  const int nf = d[kDescRow - 1].x;
+  v[0] = v[1] = v[2] = v[3] = 0u;
+#pragma unroll
+  for (int f = 0; f < kFields; ++f) {
+    if (f >= nf) break;
+    const int4 e = d[(j0 >> 2) * kFields + f];  // widx, rsh, mask, lsh
+    const uint32_t ws = w[e.x] >> e.y;
+    const uint32_t mask = static_cast<uint32_t>(e.z);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] |= ((ws >> (8 * u)) & mask) << e.w;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) unpack_modern_kernel(
-    const int32_t* __restrict__ words, int64_t n_words,
-    const uint16_t* __restrict__ bits, const uint16_t* __restrict__ refs,
-    const int64_t* __restrict__ offsets, const int32_t* __restrict__ desc,
-    const int64_t* __restrict__ class_index, uint16_t* __restrict__ out,
-    int64_t tx, int64_t rows, int64_t width) {
-  __shared__ int32_t s_desc[kDesc];
-  __shared__ int32_t s_cls[kBitsLut];
-  for (int i = threadIdx.x; i < kDesc; i += blockDim.x) s_desc[i] = desc[i];
-  if (threadIdx.x < kBitsLut)
-    s_cls[threadIdx.x] = static_cast<int32_t>(class_index[threadIdx.x]);
+    const int32_t* __restrict__ words, int64_t n_words, const uint16_t* __restrict__ bits,
+    const uint16_t* __restrict__ refs, const int64_t* __restrict__ offsets,
+    const int4* __restrict__ desc, const int64_t* __restrict__ class_index,
+    uint16_t* __restrict__ out, int64_t tx, int64_t tiles, int64_t rows, int64_t width) {
+  __shared__ int4 s_desc[kDesc];
+  __shared__ __align__(16) uint32_t s_words[kSpanWords];
+  __shared__ int64_t s_off[kRunBlocks];
+  __shared__ int32_t s_cls[kRunBlocks];
+  __shared__ uint32_t s_ref[kRunBlocks];
+
+  const int tid = threadIdx.x;
+  const int64_t run = blockIdx.x;
+  const int64_t b0 = run * kRunBlocks;
+  const int nb = static_cast<int>(4 * tiles - b0 < kRunBlocks ? 4 * tiles - b0 : kRunBlocks);
+  for (int i = tid; i < kDesc; i += kThreads) s_desc[i] = desc[i];
+  if (tid < nb) {
+    const unsigned bb = bits[b0 + tid];
+    s_cls[tid] = static_cast<int32_t>(class_index[bb > 16 ? 16 : bb]);
+    s_ref[tid] = refs[b0 + tid];
+    s_off[tid] = offsets[b0 + tid];
+  }
   __syncthreads();
 
-  const int64_t segs = (width + kThreads - 1) / kThreads;
-  const int64_t units = rows * segs;
-  for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
-    const int64_t r = u / segs;
-    const int64_t x = (u - r * segs) * kThreads + threadIdx.x;
-    if (x >= width) continue;
-    const int64_t t = r >> 2;
-    const int h = static_cast<int>((r >> 1) & 1);
-    const int q = static_cast<int>(r & 1);
-    const int64_t txi = x >> 6;
-    const int k = static_cast<int>((x & 63) >> 1);
-    const int c = static_cast<int>(x & 1);
-    const int64_t b = 4 * (t * tx + txi) + 2 * q + c;
-    const int j = 32 * h + k;
-
-    unsigned bb = bits[b];
-    if (bb > 16) bb = 16;
-    const int32_t* d = s_desc + (s_cls[bb] * kBlock + j) * kFields;
-    const int64_t w0 = offsets[b] >> 2;
-    uint32_t v = 0;
+  const int64_t lo = s_off[0];
+  const int64_t last = s_off[nb - 1];
+  const int64_t lo16 = lo & ~int64_t{15};
+  const int64_t hi16 = ((last & ~int64_t{3}) + kMaxBlockBytes + 15) & ~int64_t{15};
+  bool ok = lo >= 0 && hi16 - lo16 <= kSpanBytes;
+  if (tid < nb) {
+    const int64_t o = s_off[tid];
+    ok = ok && o >= lo && o <= last && (o & 7) == 0;
+  }
+  const bool staged = __syncthreads_and(ok);
+  if (staged) {
+    const bool aligned = (reinterpret_cast<uintptr_t>(words) & 15) == 0;
+    const int64_t n_bytes = 4 * n_words;
+    const int chunks = static_cast<int>((hi16 - lo16) >> 4);
+    for (int i = tid; i < chunks; i += kThreads) {
+      const int64_t g = lo16 + 16 * static_cast<int64_t>(i);  // byte in the payload
+      uint32_t* dst = s_words + 4 * i;
+      if (aligned && g + 16 <= n_bytes) {
+        cp_async16(dst, words + (g >> 2));
+      } else {
 #pragma unroll
-    for (int f = 0; f < kFields; ++f) {
-      const uint32_t e = static_cast<uint32_t>(d[f]);
-      const uint32_t nb = (e >> 10) & 31u;
-      if (nb == 0) continue;
-      const int64_t wi = w0 + (e & 31u);
-      // Host prep proves every valid field lies inside the payload; the
-      // bound only keeps a malformed offset from reading past the buffer.
-      const uint32_t w =
-          (wi >= 0 && wi < n_words) ? static_cast<uint32_t>(words[wi]) : 0u;
-      v |= ((w >> ((e >> 5) & 31u)) & ((1u << nb) - 1u)) << ((e >> 15) & 15u);
+        for (int k = 0; k < 4; ++k) {
+          const int64_t wi = (g >> 2) + k;
+          dst[k] = wi < n_words ? static_cast<uint32_t>(words[wi]) : 0u;
+        }
+      }
     }
-    out[r * width + x] = static_cast<uint16_t>(v + refs[b]);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+
+  // The lane's row of the tile, its half of the block values and columns.
+  const int lane = tid & 31;
+  const int rl = lane >> 3;
+  const int q = rl & 1;
+  const int m = lane & 7;
+  const int j0 = 32 * (rl >> 1) + 4 * m;
+  const bool vec = (width & 7) == 0;
+#pragma unroll 1
+  for (int k = 0; k < kTilesPerWarp; ++k) {
+    const int tl = (tid >> 5) + kWarps * k;  // tile within the run
+    // 32-bit index math: tiles <= height * width / 256 < 2^23.
+    const int tile = static_cast<int>(run) * kRunTiles + tl;
+    if (tile >= tiles) break;
+    const int t = tile / static_cast<int>(tx);
+    const int r = 4 * t + rl;
+    const int x = 64 * (tile - t * static_cast<int>(tx)) + 8 * m;
+    if (r >= rows || x >= width) continue;
+    uint32_t v[2][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int lb = 4 * tl + 2 * q + c;
+      const int64_t off = s_off[lb];
+      if (staged) {
+        const Words<true> w{s_words + ((off - lo16) >> 2), words, 0, n_words};
+        block_values(w, s_desc, s_cls[lb], j0, v[c]);
+      } else {
+        const Words<false> w{nullptr, words, off >> 2, n_words};
+        block_values(w, s_desc, s_cls[lb], j0, v[c]);
+      }
+      const uint32_t ref = s_ref[lb];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[c][u] = (v[c][u] + ref) & 0xFFFFu;
+    }
+    uint16_t* o = out + static_cast<int64_t>(r) * width + x;
+    if (vec && x + 8 <= width) {
+      *reinterpret_cast<uint4*>(o) =
+          make_uint4(v[0][0] | v[1][0] << 16, v[0][1] | v[1][1] << 16,
+                     v[0][2] | v[1][2] << 16, v[0][3] | v[1][3] << 16);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (x + e < width) o[e] = static_cast<uint16_t>(v[e & 1][e >> 1]);
+      }
+    }
   }
 }
 
 }  // namespace
 
-// Writes rows [0, rows) of the (., width) uint16 plane `out`; rows past them
-// keep whatever the caller allocated (zeros for a short encodedHeight).
-// Returns cudaGetLastError() after the launch (0 on success).
+// Writes rows [0, rows) of the (., width) uint16 plane `out` from the first
+// `tiles` tiles (tiles = ceil(rows / 4) * tx), one block of threads for each
+// run of kRunTiles; rows past them keep whatever the caller allocated (zeros
+// for a short encodedHeight). desc is the (10, 49) int4 table of
+// tables.pack_quad_descriptors. Returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int mcraw_unpack_modern(const int32_t* words, int64_t n_words,
                                    const uint16_t* bits, const uint16_t* refs,
                                    const int64_t* offsets, const int32_t* desc,
-                                   const int64_t* class_index, uint16_t* out,
-                                   int64_t tx, int64_t rows, int64_t width,
+                                   const int64_t* class_index, uint16_t* out, int64_t tx,
+                                   int64_t tiles, int64_t rows, int64_t width,
                                    void* stream) {
-  const int64_t units = rows * ((width + kThreads - 1) / kThreads);
-  if (units <= 0) return static_cast<int>(cudaGetLastError());
-  int dev = 0;
-  int sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * 8;
-  const int grid = static_cast<int>(units < cap ? units : cap);
-  unpack_modern_kernel<<<grid, kThreads, 0,
+  if (tiles <= 0 || rows <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
+  const int64_t runs = (tiles + kRunTiles - 1) / kRunTiles;
+  if (runs > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  unpack_modern_kernel<<<static_cast<unsigned>(runs), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      words, n_words, bits, refs, offsets, desc, class_index, out, tx, rows,
-      width);
+      words, n_words, bits, refs, offsets, reinterpret_cast<const int4*>(desc), class_index,
+      out, tx, tiles, rows, width);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,13 +37,13 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -64,25 +64,27 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libmcraw_torch_{_digest()}.so"
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    return build_dir / f"libmcraw_torch_{_digest(csrc)}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless the stamped library exists; its path.
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the kernels of ``csrc/*.cu`` unless the stamped library
+    exists in `build_dir`; its path.
 
     The compiler's output (``-Xptxas -v``: registers and shared memory per
     kernel) is kept beside the library as ``<name>.log``."""
-    out = library_path()
+    out = library_path(csrc, build_dir)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
-    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    sources = _sources(csrc)
+    objs = [build_dir / f"{src.stem}.{tag}.o" for src in sources]
     tmp = out.with_suffix(f".{tag}")
     cmds = [
         [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        for src, obj in zip(_sources(), objs)
+        for src, obj in zip(sources, objs)
     ]
     link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
 
@@ -109,30 +111,35 @@ def build() -> Path:
     return out
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library with its entry points bound."""
+    cdll = ctypes.CDLL(str(path))
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    cdll.mcraw_unpack_modern.restype = ctypes.c_int
+    cdll.mcraw_unpack_modern.argtypes = [
+        p, i64, p, p, p, p, p, p, i64, i64, i64, i64, p,
+    ]
+    cdll.mcraw_unpack_legacy.restype = ctypes.c_int
+    cdll.mcraw_unpack_legacy.argtypes = [
+        p, i64, p, p, p, p, i64, i64, i64, p,
+    ]
+    cdll.mcraw_checksum.restype = ctypes.c_int
+    cdll.mcraw_checksum.argtypes = [p, i64, ctypes.c_int32, p, p]
+    cdll.mcraw_develop.restype = ctypes.c_int
+    cdll.mcraw_develop.argtypes = [
+        p, p, i64, i64, i64, p, p, p, ctypes.c_int32, p,
+    ]
+    cdll.mcraw_cuda_error_string.restype = ctypes.c_char_p
+    cdll.mcraw_cuda_error_string.argtypes = [ctypes.c_int]
+    return cdll
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _lib
     with _lock:
         if _lib is None:
-            cdll = ctypes.CDLL(str(build()))
-            p, i64 = ctypes.c_void_p, ctypes.c_int64
-            cdll.mcraw_unpack_modern.restype = ctypes.c_int
-            cdll.mcraw_unpack_modern.argtypes = [
-                p, i64, p, p, p, p, p, p, i64, i64, i64, p,
-            ]
-            cdll.mcraw_unpack_legacy.restype = ctypes.c_int
-            cdll.mcraw_unpack_legacy.argtypes = [
-                p, i64, p, p, p, p, i64, i64, i64, p,
-            ]
-            cdll.mcraw_checksum.restype = ctypes.c_int
-            cdll.mcraw_checksum.argtypes = [p, i64, ctypes.c_int32, p, p]
-            cdll.mcraw_develop.restype = ctypes.c_int
-            cdll.mcraw_develop.argtypes = [
-                p, p, i64, i64, i64, p, p, ctypes.c_int32, p,
-            ]
-            cdll.mcraw_cuda_error_string.restype = ctypes.c_char_p
-            cdll.mcraw_cuda_error_string.argtypes = [ctypes.c_int]
-            _lib = cdll
+            _lib = load(build())
         return _lib
 
 

@@ -27,17 +27,23 @@ Not ported: the streamed-table normalizer (``inv2d``), ``gamma_mode="poly"``,
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from mcraw.metadata import CFA_PATTERNS
-
+from ..metadata import CFA_PATTERNS
 from . import build
 
 DEMOSAICS = ("bilinear", "malvar")
 # The four 2x2 Bayer patterns: 0=R, 1=G, 2=B, the two G sites on a diagonal.
 BAYER_CFAS = tuple(tuple(cfa) for cfa in CFA_PATTERNS.values())
 N_PARAMS = 17  # b0..b3, white, g0..g2, m00..m22
+# The kernel's sRGB quantizer buckets: bucket k >= 1 holds the float32 lin
+# whose bits >> 16 are SRGB_BUCKET_BASE + k (128 buckets an octave, from
+# 2^-13 up); bucket 0 holds [0, 2^-13); the last one holds 1.0.
+SRGB_BUCKET_BASE = (0x39000000 >> 16) - 1  # 0x39000000 is 2^-13
+SRGB_ENTRIES = (0x3F800000 >> 16) - SRGB_BUCKET_BASE + 1  # 0x3F800000 is 1.0
 
 # Launch counters: the kernel's launches and the plain version's calls.
 KERNEL_LAUNCHES = 0
@@ -61,6 +67,92 @@ def pack_develop_params(
     ).reshape(3, 3)
     p[0, 8:17] = m.reshape(-1)
     return p
+
+
+def srgb_code_f64(lin) -> np.ndarray:
+    """round(255 * srgb(lin)) as int64 in float64, lin clipped to [0, 1]
+    first: the last step of :func:`mcraw_torch.preview.develop_f64`, which
+    calls it."""
+    x = np.clip(np.asarray(lin, np.float64), 0, 1)
+    v = np.where(x <= 0.0031308, 12.92 * x, 1.055 * np.power(x, 1 / 2.4) - 0.055)
+    return np.round(np.clip(v, 0, 1) * 255.0).astype(np.int64)
+
+
+@functools.cache
+def srgb_thresholds() -> np.ndarray:
+    """(257,) float32 thr: thr[c], 1 <= c <= 255, is the least float32
+    lin in [0, 1] with :func:`srgb_code_f64` (lin) >= c; thr[0] = -inf and
+    thr[256] = +inf. The code is monotone in lin, so the code of
+    a float32 lin is the largest c with thr[c] <= lin. Found by bisection
+    over the float32 bit patterns of [0, 1], which order as the values."""
+    lo = np.zeros(255, np.int64)  # code(lo) < c, or lo = 0
+    hi = np.full(255, np.float32(1.0).view(np.int32), np.int64)  # code(hi) >= c
+    c = np.arange(1, 256)
+    while np.any(hi - lo > 1):
+        mid = (lo + hi) // 2
+        ok = srgb_code_f64(mid.astype(np.int32).view(np.float32)) >= c
+        hi = np.where(ok, mid, hi)
+        lo = np.where(ok, lo, mid)
+    thr = np.empty(257, np.float32)
+    thr[0], thr[256] = -np.inf, np.inf
+    thr[1:256] = hi.astype(np.int32).view(np.float32)
+    return thr
+
+
+def srgb_bucket_starts() -> np.ndarray:
+    """(SRGB_ENTRIES,) float32, the least lin of each quantizer bucket."""
+    k = np.arange(SRGB_ENTRIES, dtype=np.int64)
+    start = ((SRGB_BUCKET_BASE + k) << 16).astype(np.int32).view(np.float32)
+    start[0] = 0.0
+    return start
+
+
+@functools.cache
+def srgb_quantizer() -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's quantizer: (next_thr, base), (SRGB_ENTRIES,) float32
+    and uint8, base[k] the code at bucket k's start and next_thr[k] =
+    thr[base[k] + 1] of :func:`srgb_thresholds`. Buckets are even in log2
+    lin, 128 an octave, so the lin of one warp's neighbouring pixels fall
+    in few, nearby entries; the curve climbs at most ~78 codes an octave
+    (at lin = 1), so a bucket holds at most one threshold, and [0, 2^-13)
+    none (code 1 starts at 1.52e-4): this raises if one held two."""
+    thr = srgb_thresholds()
+    start = srgb_bucket_starts()
+    last = np.append(np.nextafter(start[1:], np.float32(0)), np.float32(1.0))
+    base = np.searchsorted(thr[1:256], start, side="right")
+    top = np.searchsorted(thr[1:256], last, side="right")
+    if np.any(top - base > 1):
+        raise AssertionError("an sRGB quantizer bucket holds two thresholds")
+    return np.ascontiguousarray(thr[base + 1]), base.astype(np.uint8)
+
+
+def srgb_quantize(lin) -> np.ndarray:
+    """The kernel's quantizer in NumPy: the code of float32 lin, clipped to
+    [0, 1] first (NaN gives 0), its bucket's base plus one if lin reaches
+    the bucket's next threshold."""
+    lin = np.nan_to_num(np.clip(np.asarray(lin, np.float32), 0, 1))
+    next_thr, base = srgb_quantizer()
+    bits = lin.view(np.int32).astype(np.int64) >> 16  # -0.0 is negative here
+    k = np.maximum(bits, SRGB_BUCKET_BASE) - SRGB_BUCKET_BASE
+    return base[k].astype(np.int64) + (next_thr[k] <= lin)
+
+
+def quantizer_table() -> np.ndarray:
+    """(SRGB_ENTRIES, 2) int32, the kernel's form of :func:`srgb_quantizer`:
+    per entry the float32 bits of next_thr, then base."""
+    next_thr, base = srgb_quantizer()
+    return np.stack([next_thr.view(np.int32), base.astype(np.int32)], -1)
+
+
+_QUANTIZER: dict[str, torch.Tensor] = {}
+
+
+def _quantizer_on(device: torch.device) -> torch.Tensor:
+    """:func:`quantizer_table` on `device`, uploaded once per device."""
+    key = str(device)
+    if key not in _QUANTIZER:
+        _QUANTIZER[key] = torch.from_numpy(quantizer_table()).to(device)
+    return _QUANTIZER[key]
 
 
 def _params_row(params) -> np.ndarray:
@@ -227,6 +319,7 @@ def develop_rgba_device(
     raw = raw.contiguous()
     prm = _params_row(params)
     cfa32 = np.asarray(cfa, dtype=np.int32)
+    quantizer = _quantizer_on(raw.device)
     frames, h, w = (raw.shape if raw.dim() == 3 else (1, *raw.shape))
     out = torch.empty(raw.shape, dtype=torch.uint32, device=raw.device)
     if out.numel() == 0:
@@ -235,8 +328,9 @@ def develop_rgba_device(
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mcraw_develop(
-            raw.data_ptr(), out.data_ptr(), frames, h, w,
-            prm.ctypes.data, cfa32.ctypes.data, DEMOSAICS.index(demosaic), stream,
+            raw.data_ptr(), out.data_ptr(), frames, h, w, prm.ctypes.data,
+            cfa32.ctypes.data, quantizer.data_ptr(),
+            DEMOSAICS.index(demosaic), stream,
         )
     build.check(err, "mcraw_develop")
     KERNEL_LAUNCHES += 1

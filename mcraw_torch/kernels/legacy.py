@@ -4,8 +4,8 @@ The frame's path, as in the JAX package's single-frame device path
 (``pallas_legacy.prepare_legacy_light`` + ``decode_legacy_device_v6``):
 
 1. :func:`prepare_legacy` (host): walk the inline 2-byte header chain with
-   the scan ladder of ``mcraw.kernels.unpack.prepare_legacy`` (native C++
-   via :mod:`mcraw.kernels.native`), giving every block's bits, reference
+   the scan ladder of ``mcraw.kernels.unpack.prepare_legacy`` (C++ via
+   :mod:`mcraw_torch.kernels.native`), giving every block's bits, reference
    and payload offset, and build the upload buffer.
 2. :func:`upload` (H2D).
 3. :func:`decode_legacy_device`: the hand-written CUDA kernel
@@ -25,10 +25,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcraw.kernels import native
-from mcraw.kernels import numpy_ref as R
-
 from . import build
+from . import native
+from . import numpy_ref as R
 from .tables import legacy_tables
 
 # mcraw.kernels.unpack.LEGACY_PARALLEL_MIN_BLOCKS (that module imports

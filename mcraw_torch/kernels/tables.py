@@ -1,13 +1,27 @@
-"""Both codecs' field tables as torch tensors.
+"""Both codecs' field tables: the NumPy arrays and their torch forms.
 
-The single source is :mod:`mcraw.kernels.tables`, which the JAX package
-decodes from as well. Modern codec: per class (10) and value (64), up to
-three little-endian word fields (widx, rsh, nbits, lsh), plus the 17-entry
-bits -> class and bits -> block length lookups. Legacy codec: per class
-(12) and value (16), up to two byte fields (pos, rsh, msk, lsh), plus the
-17-entry clamped bits -> class row, field width and block length lookups.
-The codec has no learned parameters; these tables are all that carries
-across.
+The NumPy part is a copy of :mod:`mcraw.kernels.tables` (the JAX package
+decodes from it as well), kept here so that the port imports nothing of
+mcraw; tests/test_torch_standalone.py holds every array equal to the
+original. Its notes follow.
+
+Every decoded value in both codecs is a disjoint OR of at most three byte
+fields of the form ``((payload[pos] >> rshift) & mask) << lshift``. These
+tables enumerate those fields per (bit-width class, output index).
+
+Modern codec (compressionType 7) layouts derived from the reference SIMD
+kernels (RawData.cpp:112-408): each ``Load`` reads 8 bytes into 8 uint16
+lanes, so lane ``l`` of SIMD word ``p_k`` is payload byte ``8*k + l``; the
+m-th ``Store`` writes outputs ``8*m .. 8*m+7``. Legacy codec
+(compressionType 6) layouts derived from the scalar kernels
+(RawData_Legacy.cpp:38-370).
+
+The torch forms: modern codec, per class (10) and value (64), up to three
+little-endian word fields (widx, rsh, nbits, lsh), plus the 17-entry bits
+-> class and bits -> block length lookups; legacy codec, per class (12) and
+value (16), up to two byte fields (pos, rsh, msk, lsh), plus the 17-entry
+clamped bits -> class row, field width and block length lookups. The codec
+has no learned parameters; these tables are all that carries across.
 """
 
 from __future__ import annotations
@@ -17,7 +31,331 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcraw.kernels import tables as T
+# Number of output uint16 values per block.
+MODERN_BLOCK = 64  # RawData.cpp:23 (ENCODING_BLOCK)
+LEGACY_BLOCK = 16  # RawData_Legacy.cpp:8 (BLOCK_SIZE)
+
+# Payload bytes per block, indexed by the 4-bit header `bits` value.
+# RawData.cpp:27-45
+MODERN_BLOCK_LENGTH = np.array(
+    [0, 8, 16, 24, 32, 40, 48, 64, 64, 80, 80, 128, 128, 128, 128, 128, 128],
+    dtype=np.int32,
+)
+# RawData_Legacy.cpp:13-32
+LEGACY_BLOCK_LENGTH = np.array(
+    [0, 2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 32, 32, 32, 32, 32, 32],
+    dtype=np.int32,
+)
+
+MODERN_MAX_LENGTH = 128
+LEGACY_MAX_LENGTH = 32
+
+# Decode-class canonicalization: distinct decode routines, keyed by a
+# representative bits value. RawData.cpp:424-458 switch; RawData_Legacy.cpp
+# :401-439 switch (legacy `bits` is first clamped to <=16, :395).
+MODERN_CLASS_OF_BITS = np.array(
+    [0, 1, 2, 3, 4, 5, 6, 8, 8, 10, 10, 16, 16, 16, 16, 16, 16], dtype=np.int32
+)
+LEGACY_CLASS_OF_BITS = np.array(
+    [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 16, 16, 16, 16, 16, 16], dtype=np.int32
+)
+
+MODERN_CLASSES = (0, 1, 2, 3, 4, 5, 6, 8, 10, 16)
+LEGACY_CLASSES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 16)
+
+MODERN_MAX_FIELDS = 3
+LEGACY_MAX_FIELDS = 2
+
+
+def _modern_field_lists() -> dict[int, list[list[tuple[int, int, int, int]]]]:
+    """fields[cls][j] = [(pos, rshift, mask, lshift), ...] for output j."""
+    t: dict[int, list[list[tuple[int, int, int, int]]]] = {}
+
+    # class 0: all zeros (RawData.cpp:425-427)
+    t[0] = [[] for _ in range(64)]
+
+    # Decode1 (RawData.cpp:113-136): out[8m+l] = (b[l] >> m) & 1
+    t[1] = [[] for _ in range(64)]
+    for m in range(8):
+        for l in range(8):
+            t[1][8 * m + l] = [(l, m, 0x01, 0)]
+
+    # Decode2 (RawData.cpp:139-162): two halves of 8 bytes each
+    t[2] = [[] for _ in range(64)]
+    for half in range(2):
+        for m in range(4):
+            for l in range(8):
+                t[2][32 * half + 8 * m + l] = [(8 * half + l, 2 * m, 0x03, 0)]
+
+    # Decode3 (RawData.cpp:165-199)
+    t[3] = [[] for _ in range(64)]
+    for l in range(8):
+        t[3][l] = [(l, 0, 0x07, 0)]
+        t[3][8 + l] = [(l, 3, 0x07, 0)]
+        t[3][16 + l] = [(l, 6, 0x03, 0), (16 + l, 6, 0x01, 2)]
+        t[3][24 + l] = [(8 + l, 0, 0x07, 0)]
+        t[3][32 + l] = [(8 + l, 3, 0x07, 0)]
+        t[3][40 + l] = [(8 + l, 6, 0x03, 0), (16 + l, 7, 0x01, 2)]
+        t[3][48 + l] = [(16 + l, 0, 0x07, 0)]
+        t[3][56 + l] = [(16 + l, 3, 0x07, 0)]
+
+    # Decode4 (RawData.cpp:202-223): four sub-blocks of 8 bytes
+    t[4] = [[] for _ in range(64)]
+    for c in range(4):
+        for m in range(2):
+            for l in range(8):
+                t[4][16 * c + 8 * m + l] = [(8 * c + l, 4 * m, 0x0F, 0)]
+
+    # Decode5 (RawData.cpp:226-262)
+    t[5] = [[] for _ in range(64)]
+    for k in range(5):
+        for l in range(8):
+            t[5][8 * k + l] = [(8 * k + l, 0, 0x1F, 0)]
+    for l in range(8):
+        t[5][40 + l] = [(l, 5, 0x07, 0), (24 + l, 5, 0x03, 3)]
+        t[5][48 + l] = [(8 + l, 5, 0x07, 0), (32 + l, 5, 0x03, 3)]
+        t[5][56 + l] = [
+            (16 + l, 5, 0x07, 0),
+            (24 + l, 7, 0x01, 3),
+            (32 + l, 7, 0x01, 4),
+        ]
+
+    # Decode6 (RawData.cpp:265-304). The duplicated OR term at :285-286 is a
+    # no-op and intentionally not replicated.
+    t[6] = [[] for _ in range(64)]
+    for k in range(6):
+        for l in range(8):
+            t[6][8 * k + l] = [(8 * k + l, 0, 0x3F, 0)]
+    for l in range(8):
+        t[6][48 + l] = [(l, 6, 0x03, 0), (8 + l, 6, 0x03, 2), (16 + l, 6, 0x03, 4)]
+        t[6][56 + l] = [
+            (24 + l, 6, 0x03, 0),
+            (32 + l, 6, 0x03, 2),
+            (40 + l, 6, 0x03, 4),
+        ]
+
+    # Decode8 (RawData.cpp:307-326): raw bytes
+    t[8] = [[(j, 0, 0xFF, 0)] for j in range(64)]
+
+    # Decode10 (RawData.cpp:329-374)
+    t[10] = [[] for _ in range(64)]
+    for k in range(4):
+        for l in range(8):
+            t[10][8 * k + l] = [(8 * k + l, 0, 0xFF, 0), (32 + l, 2 * k, 0x03, 8)]
+            t[10][32 + 8 * k + l] = [
+                (40 + 8 * k + l, 0, 0xFF, 0),
+                (72 + l, 2 * k, 0x03, 8),
+            ]
+
+    # Decode16 (RawData.cpp:377-408): native little-endian uint16
+    t[16] = [[(2 * j, 0, 0xFF, 0), (2 * j + 1, 0, 0xFF, 8)] for j in range(64)]
+
+    return t
+
+
+def _legacy_field_lists() -> dict[int, list[list[tuple[int, int, int, int]]]]:
+    t: dict[int, list[list[tuple[int, int, int, int]]]] = {}
+
+    # class 0: zeros (RawData_Legacy.cpp:402-404)
+    t[0] = [[] for _ in range(16)]
+
+    # Decode1 (:38-68): MSB-first bits
+    t[1] = [[(i, 7 - k, 0x01, 0)] for i in range(2) for k in range(8)]
+
+    # Decode2 (:70-88)
+    t[2] = [[(i, 6 - 2 * k, 0x03, 0)] for i in range(4) for k in range(4)]
+
+    # Decode3 (:90-122): 2 iterations x 3 bytes -> 8 outputs
+    t[3] = [[] for _ in range(16)]
+    for i in range(2):
+        b = 3 * i
+        o = 8 * i
+        t[3][o + 0] = [(b, 5, 0x07, 0)]
+        t[3][o + 1] = [(b, 2, 0x07, 0)]
+        t[3][o + 2] = [(b, 0, 0x03, 1), (b + 1, 7, 0x01, 0)]
+        t[3][o + 3] = [(b + 1, 4, 0x07, 0)]
+        t[3][o + 4] = [(b + 1, 1, 0x07, 0)]
+        t[3][o + 5] = [(b + 1, 0, 0x01, 2), (b + 2, 6, 0x03, 0)]
+        t[3][o + 6] = [(b + 2, 3, 0x07, 0)]
+        t[3][o + 7] = [(b + 2, 0, 0x07, 0)]
+
+    # Decode4 (:124-136)
+    t[4] = [[] for _ in range(16)]
+    for i in range(8):
+        t[4][2 * i] = [(i, 4, 0x0F, 0)]
+        t[4][2 * i + 1] = [(i, 0, 0x0F, 0)]
+
+    # Decode5 (:138-176): 2 iterations x 5 bytes -> 8 outputs
+    t[5] = [[] for _ in range(16)]
+    for i in range(2):
+        b = 5 * i
+        o = 8 * i
+        t[5][o + 0] = [(b, 3, 0x1F, 0)]
+        t[5][o + 1] = [(b, 0, 0x07, 2), (b + 1, 6, 0x03, 0)]
+        t[5][o + 2] = [(b + 1, 1, 0x1F, 0)]
+        t[5][o + 3] = [(b + 1, 0, 0x01, 4), (b + 2, 4, 0x0F, 0)]
+        t[5][o + 4] = [(b + 2, 0, 0x0F, 1), (b + 3, 7, 0x01, 0)]
+        t[5][o + 5] = [(b + 3, 2, 0x1F, 0)]
+        t[5][o + 6] = [(b + 3, 0, 0x03, 3), (b + 4, 5, 0x07, 0)]
+        t[5][o + 7] = [(b + 4, 0, 0x1F, 0)]
+
+    # Decode6 (:178-200): 4 iterations x 3 bytes -> 4 outputs
+    t[6] = [[] for _ in range(16)]
+    for i in range(4):
+        b = 3 * i
+        o = 4 * i
+        t[6][o + 0] = [(b, 2, 0x3F, 0)]
+        t[6][o + 1] = [(b, 0, 0x03, 4), (b + 1, 4, 0x0F, 0)]
+        t[6][o + 2] = [(b + 1, 0, 0x0F, 2), (b + 2, 6, 0x03, 0)]
+        t[6][o + 3] = [(b + 2, 0, 0x3F, 0)]
+
+    # Decode7 (:202-244): 2 iterations x 7 bytes -> 8 outputs
+    t[7] = [[] for _ in range(16)]
+    for i in range(2):
+        b = 7 * i
+        o = 8 * i
+        t[7][o + 0] = [(b, 1, 0x7F, 0)]
+        t[7][o + 1] = [(b, 0, 0x01, 6), (b + 1, 2, 0x3F, 0)]
+        t[7][o + 2] = [(b + 1, 0, 0x03, 5), (b + 2, 3, 0x1F, 0)]
+        t[7][o + 3] = [(b + 2, 0, 0x07, 4), (b + 3, 4, 0x0F, 0)]
+        t[7][o + 4] = [(b + 3, 0, 0x0F, 3), (b + 4, 5, 0x07, 0)]
+        t[7][o + 5] = [(b + 4, 0, 0x1F, 2), (b + 5, 6, 0x03, 0)]
+        t[7][o + 6] = [(b + 5, 0, 0x3F, 1), (b + 6, 7, 0x01, 0)]
+        t[7][o + 7] = [(b + 6, 0, 0x7F, 0)]
+
+    # Decode8 (:246-282)
+    t[8] = [[(j, 0, 0xFF, 0)] for j in range(16)]
+
+    # Decode9 (:284-330): 2 iterations x 9 bytes -> 8 outputs
+    t[9] = [[] for _ in range(16)]
+    for i in range(2):
+        b = 9 * i
+        o = 8 * i
+        t[9][o + 0] = [(b, 0, 0xFF, 1), (b + 1, 7, 0x01, 0)]
+        t[9][o + 1] = [(b + 1, 0, 0x7F, 2), (b + 2, 6, 0x03, 0)]
+        t[9][o + 2] = [(b + 2, 0, 0x3F, 3), (b + 3, 5, 0x07, 0)]
+        t[9][o + 3] = [(b + 3, 0, 0x1F, 4), (b + 4, 4, 0x0F, 0)]
+        t[9][o + 4] = [(b + 4, 0, 0x0F, 5), (b + 5, 3, 0x1F, 0)]
+        t[9][o + 5] = [(b + 5, 0, 0x07, 6), (b + 6, 2, 0x3F, 0)]
+        t[9][o + 6] = [(b + 6, 0, 0x03, 7), (b + 7, 1, 0x7F, 0)]
+        t[9][o + 7] = [(b + 7, 0, 0x01, 8), (b + 8, 0, 0xFF, 0)]
+
+    # Decode10 (:332-358): 4 iterations x 5 bytes -> 4 outputs
+    t[10] = [[] for _ in range(16)]
+    for i in range(4):
+        b = 5 * i
+        o = 4 * i
+        t[10][o + 0] = [(b, 0, 0xFF, 2), (b + 1, 6, 0x03, 0)]
+        t[10][o + 1] = [(b + 1, 0, 0x3F, 4), (b + 2, 4, 0x0F, 0)]
+        t[10][o + 2] = [(b + 2, 0, 0x0F, 6), (b + 3, 2, 0x3F, 0)]
+        t[10][o + 3] = [(b + 3, 0, 0x03, 8), (b + 4, 0, 0xFF, 0)]
+
+    # Decode16 (:360-370): big-endian uint16 (unlike the modern codec!)
+    t[16] = [[(2 * j, 0, 0xFF, 8), (2 * j + 1, 0, 0xFF, 0)] for j in range(16)]
+
+    return t
+
+
+def _pack_tables(
+    fields: dict[int, list[list[tuple[int, int, int, int]]]],
+    classes: tuple[int, ...],
+    block: int,
+    max_fields: int,
+):
+    """Dense arrays (n_classes, block, max_fields) for pos/rsh/msk/lsh.
+
+    Unused field slots get mask 0 (and pos 0, which is always in bounds).
+    """
+    n = len(classes)
+    pos = np.zeros((n, block, max_fields), dtype=np.int32)
+    rsh = np.zeros((n, block, max_fields), dtype=np.int32)
+    msk = np.zeros((n, block, max_fields), dtype=np.int32)
+    lsh = np.zeros((n, block, max_fields), dtype=np.int32)
+    for ci, c in enumerate(classes):
+        for j in range(block):
+            fl = fields[c][j]
+            assert len(fl) <= max_fields, (c, j, fl)
+            for fi, (p, r, m, s) in enumerate(fl):
+                pos[ci, j, fi] = p
+                rsh[ci, j, fi] = r
+                msk[ci, j, fi] = m
+                lsh[ci, j, fi] = s
+    return pos, rsh, msk, lsh
+
+
+def _word_fields(
+    fields: dict[int, list[list[tuple[int, int, int, int]]]],
+    classes: tuple[int, ...],
+    block: int,
+    max_fields: int,
+):
+    """Word-granularity fields: (widx, rsh32, nbits, lsh) per value.
+
+    The TPU kernels gather whole little-endian 32-bit words, so a byte field
+    ``(pos, rshift, mask, lshift)`` is the word field ``(pos >> 2,
+    8*(pos & 3) + rshift, mask_bits, lshift)``. Consecutive byte fields that
+    are source- AND destination-contiguous within one word merge into a
+    single wider field (e.g. the modern 16-bit class's two bytes become one
+    16-bit extract, RawData.cpp:377-408). Returns dense
+    (n_classes, block, max_fields) arrays widx/rsh/nbits/lsh; unused slots
+    have nbits 0 (mask (1<<0)-1 == 0 contributes nothing).
+    """
+    n = len(classes)
+    widx = np.zeros((n, block, max_fields), dtype=np.int32)
+    rsh = np.zeros((n, block, max_fields), dtype=np.int32)
+    nbits = np.zeros((n, block, max_fields), dtype=np.int32)
+    lsh = np.zeros((n, block, max_fields), dtype=np.int32)
+    for ci, c in enumerate(classes):
+        for j in range(block):
+            merged: list[list[int]] = []
+            for p, r, m, s in fields[c][j]:
+                nb = int(m).bit_length()
+                assert (1 << nb) - 1 == m, (c, j, m)
+                f = [p >> 2, 8 * (p & 3) + r, nb, s]
+                if merged:
+                    g = merged[-1]
+                    if (
+                        g[0] == f[0]
+                        and f[1] == g[1] + g[2]
+                        and f[3] == g[3] + g[2]
+                    ):
+                        g[2] += f[2]
+                        continue
+                merged.append(f)
+            assert len(merged) <= max_fields, (c, j, merged)
+            for fi, (w, r32, nb, s) in enumerate(merged):
+                widx[ci, j, fi] = w
+                rsh[ci, j, fi] = r32
+                nbits[ci, j, fi] = nb
+                lsh[ci, j, fi] = s
+    return widx, rsh, nbits, lsh
+
+
+MODERN_FIELDS = _modern_field_lists()
+LEGACY_FIELDS = _legacy_field_lists()
+
+# Dense tables. Index 0 of axis 0 is class `CLASSES[0]`, etc.
+MODERN_POS, MODERN_RSH, MODERN_MSK, MODERN_LSH = _pack_tables(
+    MODERN_FIELDS, MODERN_CLASSES, MODERN_BLOCK, MODERN_MAX_FIELDS
+)
+LEGACY_POS, LEGACY_RSH, LEGACY_MSK, LEGACY_LSH = _pack_tables(
+    LEGACY_FIELDS, LEGACY_CLASSES, LEGACY_BLOCK, LEGACY_MAX_FIELDS
+)
+
+# Word-granularity modern tables (the v5 kernel's fast field path).
+MODERN_WIDX, MODERN_WRSH, MODERN_WNB, MODERN_WLSH = _word_fields(
+    MODERN_FIELDS, MODERN_CLASSES, MODERN_BLOCK, MODERN_MAX_FIELDS
+)
+
+# bits value (0..16) -> row index into the dense class tables
+MODERN_CLASS_INDEX = np.array(
+    [MODERN_CLASSES.index(int(c)) for c in MODERN_CLASS_OF_BITS], dtype=np.int32
+)
+LEGACY_CLASS_INDEX = np.array(
+    [LEGACY_CLASSES.index(int(c)) for c in LEGACY_CLASS_OF_BITS], dtype=np.int32
+)
+
+# -- torch forms ----------------------------------------------------------
 
 
 class ModernTables(NamedTuple):
@@ -25,17 +363,42 @@ class ModernTables(NamedTuple):
     rsh: torch.Tensor  # (10, 64, 3) int64 right shift within the word
     nbits: torch.Tensor  # (10, 64, 3) int64 field width; 0 = unused slot
     lsh: torch.Tensor  # (10, 64, 3) int64 left shift into the value
-    packed: torch.Tensor  # (10, 64, 3) int32, the kernel's form
+    quads: torch.Tensor  # (10, 49, 4) int32, the kernel's form
     class_index: torch.Tensor  # (17,) int64 clamped bits -> class row
     block_length: torch.Tensor  # (17,) int64 clamped bits -> payload bytes
 
 
 def pack_descriptors() -> np.ndarray:
-    """(10, 64, 3) int32: widx | rsh << 5 | nbits << 10 | lsh << 15."""
-    widx, rsh, nb, lsh = T.MODERN_WIDX, T.MODERN_WRSH, T.MODERN_WNB, T.MODERN_WLSH
+    """(10, 64, 3) int32: widx | rsh << 5 | nbits << 10 | lsh << 15, the
+    table of the first unpack kernel (commit 5002859), which
+    mcraw_torch.kernel_ab still builds and times."""
+    widx, rsh, nb, lsh = MODERN_WIDX, MODERN_WRSH, MODERN_WNB, MODERN_WLSH
     if widx.max() > 31 or rsh.max() > 31 or nb.max() > 16 or lsh.max() > 15:
         raise ValueError("modern word-field table out of packing range")
     return (widx | (rsh << 5) | (nb << 10) | (lsh << 15)).astype(np.int32)
+
+
+def pack_quad_descriptors() -> np.ndarray:
+    """(10, 49, 4) int32, the unpack kernel's table. Values 4i .. 4i + 3 of
+    a block share their word fields (same word, mask and left shift, right
+    shifts 8 apart) in every class but the 16-bit one, which the kernel
+    copies straight: row [cls, 3i + f] is field f of values 4i .. 4i + 3
+    as (widx, rsh of value 4i, mask, lsh), zeros where unused; row
+    [cls, 48] is (the class's field count, 0, 0, 0)."""
+    n = len(MODERN_CLASSES)
+    w, r, nb, s = (a.reshape(n, 16, 4, 3) for a in
+                   (MODERN_WIDX, MODERN_WRSH, MODERN_WNB, MODERN_WLSH))
+    out = np.zeros((n, 49, 4), np.int32)
+    quad = np.stack([w[:, :, 0], r[:, :, 0], (1 << nb[:, :, 0]) - 1, s[:, :, 0]], -1)
+    out[:, :48] = quad.reshape(n, 48, 4)  # (cls, i, f, 4) -> rows 3i + f
+    out[:, 48, 0] = (MODERN_WNB > 0).sum(axis=2).max(axis=1)
+    step = np.arange(4)[None, None, :, None]
+    shared = ((w == w[:, :, :1]) & (r == r[:, :, :1] + 8 * step) & (nb == nb[:, :, :1])
+              & (s == s[:, :, :1])) | (nb == 0).all(axis=2, keepdims=True)
+    rows16 = np.array(MODERN_CLASSES) == 16
+    if not shared[~rows16].all():
+        raise ValueError("four consecutive values do not share their word fields")
+    return out
 
 
 class LegacyTables(NamedTuple):
@@ -60,13 +423,13 @@ def modern_tables(device: torch.device | str = "cpu") -> ModernTables:
     key = ("modern", str(torch.device(device)))
     if key not in _cache:
         _cache[key] = ModernTables(
-            widx=_put(T.MODERN_WIDX, device),
-            rsh=_put(T.MODERN_WRSH, device),
-            nbits=_put(T.MODERN_WNB, device),
-            lsh=_put(T.MODERN_WLSH, device),
-            packed=_put(pack_descriptors(), device, torch.int32),
-            class_index=_put(T.MODERN_CLASS_INDEX, device),
-            block_length=_put(T.MODERN_BLOCK_LENGTH, device),
+            widx=_put(MODERN_WIDX, device),
+            rsh=_put(MODERN_WRSH, device),
+            nbits=_put(MODERN_WNB, device),
+            lsh=_put(MODERN_WLSH, device),
+            quads=_put(pack_quad_descriptors(), device, torch.int32),
+            class_index=_put(MODERN_CLASS_INDEX, device),
+            block_length=_put(MODERN_BLOCK_LENGTH, device),
         )
     return _cache[key]
 
@@ -76,12 +439,12 @@ def legacy_tables(device: torch.device | str = "cpu") -> LegacyTables:
     key = ("legacy", str(torch.device(device)))
     if key not in _cache:
         _cache[key] = LegacyTables(
-            pos=_put(T.LEGACY_POS, device),
-            rsh=_put(T.LEGACY_RSH, device),
-            msk=_put(T.LEGACY_MSK, device),
-            lsh=_put(T.LEGACY_LSH, device),
-            class_index=_put(T.LEGACY_CLASS_INDEX, device),
-            class_of_bits=_put(T.LEGACY_CLASS_OF_BITS, device),
-            block_length=_put(T.LEGACY_BLOCK_LENGTH, device),
+            pos=_put(LEGACY_POS, device),
+            rsh=_put(LEGACY_RSH, device),
+            msk=_put(LEGACY_MSK, device),
+            lsh=_put(LEGACY_LSH, device),
+            class_index=_put(LEGACY_CLASS_INDEX, device),
+            class_of_bits=_put(LEGACY_CLASS_OF_BITS, device),
+            block_length=_put(LEGACY_BLOCK_LENGTH, device),
         )
     return _cache[key]

@@ -4,8 +4,8 @@ The frame's path, as in the JAX package's single-frame device path
 (``pallas_unpack.prepare_modern_light`` + ``decode_modern_device_v6``):
 
 1. :func:`prepare_modern` (host): read and validate the 16-byte header,
-   run the two serial metadata-stream scans (native C++ via
-   :mod:`mcraw.kernels.native`), and build the upload buffer.
+   run the two serial metadata-stream scans (C++ via
+   :mod:`mcraw_torch.kernels.native`), and build the upload buffer.
 2. :func:`upload` (H2D) and :func:`block_offsets` (device): clamp each
    block's bit width to 16, map it to a byte length, and take
    ``16 + exclusive prefix sum`` as an int64 ``torch.cumsum``.
@@ -25,12 +25,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcraw.errors import DecodeError
-from mcraw.kernels import numpy_ref as R
-from mcraw.kernels import tables as T
-from mcraw.kernels.native import decode_metadata_stream
-
+from ..errors import DecodeError
 from . import build
+from . import numpy_ref as R
+from . import tables as T
+from .native import decode_metadata_stream
 from .tables import ModernTables, modern_tables
 
 # Zeroed bytes after the payload: one maximal block, so no word load of the
@@ -134,6 +133,20 @@ def _check_inputs(words, bits, refs, offsets, ty: int, tx: int) -> None:
             raise ValueError(f"{name} has {t.numel()} entries, need {nblk}")
 
 
+class UnpackLaunch(NamedTuple):
+    """What the wrapper tells the kernel, from the frame's geometry."""
+
+    rows: int  # rows written: min(height, 4 * ty); the rest stay zero
+    tiles: int  # tiles that hold those rows: ceil(rows / 4) * tx
+
+
+def unpack_launch(ty: int, tx: int, height: int, width: int) -> UnpackLaunch:
+    """The kernel's launch arguments for a (height, width) crop of a frame
+    of ty x tx tiles."""
+    rows = min(height, 4 * ty)
+    return UnpackLaunch(rows, -(-rows // 4) * tx if rows > 0 and width > 0 else 0)
+
+
 def _output(height: int, width: int, ty: int, device) -> torch.Tensor:
     # Rows past 4*ty (a short encodedHeight) are never written: zero them.
     alloc = torch.zeros if height > 4 * ty else torch.empty
@@ -210,8 +223,8 @@ def decode_modern_device(
         raise ValueError(f"width {width} exceeds the encoded width {64 * tx}")
     tab = modern_tables(words.device)
     out = _output(height, width, ty, words.device)
-    rows = min(height, 4 * ty)
-    if rows == 0 or width == 0:
+    launch = unpack_launch(ty, tx, height, width)
+    if launch.tiles == 0:
         return out
     lib = build.lib()
     with torch.cuda.device(words.device):
@@ -219,8 +232,8 @@ def decode_modern_device(
         err = lib.mcraw_unpack_modern(
             words.data_ptr(), words.numel(),
             bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
-            tab.packed.data_ptr(), tab.class_index.data_ptr(),
-            out.data_ptr(), tx, rows, width, stream,
+            tab.quads.data_ptr(), tab.class_index.data_ptr(),
+            out.data_ptr(), tx, launch.tiles, launch.rows, width, stream,
         )
     build.check(err, "mcraw_unpack_modern")
     KERNEL_LAUNCHES += 1

@@ -13,26 +13,56 @@ modern unpack kernel), legacy-codec (compressionType 6) frames through
 :mod:`mcraw_torch.kernels.legacy` (host header-chain scan, upload, the CUDA
 legacy unpack kernel); a clip may mix both. ``device="cpu"`` runs the
 kernels' plain torch versions. The container, metadata and error model are
-the JAX package's NumPy-only modules, reused as they are.
+the port's copies of the JAX package's NumPy-only modules.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Iterator
 
 import numpy as np
 import torch
 
-from mcraw.container import COMPRESSION_TYPE, COMPRESSION_TYPE_LEGACY, ContainerReader
-from mcraw.errors import DecodeError, IOException, MotionCamException
-from mcraw.metadata import ContainerMetadata, FrameMetadata
-from mcraw.pipeline import _modern_payload_rows, _uncompress_error_text
-
+from .container import COMPRESSION_TYPE, COMPRESSION_TYPE_LEGACY, ContainerReader
+from .errors import DecodeError, IOException, MotionCamException
 from .kernels import unpack as U
 from .kernels.legacy import decode_legacy as decode_legacy_frame
 from .kernels.tables import modern_tables
+from .metadata import ContainerMetadata, FrameMetadata
 
 AudioChunk = tuple[int, np.ndarray]  # (timestampNs or -1, interleaved int16)
+
+
+# _modern_payload_rows and _uncompress_error_text are copies of
+# mcraw.pipeline's, so that the port imports nothing of mcraw.
+
+
+def _modern_payload_rows(payload) -> int:
+    """Rows the reference's Decode writes: 4*ceil(encodedHeight/4) from the
+    payload header (RawData.cpp:507-511, :571). 0 when the payload is too
+    short to carry a header."""
+    if len(payload) < 8:
+        return 0
+    enc_h = int(np.asarray(payload[4:8], dtype=np.uint8).view("<u4")[0])
+    return 4 * ((enc_h + 3) // 4)
+
+
+@contextlib.contextmanager
+def _uncompress_error_text(modern: bool):
+    """Wrap codec-level failures in the reference's exact loadFrame error
+    text (Decoder.cpp:225-231 throws IOException("Failed to uncompress
+    frame") / ("Failed to uncompress legacy frame") when raw::Decode{,Legacy}
+    returns <= 0), so CLI stderr stays byte-identical to the C++ example on
+    malformed payloads. The specific diagnosis stays on __cause__."""
+    try:
+        yield
+    except DecodeError as e:
+        raise IOException(
+            "Failed to uncompress frame"
+            if modern
+            else "Failed to uncompress legacy frame"
+        ) from e
 
 
 def resolve_device(device: torch.device | str) -> torch.device:

@@ -15,7 +15,8 @@ device:
   ``mcraw.preview._fused_eligible``.
 
 The forward matrix is interpolated between the container's two
-illuminants at the as-shot white point (``mcraw.color``, NumPy only).
+illuminants at the as-shot white point (:mod:`mcraw_torch.color`, the
+port's copy of ``mcraw.color``).
 
 The NumPy part of this module is a copy of the JAX package's f64 model
 (:func:`develop_f64`) and its constants, made with the same operations in
@@ -29,10 +30,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mcraw.color import interpolated_matrices
-from mcraw.metadata import ContainerMetadata, FrameMetadata
-
-from .kernels.develop import develop_rgba_device, pack_develop_params, pack_rgba, site_map
+from .color import interpolated_matrices
+from .kernels.develop import (
+    develop_rgba_device,
+    pack_develop_params,
+    pack_rgba,
+    site_map,
+    srgb_code_f64,
+)
+from .metadata import ContainerMetadata, FrameMetadata
 
 # XYZ (D50) -> linear sRGB (D65), Bradford-adapted.
 _XYZ_D50_TO_SRGB = np.array(
@@ -153,10 +159,7 @@ def develop_f64(raw, black, white, neutral, fwd, cfa,
             chans.append(num / den * gains[c])
         rgb = np.clip(np.stack(chans, -1), 0, 1)
     m = _XYZ_D50_TO_SRGB.astype(np.float64) @ np.asarray(fwd, np.float64)
-    rgb = np.clip(rgb @ m.T, 0, 1)
-    rgb = np.where(rgb <= 0.0031308, 12.92 * rgb,
-                   1.055 * np.power(rgb, 1 / 2.4) - 0.055)
-    return np.round(np.clip(rgb, 0, 1) * 255.0).astype(np.int64)
+    return srgb_code_f64(rgb @ m.T)
 
 
 def _inv_dens(height: int, width: int, cfa: tuple[int, ...]) -> np.ndarray:

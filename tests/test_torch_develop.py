@@ -215,3 +215,70 @@ def test_empty_frame():
     out = D.develop_rgba_plain(torch.zeros((2, 0, 5), dtype=torch.uint16), params,
                                cfa=(0, 1, 1, 2))
     assert out.shape == (2, 0, 5) and out.dtype == torch.uint32
+
+
+# -- the kernel's sRGB quantizer (host side) ----------------------------------
+
+
+def test_srgb_code_is_the_f64_models_curve():
+    """develop_f64 ends in srgb_code_f64: the model through the original
+    mcraw.preview curve equals the copy's on a frame with every code."""
+    raw = np.random.default_rng(3).integers(0, 4096, size=(40, 64), dtype=np.uint16)
+    got = P.develop_f64(raw, BLACK, WHITE, NEUTRAL, FWD, CFA_PATTERNS["rggb"])
+    want = JP.develop_f64(raw, BLACK, WHITE, NEUTRAL, FWD, CFA_PATTERNS["rggb"])
+    assert np.array_equal(got, want)
+    lin = np.linspace(-0.5, 1.5, 4001)
+    curve = np.where(np.clip(lin, 0, 1) <= 0.0031308, 12.92 * np.clip(lin, 0, 1),
+                     1.055 * np.power(np.clip(lin, 0, 1), 1 / 2.4) - 0.055)
+    assert np.array_equal(D.srgb_code_f64(lin),
+                          np.round(np.clip(curve, 0, 1) * 255.0).astype(np.int64))
+
+
+def test_srgb_thresholds_are_the_code_steps():
+    """thr[c] is the least float32 with code c: its predecessor has c - 1."""
+    thr = D.srgb_thresholds()
+    assert thr.dtype == np.float32 and thr.shape == (257,)
+    c = np.arange(1, 256)
+    t = thr[1:256]
+    assert np.all(np.diff(t) > 0) and t[0] > 0 and t[-1] <= 1
+    assert np.array_equal(D.srgb_code_f64(t), c)
+    assert np.array_equal(D.srgb_code_f64(np.nextafter(t, np.float32(0))), c - 1)
+
+
+@pytest.mark.parametrize("ulps", [-2, -1, 0, 1, 2])
+def test_quantizer_exact_at_every_threshold(ulps):
+    """The quantizer equals round(255 * srgb) of the f64 model at every
+    threshold and at its float32 neighbours."""
+    t = D.srgb_thresholds()[1:256]
+    lin = t.view(np.int32) + np.int32(ulps)
+    lin = np.clip(lin.view(np.float32), 0, 1)
+    assert np.array_equal(D.srgb_quantize(lin), D.srgb_code_f64(lin))
+
+
+def test_quantizer_exact_on_a_dense_sample():
+    """Every float32 step at the bottom of [0, 1], 2^22 + 1 even steps
+    over it, and random floats, with both ends."""
+    low = np.arange(0, 1 << 16, dtype=np.int32).view(np.float32)
+    even = np.linspace(0, 1, (1 << 22) + 1).astype(np.float32)
+    rand = np.random.default_rng(8).random(1 << 20, dtype=np.float32)
+    for lin in (low, even, rand, np.array([0, 1], np.float32)):
+        assert np.array_equal(D.srgb_quantize(lin), D.srgb_code_f64(lin))
+
+
+def test_quantizer_table_layout():
+    """The kernel's (SRGB_ENTRIES, 2) int32 table: next threshold's bits,
+    base code; a bucket starts where lin's bits >> 16 step, each bucket
+    holds at most one threshold; NaN and -0.0 give 0, 1.0 gives 255."""
+    tab = D.quantizer_table()
+    next_thr, base = D.srgb_quantizer()
+    assert tab.shape == (D.SRGB_ENTRIES, 2) and tab.dtype == np.int32
+    assert np.array_equal(tab[:, 0].view(np.float32), next_thr)
+    assert np.array_equal(tab[:, 1], base)
+    start = D.srgb_bucket_starts()
+    assert start[1] == np.float32(2.0 ** -13) and start[-1] == 1.0
+    assert np.all(np.diff(start) > 0)
+    assert np.array_equal(base, D.srgb_code_f64(start))
+    assert base[0] == 0 and base[-1] == 255 and next_thr[-1] == np.inf
+    assert np.all(next_thr[:-1] >= start[:-1])
+    edge = np.array([np.nan, -0.0, -1.0, 0.0, 1.0, 2.0, np.inf], np.float32)
+    assert D.srgb_quantize(edge).tolist() == [0, 0, 0, 0, 255, 255, 255]

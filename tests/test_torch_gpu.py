@@ -1,7 +1,7 @@
 """mcraw_torch's CUDA kernels on the card, against their plain torch
 versions and the NumPy oracle. Every test here is marked `gpu` and skips
-where torch.cuda.is_available() is false. The file imports no JAX, so it
-also runs where JAX is not installed:
+where torch.cuda.is_available() is false. The file imports no JAX and
+nothing of mcraw, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 """
@@ -10,16 +10,16 @@ import numpy as np
 import pytest
 import torch
 
-from mcraw import encode as E
-from mcraw.kernels import tables as T
-from mcraw.metadata import CFA_PATTERNS, example_container_metadata, example_frame_metadata
 from mcraw_torch import Decoder
+from mcraw_torch import encode as E
 from mcraw_torch import preview as P
 from mcraw_torch.kernels import checksum as C
 from mcraw_torch.kernels import develop as D
 from mcraw_torch.kernels import legacy as L
+from mcraw_torch.kernels import tables as T
 from mcraw_torch.kernels import unpack as U
 from mcraw_torch.kernels.tables import modern_tables
+from mcraw_torch.metadata import CFA_PATTERNS, example_container_metadata, example_frame_metadata
 
 pytestmark = pytest.mark.gpu
 
@@ -57,6 +57,56 @@ def test_unpack_kernel_equals_plain(cuda, ty, tx, height, width):
     torch.cuda.synchronize()
     assert U.KERNEL_LAUNCHES == launches + 1
     assert got.shape == (height, width) and got.dtype == torch.uint16
+    assert torch.equal(got.to(torch.int32), want.to(torch.int32))
+
+
+def edge_unpack_inputs(rng, ty: int, tx: int, content: str, device):
+    """Unpack inputs with bits chosen by `content`: "per_tile" (every block
+    of tile i at bits i % 17, so each tile holds one width and every width
+    0..16 occurs), "all16" (every block at a 16-bit width 11..16), or
+    "scrambled" (random bits and the prep's offsets shuffled, which the
+    kernel must read word by word from device memory)."""
+    nblk = 4 * ty * tx
+    if content == "per_tile":
+        bits = (np.arange(nblk) // 4 % 17).astype(np.uint16)
+    elif content == "all16":
+        bits = rng.integers(11, 17, size=nblk, dtype=np.uint16)
+    else:
+        bits = rng.integers(0, 17, size=nblk, dtype=np.uint16)
+    refs = rng.integers(0, 1 << 16, size=nblk, dtype=np.uint16)
+    size = 16 + int(T.MODERN_BLOCK_LENGTH.take(bits, mode="clip").sum())
+    size += U.TAIL_BYTES + (-(size + U.TAIL_BYTES)) % 16
+    payload = rng.integers(0, 256, size=size, dtype=np.uint8)
+    words = torch.from_numpy(payload.view("<i4")).to(device)
+    b, r = torch.from_numpy(bits).to(device), torch.from_numpy(refs).to(device)
+    offs = U.block_offsets(b, modern_tables(device))
+    if content == "scrambled":
+        offs = offs[torch.from_numpy(rng.permutation(nblk)).to(device)].contiguous()
+    return words, b, r, offs
+
+
+@pytest.mark.parametrize(
+    "ty, tx, height, width, content",
+    [
+        (768, 64, 3072, 4032, "per_tile"),  # the last tile column cropped away
+        (768, 63, 3072, 4000, "random"),  # W % 64 != 0: a tile crosses the crop
+        (768, 64, 3072, 4036, "per_tile"),  # W % 8 != 0: masked stores
+        (768, 64, 3072, 4090, "random"),
+        (10, 8, 50, 512, "random"),  # short encodedHeight: rows 40.. stay zero
+        (7, 5, 28, 300, "all16"),
+        (9, 4, 36, 256, "scrambled"),
+    ],
+)
+def test_unpack_kernel_edges(cuda, ty, tx, height, width, content):
+    """The redesigned kernel's edge cases, element for element against the
+    plain version."""
+    rng = np.random.default_rng(ty + tx + width)
+    words, b, r, offs = edge_unpack_inputs(rng, ty, tx, content, cuda)
+    kw = dict(ty=ty, tx=tx, height=height, width=width)
+    got = U.decode_modern_device(words, b, r, offs, **kw)
+    want = U.decode_modern_plain(words, b, r, offs, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (height, width)
     assert torch.equal(got.to(torch.int32), want.to(torch.int32))
 
 
@@ -151,7 +201,8 @@ DEVELOP_ARGS = (
 @pytest.mark.parametrize(
     "shape, sensor",
     [((16, 128), "rggb"), ((36, 250), "bggr"), ((3, 64), "grbg"), ((5, 7), "gbrg"),
-     ((3024, 4032), "bggr")],
+     ((3024, 4032), "bggr"), ((37, 251), "rggb"), ((3, 101), "gbrg"),
+     ((65, 130), "grbg")],
 )
 def test_develop_kernel_equals_plain_and_f64(cuda, shape, sensor, demosaic):
     """<= 1 LSB per channel against the plain version on the card and the
@@ -192,11 +243,26 @@ def test_develop_kernel_batched_equals_single(cuda, h, demosaic):
     assert torch.equal(batched.to(torch.int64), singles.to(torch.int64))
 
 
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+def test_develop_kernel_batch_of_odd_frames(cuda, demosaic):
+    """A (3, 5, 250) batch (frames 1250 pixels apart, W % 4 != 0) equals
+    three single calls bit for bit and each is within 1 LSB of plain."""
+    frames = np.random.default_rng(7).integers(0, 4096, size=(3, 5, 250), dtype=np.uint16)
+    params = D.pack_develop_params(*DEVELOP_ARGS)
+    x = torch.from_numpy(frames).to(cuda)
+    kw = dict(cfa=(2, 1, 1, 0), demosaic=demosaic)
+    batched = D.develop_rgba_device(x, params, **kw)
+    singles = torch.stack([D.develop_rgba_device(f, params, **kw) for f in x])
+    plain = D.develop_rgba_plain(x, params, **kw)
+    assert torch.equal(batched.to(torch.int64), singles.to(torch.int64))
+    assert np.abs(_channels(batched) - _channels(plain)).max() <= 1
+
+
 def test_preview_on_card(cuda):
     """A modern and a legacy frame through preview_frame_rgba on the card:
     one develop launch each, no plain call, within 1 LSB of the f64 model."""
-    from mcraw.color import interpolated_matrices
-    from mcraw.metadata import ContainerMetadata
+    from mcraw_torch.color import interpolated_matrices
+    from mcraw_torch.metadata import ContainerMetadata
 
     rng = np.random.default_rng(6)
     cm = example_container_metadata(sensor="bggr", black_level=(64, 60, 70, 64),

@@ -13,13 +13,13 @@ import torch
 import jax.numpy as jnp
 
 from mcraw import encode as E
-from mcraw.errors import DecodeError
-from mcraw.kernels import native
 from mcraw.kernels import numpy_ref as R
 from mcraw.kernels import pallas_legacy as PL
 from mcraw.kernels import tables as T
 from mcraw.kernels import unpack as JU
+from mcraw_torch.errors import DecodeError
 from mcraw_torch.kernels import legacy as L
+from mcraw_torch.kernels import native
 from mcraw_torch.kernels.tables import legacy_tables
 
 CPU = torch.device("cpu")

@@ -7,10 +7,11 @@ import pytest
 import torch
 
 from mcraw import encode as E
-from mcraw.errors import DecodeError, IOException, MotionCamException
+from mcraw import errors as JE
 from mcraw.metadata import example_container_metadata, example_frame_metadata
 from mcraw.pipeline import Decoder as JaxDecoder
 from mcraw_torch import Decoder
+from mcraw_torch.errors import DecodeError, IOException, MotionCamException
 
 
 def make_clip(seed=0, num_frames=3, h=16, w=192, codec=7):
@@ -97,7 +98,7 @@ def test_truncated_frame_raises_reference_text():
     with pytest.raises(IOException, match="^Failed to uncompress frame$") as got:
         Decoder(blob, device="cpu").load_frame(1)
     assert isinstance(got.value.__cause__, DecodeError)
-    with pytest.raises(IOException, match="^Failed to uncompress frame$"):
+    with pytest.raises(JE.IOException, match="^Failed to uncompress frame$"):
         JaxDecoder(blob, backend="numpy").load_frame(1)
 
 
@@ -114,7 +115,7 @@ def test_truncated_legacy_frame_raises_reference_text(keep):
     with pytest.raises(IOException, match=LEGACY_TEXT) as got:
         Decoder(blob, device="cpu").load_frame(1)
     assert isinstance(got.value.__cause__, DecodeError)
-    with pytest.raises(IOException, match=LEGACY_TEXT):
+    with pytest.raises(JE.IOException, match=LEGACY_TEXT):
         JaxDecoder(blob, backend="numpy").load_frame(1)
 
 
@@ -124,7 +125,7 @@ def test_degenerate_geometry_raises_reference_text(w, h):
     blob = _single_frame(E.encode_modern(img), w=w, h=h)
     with pytest.raises(IOException, match="^Failed to uncompress frame$"):
         Decoder(blob, device="cpu").load_frame(1)
-    with pytest.raises(IOException, match="^Failed to uncompress frame$"):
+    with pytest.raises(JE.IOException, match="^Failed to uncompress frame$"):
         JaxDecoder(blob, backend="numpy").load_frame(1)
 
 
@@ -134,7 +135,7 @@ def test_degenerate_legacy_geometry_raises_reference_text(w, h):
     blob = _single_frame(E.encode_legacy(img), w=w, h=h, codec=6)
     with pytest.raises(IOException, match=LEGACY_TEXT):
         Decoder(blob, device="cpu").load_frame(1)
-    with pytest.raises(IOException, match=LEGACY_TEXT):
+    with pytest.raises(JE.IOException, match=LEGACY_TEXT):
         JaxDecoder(blob, backend="numpy").load_frame(1)
 
 

@@ -11,7 +11,7 @@ import torch
 import jax.numpy as jnp
 
 from mcraw import encode as E
-from mcraw.errors import DecodeError
+from mcraw import errors as JE
 from mcraw.kernels import numpy_ref as R
 from mcraw.kernels import pallas_unpack as PK
 from mcraw.kernels import tables as T
@@ -19,6 +19,7 @@ from mcraw.kernels import unpack as JU
 from mcraw.metadata import example_container_metadata, example_frame_metadata
 from mcraw.pipeline import Decoder as JaxDecoder
 from mcraw_torch import Decoder
+from mcraw_torch.errors import DecodeError
 from mcraw_torch.kernels import unpack as U
 from mcraw_torch.kernels.tables import modern_tables
 from mcraw_torch.pipeline import decode_modern_frame
@@ -165,10 +166,11 @@ def _malformed(kind):
 )
 def test_host_prep_errors_match_jax(kind):
     payload, width = _malformed(kind)
-    with pytest.raises(DecodeError) as ref:
+    with pytest.raises(JE.DecodeError) as ref:
         PK.prepare_modern_light(payload, width, 8)
     with pytest.raises(DecodeError) as got:
         U.prepare_modern(payload, width, 8)
+    assert type(got.value).__name__ == type(ref.value).__name__
     assert str(got.value) == str(ref.value)
 
 
@@ -262,3 +264,80 @@ def test_routes_unpack_blocks_pallas_v2(shape, maxv):
     want = R.modern_deinterleave(vals, zero, plan.tiles_y, plan.tiles_x)[:h, :w]
     out = decode_modern_frame(payload, w, h, torch.device("cpu")).numpy()
     assert np.array_equal(out, want) and np.array_equal(out, img)
+
+
+# -- the kernel's launch arguments and descriptor table (host side) -----------
+
+
+@pytest.mark.parametrize(
+    "ty, tx, height, width, want",
+    [
+        (768, 64, 3072, 4096, (3072, 49152)),
+        (756, 63, 3024, 4032, (3024, 47628)),  # W % 64 != 0
+        (768, 64, 3072, 4036, (3072, 49152)),  # W % 8 != 0
+        (10, 8, 50, 512, (40, 80)),  # short encodedHeight
+        (3, 2, 11, 100, (11, 6)),  # crop inside the last tile row
+        (1, 1, 4, 64, (4, 1)),
+        (4, 4, 0, 256, (0, 0)),
+        (4, 4, 16, 0, (16, 0)),
+    ],
+)
+def test_unpack_launch_arguments(ty, tx, height, width, want):
+    """Rows the kernel writes and the tiles that hold them, by shape."""
+    assert tuple(U.unpack_launch(ty, tx, height, width)) == want
+
+
+# csrc/unpack_modern.cu: a block stages the payload span of a run of
+# kRunTiles tiles in a buffer of 4 * kRunTiles * 128 + 32 bytes.
+RUN_TILES = 32
+
+
+def test_run_span_fits_the_staging_buffer():
+    """A run's payload span, from its first block's offset (16-byte aligned
+    down) to its last block's end (aligned up), never exceeds the kernel's
+    shared buffer, even when every block is 16-bit: every offset the host
+    prep makes is 8-byte aligned."""
+    nblk = 4 * RUN_TILES
+    for bits in (np.full(3 * nblk, 16), np.random.default_rng(4).integers(0, 17, 3 * nblk)):
+        lengths = T.MODERN_BLOCK_LENGTH[bits]
+        offs = 16 + np.concatenate(([0], np.cumsum(lengths)[:-1]))
+        assert np.all(offs % 8 == 0)
+        for r in range(3):
+            lo, last = offs[r * nblk], offs[r * nblk + nblk - 1]
+            span = ((last & ~3) + 128 + 15 & ~15) - (lo & ~15)
+            assert span <= nblk * 128 + 32
+
+
+def _quad_values(words: np.ndarray, cls: int, quads: np.ndarray) -> np.ndarray:
+    """The kernel's block_values over all 64 values of one block, in NumPy:
+    the straight copy for the 16-bit class, else one descriptor row per
+    field of each group of four values, right shifts 8 apart."""
+    w = words.astype(np.int64)
+    if cls == len(T.MODERN_CLASSES) - 1:
+        j = np.arange(64)
+        return (w[j >> 1] >> (16 * (j & 1))) & 0xFFFF
+    v = np.zeros(64, np.int64)
+    nf = quads[cls, 48, 0]
+    for i in range(16):
+        for f in range(nf):
+            widx, rsh, mask, lsh = quads[cls, 3 * i + f]
+            ws = w[widx] >> rsh
+            for u in range(4):
+                v[4 * i + u] |= ((ws >> (8 * u)) & mask) << lsh
+    return v
+
+
+def test_quad_descriptors_compute_every_class():
+    """pack_quad_descriptors, read as the kernel reads it, gives every
+    class's values from random words exactly as the word-field tables."""
+    from mcraw_torch.kernels import tables as PT
+
+    quads = PT.pack_quad_descriptors()
+    assert quads.shape == (10, 49, 4) and quads.dtype == np.int32
+    rng = np.random.default_rng(9)
+    for cls in range(len(T.MODERN_CLASSES)):
+        words = rng.integers(0, 1 << 32, size=32, dtype=np.uint64).astype(np.uint32)
+        w = words.astype(np.int64)
+        f = (w[T.MODERN_WIDX[cls]] >> T.MODERN_WRSH[cls]) & ((1 << T.MODERN_WNB[cls]) - 1)
+        want = np.bitwise_or.reduce(f << T.MODERN_WLSH[cls], axis=1)
+        assert np.array_equal(_quad_values(words, cls, quads), want), T.MODERN_CLASSES[cls]
