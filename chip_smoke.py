@@ -14,9 +14,12 @@ failure exits non-zero and prints no result:
    with bits 0..65535 and wrapping refs, and at the tiled kernel's edges:
    widths 4032, 4000 (W % 64 != 0), 4036 and 4090 (W % 8 != 0), a short
    encodedHeight, bits 0..16 one width a tile, all-16-bit blocks, shuffled
-   offsets; legacy unpack at five geometries up to 4096x3072 on a synthetic
-   header chain with bits 0..16; checksum at odd shapes, 4K uint16,
-   (6144, 4096) uint32), <= 1 LSB per channel with alpha 255 for develop
+   offsets; legacy unpack on a synthetic header chain with bits 0..16 at
+   five geometries up to 4096x3072 and at its edges: widths 4000 (runs
+   that cross rows), 4036, 4090, 33 and 1 with refs up to 65535, shuffled
+   offsets, offsets around the end of the payload, no zero tail; checksum
+   at odd shapes, 4K uint16, (6144, 4096) uint32, views that start off a
+   16-byte boundary, lengths 1..17), <= 1 LSB per channel with alpha 255 for develop
    (both demosaic modes at (16, 128), (36, 250), (3, 64) and (3024, 4032);
    the tiled kernel's edges (37, 251), (65, 130), (3, 101), (5, 7),
    (33, 66); (3072, 4096) in the bench's parameters; all four CFAs at a
@@ -241,19 +244,41 @@ UNPACK_EDGES = (
 )
 
 
-def random_legacy_inputs(rng, h: int, w: int):
+def random_legacy_inputs(rng, h: int, w: int, content: str):
     """Random payload bytes on a synthetic header chain: bits 0..16 (every
-    value among the first 17 blocks), refs 0..4095, offsets the cumulative
-    sum of 2 + the block length, just past each header."""
+    value among the first 17 blocks), offsets the cumulative sum of 2 + the
+    block length, just past each header. `content`: "chain" (refs
+    0..4095), "wrap" (refs 0..65535: value + ref wraps), "shuffled" (the
+    offsets permuted: bounded reads from device memory), "near_end" (the
+    last nine blocks start from 4 bytes before to 4 bytes past the end of
+    the payload: bounded reads again), "no_tail" (no zero tail: the staged
+    copy zero-fills past the payload)."""
     nblk = L.num_blocks(w, h)
     bits = rng.integers(0, 17, size=nblk).astype(np.int32)
     bits[:17] = np.arange(17)
-    refs = rng.integers(0, 4096, size=nblk).astype(np.uint16)
+    refs = rng.integers(0, 1 << 16 if content == "wrap" else 4096,
+                        size=nblk).astype(np.uint16)
     step = 2 + T.LEGACY_BLOCK_LENGTH[bits].astype(np.int64)
     offsets = np.cumsum(step) - step + 2
-    payload = rng.integers(0, 256, size=int(step.sum()) + 1 + L.TAIL_BYTES,
-                           dtype=np.uint8)
+    tail = 0 if content == "no_tail" else 1 + L.TAIL_BYTES
+    payload = rng.integers(0, 256, size=int(step.sum()) + tail, dtype=np.uint8)
+    if content == "shuffled":
+        offsets = offsets[rng.permutation(nblk)]
+    elif content == "near_end":
+        offsets[-9:] = len(payload) + np.arange(-4, 5)
     return [torch.from_numpy(a).to(DEV) for a in (payload, bits, refs, offsets)]
+
+
+# (height, width, content): the legacy kernel's cases. 4000: runs of pairs
+# cross rows (125 pairs a row); 4036, 4090, 33, 1: W % 8 != 0, masked
+# stores.
+LEGACY_CASES = (
+    (8, 96, "chain"), (5, 50, "chain"), (24, 1000, "chain"), (3024, 4032, "chain"),
+    (H, W, "chain"), (H, 4000, "wrap"), (64, 4036, "wrap"), (64, 4090, "wrap"),
+    (50, 33, "wrap"), (70, 1, "wrap"), (40, 256, "shuffled"), (H, W, "shuffled"),
+    (16, 96, "near_end"), (24, 1000, "near_end"), (24, 1000, "no_tail"),
+    (3, 4090, "no_tail"),
+)
 
 
 def phase_kernels(rng) -> dict:
@@ -285,36 +310,43 @@ def phase_kernels(rng) -> dict:
               f"err {err}")
         emit("kernels", kernel="unpack_modern", case="edge", content=content, ty=ty,
              tx=tx, height=h, width=w, max_abs_err=err)
-    for h, w in ((8, 96), (5, 50), (24, 1000), (3024, 4032), (H, W)):
-        args = random_legacy_inputs(rng, h, w)
+    for h, w, content in LEGACY_CASES:
+        args = random_legacy_inputs(rng, h, w, content)
         got = L.decode_legacy_device(*args, height=h, width=w)
         want = L.decode_legacy_plain(*args, height=h, width=w)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         errs["unpack_legacy"] = max(errs["unpack_legacy"], err)
         check(got.shape == (h, w) and err == 0,
-              f"legacy unpack kernel != plain at {h}x{w}: err {err}")
-        emit("kernels", kernel="unpack_legacy", height=h, width=w,
+              f"legacy unpack kernel != plain at {h}x{w} {content}: err {err}")
+        emit("kernels", kernel="unpack_legacy", height=h, width=w, content=content,
              blocks=L.num_blocks(w, h), max_abs_err=err)
+    # (shape, dtype, lo, start): x.view(-1)[start:] viewed as `shape`;
+    # starts off a 16-byte boundary, lengths 1..17 from every start, one
+    # 16-byte multiple.
     cases = [
-        ("u16", (1, 1), np.uint16, 0, 1 << 16),
-        ("u16", (7, 13), np.uint16, 0, 1 << 16),
-        ("u16", (H, W), np.uint16, 0, 1 << 16),
-        ("u32", (2 * H, W), np.uint32, 0, 1 << 32),
-        ("u32", (1000, 1000), np.uint32, (1 << 32) - 4096, 1 << 32),
+        ((1, 1), np.uint16, 0, 0), ((7, 13), np.uint16, 0, 0), ((H, W), np.uint16, 0, 0),
+        ((2 * H, W), np.uint32, 0, 0), ((1000, 1000), np.uint32, (1 << 32) - 4096, 0),
+        ((H, W), np.uint16, 0, 1), ((1000, 1000), np.uint32, (1 << 32) - 4096, 3),
+        ((4096,), np.uint16, 0, 0),
+        *(((n,), np.uint16, 0, n % 8) for n in range(1, 18)),
+        *(((n,), np.uint32, 0, n % 4) for n in range(1, 18)),
     ]
-    for tag, shape, dtype, lo, hi in cases:
-        a = rng.integers(lo, hi, size=shape, dtype=np.uint64).astype(dtype)
-        x = torch.from_numpy(a).to(DEV)
+    for shape, dtype, lo, start in cases:
+        hi = 1 << (8 * np.dtype(dtype).itemsize)
+        a = rng.integers(lo, hi, size=start + int(np.prod(shape)), dtype=np.uint64)
+        a = a.astype(dtype)
+        x = torch.from_numpy(a).to(DEV)[start:].view(shape)
         got = int(C.device_checksum(x).item())
         want = int(C.checksum_plain(x).item())
-        ref = host_checksum(a)
+        ref = host_checksum(a[start:])
         err = abs(got - want)
         errs["checksum"] = max(errs["checksum"], err, abs(got - ref))
         check(got == want == ref,
-              f"checksum {tag}{shape}: kernel {got} plain {want} host {ref}")
-        emit("kernels", kernel="checksum", dtype=tag, shape=list(shape),
-             max_abs_err=err)
+              f"checksum {np.dtype(dtype).name}{shape} from {start}: kernel {got} "
+              f"plain {want} host {ref}")
+        emit("kernels", kernel="checksum", dtype=np.dtype(dtype).name, shape=list(shape),
+             start=start, max_abs_err=err)
     errs["develop"] = phase_kernels_develop(rng)
     return errs
 

@@ -6,74 +6,209 @@
 // and _legacy_kernel (_unpack_legacy_pallas). It computes their function, not
 // their machinery: the chunk DMA, one-hot MXU byte picks, byte planes,
 // 128-lane rows and dummy lanes for ragged padded widths exist to work
-// around the TPU's lack of a gather; an H100 reads device memory by address.
+// around the TPU's lack of a gather.
 //
-// One thread per output pixel (y, x) of the (height, width) plane, so that
-// neighbouring threads store neighbouring pixels:
-//   block b = 2 * (y * pw / 32 + x / 32) + (x & 1), value j = (x & 31) / 2
-// (numpy_ref.legacy_interleave; pw is the width padded to 32, and the
-// padding columns are never computed). Value j of block b is the c-bit field
-// at bit j*c of the MSB-first, big-endian bitstream that starts at byte
-// offsets[b], with c = bits <= 10 ? bits : 16 (LEGACY_CLASS_OF_BITS in
-// mcraw/kernels/tables.py: class 16 is a big-endian uint16, class 0 all
-// zeros), plus the block's reference, wrapped to 16 bits. The field starts
-// at bit s = (j*c) & 7 of byte offsets[b] + (j*c >> 3), and s + c <= 23, so
-// one 3-byte big-endian window always holds it:
-//   v = (window >> (24 - s - c)) & (2^c - 1).
-// That is the closed form of the byte-field tables LEGACY_POS/RSH/MSK/LSH,
-// which the plain version (mcraw_torch/kernels/legacy.py) reads instead.
+// The function: block b has class c = bits <= 10 ? bits : 16 (bits clamped
+// to 0..16; LEGACY_CLASS_OF_BITS in mcraw_torch/kernels/tables.py). Value j
+// of the block is the c-bit field at bit j*c of the MSB-first, big-endian
+// bitstream that starts at byte offsets[b] (class 16: big-endian uint16s,
+// class 0: zeros), plus the block's reference, wrapped to 16 bits. Blocks
+// 2p and 2p+1 fill the 32 columns of pair p as even and odd pixels; pair p
+// sits at row p / (pw / 32), pw the width padded to 32, and the output is
+// cropped to `width` (numpy_ref.legacy_interleave). A byte at or past
+// n_bytes reads as 0. The plain version (mcraw_torch/kernels/legacy.py)
+// reads the byte-field tables LEGACY_POS/RSH/MSK/LSH instead.
 //
-// Unaligned: offsets are odd as often as even (2-byte inline headers), so
-// the payload is read byte by byte. For c >= 8 the window reaches up to 2
-// bytes past the block's last byte; those bits are masked out, the caller
-// pads the payload with a zeroed tail, and every byte index is still
-// bounded by n_bytes (reads past it give 0).
+// What bounds it: bytes. A 4096x3072 12-bit frame reads a 14.2 MB payload
+// plus 786,432 x (int32 bits, uint16 ref, int64 offset) = 11 MB and writes
+// 25.2 MB, >= 0.0150 ms at 3.35 TB/s. The design follows one fact of the
+// format: the blocks of consecutive pairs are consecutive in the stream, so
+// a run of pairs reads one contiguous span of the payload.
 //
-// Bound by bytes, not operations: a 4096x3072 frame reads its payload plus
-// 786,432 blocks x (int32 bits, uint16 ref, int64 offset) and writes 25.2 MB.
-// A warp's 32 pixels share two blocks, so the metadata loads broadcast. No
-// matrix product, no bulk tile copy and no table: wgmma, TMA and shared
-// memory have no role.
+// - A block of 4 warps takes a run of 32 consecutive pairs (a run may
+//   cross a row). One thread per block of the codec loads its bits,
+//   reference and offset once, coalesced, into shared memory; every thread
+//   reads the run's first and last offsets and starts copying the span
+//   [first, last + 40) into shared memory with 16-byte cp.async copies
+//   before the metadata has landed. 3.2 KB of shared memory a block, so
+//   16 blocks an SM hide each other's latency (8 warps a run were 2-3 %
+//   slower, a persistent grid was not tried: it was slower for the modern
+//   kernel).
+// - Four threads a pair: thread q writes the 8 output pixels 8q .. 8q + 7
+//   of the pair, values 4q .. 4q + 3 of both blocks, as one 16-byte store.
+//   Those four values of class c <= 10 take 4c <= 40 bits from bit 4qc,
+//   byte qc / 2 at shift 4 (qc % 2): one 8-byte big-endian window, built
+//   from three 32-bit shared-memory words by two byte permutes, holds all
+//   four, and a field is then one shift and one mask. Class 16 is the same
+//   rule at c = 16 (8 bytes at byte 8q); class 0 reads nothing.
+// - A pair that crosses the cropped width, or any pair when width % 8 != 0,
+//   takes masked 2-byte stores instead.
+// - Offsets the host prep cannot produce (not inside [first, last], a
+//   negative first, a span larger than the staging buffer) send the run to
+//   per-byte bounded reads from device memory. Either way a byte at or past
+//   n_bytes reads as 0: the staged copy zero-fills it, so no input is read
+//   past its end.
 
 #include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRunPairs = kThreads / 4;
+constexpr int kRunBlocks = 2 * kRunPairs;
+constexpr int kMaxBlockBytes = 2 + 32;  // inline header + the 16-bit class
+// Bytes past a block's offset that its windows may touch: the last window
+// of class 16 starts at byte 24, and three words from a word-aligned start
+// reach 11 bytes past the window's first byte.
+constexpr int kWindowReach = 40;
+// The run's span, 16-byte aligned at both ends (up to 15 bytes more at
+// each), rounded up to 16.
+constexpr int kSpanBytes =
+    ((kRunBlocks - 1) * kMaxBlockBytes + kWindowReach + 2 * 15 + 15) & ~15;
+constexpr int kSpanWords = kSpanBytes / 4;
 
-__device__ __forceinline__ uint32_t byte_at(const uint8_t* __restrict__ p,
-                                            int64_t n, int64_t i) {
+static_assert(kRunBlocks <= kThreads, "one thread loads each block's metadata");
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ uint32_t byte_at(const uint8_t* __restrict__ p, int64_t n,
+                                            int64_t i) {
   return (i >= 0 && i < n) ? static_cast<uint32_t>(p[i]) : 0u;
 }
 
-__global__ void __launch_bounds__(kThreads) unpack_legacy_kernel(
-    const uint8_t* __restrict__ payload, int64_t n_bytes,
-    const int32_t* __restrict__ bits, const uint16_t* __restrict__ refs,
-    const int64_t* __restrict__ offsets, uint16_t* __restrict__ out,
-    int64_t height, int64_t width, int64_t pairs_per_row) {
-  const int64_t segs = (width + kThreads - 1) / kThreads;
-  const int64_t units = height * segs;
-  for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
-    const int64_t y = u / segs;
-    const int64_t x = (u - y * segs) * kThreads + threadIdx.x;
-    if (x >= width) continue;
-    const int64_t b = 2 * (y * pairs_per_row + (x >> 5)) + (x & 1);
-    const int j = static_cast<int>((x & 31) >> 1);
+// The 8-byte big-endian window at byte s of the staged span: words
+// s/4 .. s/4 + 2, bytes picked in reverse order by two permutes.
+__device__ __forceinline__ uint64_t staged_window(const uint32_t* span, int s) {
+  const int i = s >> 2;
+  // __byte_perm(x, y, sel): result byte k is byte (sel >> 4k) & 7 of y:x.
+  // Bytes a + 3, a + 2, a + 1, a (a = s % 4) give the big-endian word.
+  const unsigned be = 0x0123u + 0x1111u * static_cast<unsigned>(s & 3);
+  const uint32_t w0 = span[i], w1 = span[i + 1], w2 = span[i + 2];
+  const uint32_t hi = __byte_perm(w0, w1, be);
+  const uint32_t lo = __byte_perm(w1, w2, be);
+  return static_cast<uint64_t>(hi) << 32 | lo;
+}
 
-    int bb = bits[b];
-    bb = bb < 0 ? 0 : (bb > 16 ? 16 : bb);
-    const int c = bb <= 10 ? bb : 16;
-    uint32_t v = 0;
-    if (c != 0) {
-      const int bit = j * c;
-      const int64_t i = offsets[b] + (bit >> 3);
-      const uint32_t win = byte_at(payload, n_bytes, i) << 16 |
-                           byte_at(payload, n_bytes, i + 1) << 8 |
-                           byte_at(payload, n_bytes, i + 2);
-      v = (win >> (24 - (bit & 7) - c)) & ((1u << c) - 1u);
+// The same window read byte by byte from device memory, 0 outside
+// [0, n_bytes).
+__device__ __forceinline__ uint64_t bounded_window(const uint8_t* __restrict__ payload,
+                                                   int64_t n_bytes, int64_t s) {
+  uint64_t w = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) w = w << 8 | byte_at(payload, n_bytes, s + k);
+  return w;
+}
+
+// Values 4q .. 4q + 3 of a block of class c from its window (references
+// not added): field k ends at bit 4 (qc % 2) + (k + 1) c of the window.
+__device__ __forceinline__ void quad_values(uint64_t win, int c, int q, uint32_t (&v)[4]) {
+  const int sh = 4 * ((q * c) & 1);
+  const uint32_t mask = (1u << c) - 1u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = static_cast<uint32_t>(win >> (64 - sh - (k + 1) * c)) & mask;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) unpack_legacy_kernel(
+    const uint8_t* __restrict__ payload, int64_t n_bytes, const int32_t* __restrict__ bits,
+    const uint16_t* __restrict__ refs, const int64_t* __restrict__ offsets,
+    uint16_t* __restrict__ out, int64_t pairs, int64_t pairs_per_row, int64_t width) {
+  __shared__ __align__(16) uint32_t s_span[kSpanWords];
+  __shared__ int64_t s_off[kRunBlocks];
+  __shared__ int32_t s_cls[kRunBlocks];
+  __shared__ uint32_t s_ref[kRunBlocks];
+
+  const int tid = threadIdx.x;
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kRunPairs;
+  const int nb = 2 * static_cast<int>(pairs - p0 < kRunPairs ? pairs - p0 : kRunPairs);
+  const int64_t b0 = 2 * p0;
+
+  // The span from the run's first and last offsets, copied while the
+  // metadata loads; whether the run may read it is decided after both.
+  const int64_t lo = offsets[b0];
+  const int64_t last = offsets[b0 + nb - 1];
+  const int64_t lo16 = lo & ~int64_t{15};
+  const int64_t hi16 = ((last < n_bytes ? last : n_bytes) + kWindowReach + 15) & ~int64_t{15};
+  const bool span_ok = lo >= 0 && last >= lo && last <= n_bytes && hi16 - lo16 <= kSpanBytes;
+  if (span_ok) {
+    const bool aligned = (reinterpret_cast<uintptr_t>(payload) & 15) == 0;
+    const int chunks = static_cast<int>((hi16 - lo16) >> 4);
+    for (int i = tid; i < chunks; i += kThreads) {
+      const int64_t g = lo16 + 16 * static_cast<int64_t>(i);  // byte in the payload
+      if (aligned && g + 16 <= n_bytes) {
+        cp_async16(s_span + 4 * i, payload + g);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int64_t j = g + 4 * k;
+          s_span[4 * i + k] = byte_at(payload, n_bytes, j) |
+                              byte_at(payload, n_bytes, j + 1) << 8 |
+                              byte_at(payload, n_bytes, j + 2) << 16 |
+                              byte_at(payload, n_bytes, j + 3) << 24;
+        }
+      }
     }
-    out[y * width + x] = static_cast<uint16_t>(v + refs[b]);
+  }
+  bool ok = span_ok;
+  if (tid < nb) {
+    const int bb = bits[b0 + tid];
+    const int cl = bb < 0 ? 0 : (bb > 16 ? 16 : bb);
+    const int64_t o = offsets[b0 + tid];
+    s_cls[tid] = cl <= 10 ? cl : 16;
+    s_ref[tid] = refs[b0 + tid];
+    s_off[tid] = o;
+    ok = ok && o >= lo && o <= last;
+  }
+  cp_async_wait_all();
+  const bool staged = __syncthreads_and(ok);
+
+  // 32-bit index math: pairs < 2^31 (checked at the launch).
+  const int lp = tid >> 2;  // pair within the run
+  const int q = tid & 3;
+  const int p = static_cast<int>(p0) + lp;
+  if (p >= pairs) return;
+  const int ppr = static_cast<int>(pairs_per_row);
+  const int y = p / ppr;
+  const int x = 32 * (p - y * ppr) + 8 * q;
+  if (x >= width) return;
+  uint32_t v[2][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int lb = 2 * lp + e;
+    const int c = s_cls[lb];
+    if (c == 0) {
+      v[e][0] = v[e][1] = v[e][2] = v[e][3] = 0u;
+    } else {
+      const int64_t s = s_off[lb] + ((q * c) >> 1);  // the window's first byte
+      const uint64_t win = staged ? staged_window(s_span, static_cast<int>(s - lo16))
+                                  : bounded_window(payload, n_bytes, s);
+      quad_values(win, c, q, v[e]);
+    }
+    const uint32_t ref = s_ref[lb];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[e][k] = (v[e][k] + ref) & 0xFFFFu;
+  }
+  uint16_t* o = out + static_cast<int64_t>(y) * width + x;
+  if ((width & 7) == 0 && x + 8 <= width) {
+    *reinterpret_cast<uint4*>(o) =
+        make_uint4(v[0][0] | v[1][0] << 16, v[0][1] | v[1][1] << 16,
+                   v[0][2] | v[1][2] << 16, v[0][3] | v[1][3] << 16);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (x + k < width) o[k] = static_cast<uint16_t>(v[k & 1][k >> 1]);
+    }
   }
 }
 
@@ -81,24 +216,21 @@ __global__ void __launch_bounds__(kThreads) unpack_legacy_kernel(
 
 // Writes the whole (height, width) uint16 plane `out`; padded_width is the
 // width rounded up to a multiple of 32, and bits/refs/offsets hold
-// height * padded_width / 16 blocks. Returns cudaGetLastError() after the
-// launch (0 on success).
+// height * padded_width / 16 blocks. One block of threads for each run of
+// kRunPairs pairs. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int mcraw_unpack_legacy(const uint8_t* payload, int64_t n_bytes,
                                    const int32_t* bits, const uint16_t* refs,
                                    const int64_t* offsets, uint16_t* out,
                                    int64_t height, int64_t width,
                                    int64_t padded_width, void* stream) {
-  const int64_t units = height * ((width + kThreads - 1) / kThreads);
-  if (units <= 0) return static_cast<int>(cudaGetLastError());
-  int dev = 0;
-  int sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * 8;
-  const int grid = static_cast<int>(units < cap ? units : cap);
-  unpack_legacy_kernel<<<grid, kThreads, 0,
+  const int64_t pairs_per_row = padded_width / 32;
+  const int64_t pairs = height * pairs_per_row;
+  if (pairs <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
+  if (pairs > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t runs = (pairs + kRunPairs - 1) / kRunPairs;
+  unpack_legacy_kernel<<<static_cast<unsigned>(runs), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      payload, n_bytes, bits, refs, offsets, out, height, width,
-      padded_width / 32);
+      payload, n_bytes, bits, refs, offsets, out, pairs, pairs_per_row, width);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,29 +1,35 @@
-"""Time the develop and modern unpack kernels against an earlier version of
-their sources, and against variants of the current ones, in turns, on one
-CUDA card.
+"""Time the four CUDA kernels (modern unpack, develop, legacy unpack,
+checksum) against an earlier version of their sources, and against variants
+of the current ones, in turns, on one CUDA card.
 
-    python -m mcraw_torch.kernel_ab OLD_CSRC [--variant NAME=CSRC ...] [--n 20]
+    python -m mcraw_torch.kernel_ab OLD_CSRC [--variant NAME=CSRC ...]
+        [--kernels unpack_modern,develop,unpack_legacy,checksum] [--n 20]
 
 OLD_CSRC is a directory with an earlier ``mcraw_torch/csrc`` (for example
 unpacked from ``git archive <commit> mcraw_torch/csrc`` into a git-ignored
-directory) whose ``mcraw_develop`` and ``mcraw_unpack_modern`` keep the
-entry points of commit 5002859. A variant is a full copy of today's
-``csrc`` with an edit (same entry points), for a diagnostic or a candidate.
-Every library is built with the same flags. Each kernel is timed at a
-4096x3072 12-bit frame (CUDA-event median of n launches, the 50 MB L2
-flushed before each) in the order old, new, variants, the variants again
-in reverse, new, old. The outputs are compared: unpack element for element
-against the plain version; develop by the channels that differ from the
-plain version and from the f64 model, and whether a variant's output equals
-the new kernel's bit for bit. Prints one JSON line per result, the card's
-name and power limit first, and the ``-Xptxas -v`` lines of every build.
-Needs one card.
+directory) whose entry points keep today's signatures (those of commit
+e0e1669 and later). A variant is a full copy of today's ``csrc`` with an
+edit (same entry points), for a diagnostic or a candidate. Every library
+is built with the same flags. Each kernel is timed at a 4096x3072 12-bit
+frame (CUDA-event median of n launches, the 50 MB L2 flushed before each
+by writing 256 MB, as chip_smoke.py does, and again by reading them) in
+the order old, new, variants, the variants again in reverse, new, old:
+the modern unpack on ``encode_modern``'s payload, the legacy unpack on
+``encode_legacy``'s (chip_smoke.py's first legacy frame), the checksum on
+that frame's uint16 plane. A checksum time is everything a call enqueues:
+the new kernel's entry zeroes its own output word, the old one's caller
+does (a fill launch, as its wrapper did). The outputs are compared: the
+unpacks element for element and the checksum by value against the plain
+version; develop by the channels that differ from the plain version and
+from the f64 model, and whether a variant's output equals the new kernel's
+bit for bit. The checksum is also timed at 16 elements: the fixed cost of
+a call. Prints one JSON line per result, the card's name and power limit
+first, and the ``-Xptxas -v`` lines of every build. Needs one card.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import statistics
 import subprocess
@@ -35,9 +41,12 @@ import torch
 from . import encode as E
 from . import preview as P
 from .kernels import build
+from .kernels import checksum as C
 from .kernels import develop as D
+from .kernels import legacy as L
+from .kernels import numpy_ref as R
 from .kernels import unpack as U
-from .kernels.tables import modern_tables, pack_descriptors
+from .kernels.tables import modern_tables
 
 H, W = 3072, 4096
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -48,6 +57,7 @@ BENCH_DEVELOP_ARGS = (
     np.zeros(4, np.float32), 4095.0, np.ones(3, np.float32),
     np.diag([0.9642, 1.0, 0.8249]).astype(np.float32),
 )
+KERNELS = ("unpack_modern", "develop", "unpack_legacy", "checksum")
 
 
 def emit(**kw) -> None:
@@ -61,16 +71,22 @@ def twelve_bit(rng, k: int) -> np.ndarray:
     return (base + rng.normal(0, 30, size=(H, W))).clip(0, 4095).astype(np.uint16)
 
 
-def time_cuda(fn, n: int) -> float:
-    """Median ms of `fn` over n runs by CUDA events, L2 flushed before each.
-    A spin of ~0.1 ms on the card after the flush keeps it busy while the
-    host enqueues `fn`, so the events time the card's work and not the
-    host's launch path."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+def time_cuda(fn, n: int, flush_by: str = "write") -> float:
+    """Median ms of `fn` over n runs by CUDA events, L2 flushed before each:
+    by writing a 256 MB buffer ("write", which leaves the L2 full of dirty
+    lines that the timed work must write back as it evicts them) or by
+    reading it ("read": the L2 holds clean lines). A spin of ~0.1 ms on the
+    card after the flush keeps it busy while the host enqueues `fn`, so the
+    events time the card's work and not the host's launch path."""
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    words = flush.view(torch.int64)
     fn()
     times = []
     for _ in range(n):
-        flush.zero_()
+        if flush_by == "write":
+            flush.zero_()
+        else:
+            words.sum()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -82,18 +98,6 @@ def time_cuda(fn, n: int) -> float:
     return statistics.median(times)
 
 
-def old_library(csrc: Path) -> ctypes.CDLL:
-    """The earlier sources built with today's flags, entry points bound with
-    the signatures of commit 5002859."""
-    lib = ctypes.CDLL(str(build.build(csrc, build.BUILD_DIR / "ab_old")))
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.mcraw_unpack_modern.restype = ctypes.c_int
-    lib.mcraw_unpack_modern.argtypes = [p, i64, p, p, p, p, p, p, i64, i64, i64, p]
-    lib.mcraw_develop.restype = ctypes.c_int
-    lib.mcraw_develop.argtypes = [p, p, i64, i64, i64, p, p, ctypes.c_int32, p]
-    return lib
-
-
 def ptxas_lines(csrc: Path, build_dir: Path) -> list[str]:
     log = build.library_path(csrc, build_dir).with_suffix(".log")
     keep = ("Compiling entry", "registers", "spill", "stack frame")
@@ -102,83 +106,62 @@ def ptxas_lines(csrc: Path, build_dir: Path) -> list[str]:
 
 def turns(name: str, fns: dict, n: int, bound_ms: float, **kw) -> None:
     """Times each of `fns` (old, new, variants...) twice, in the order
-    forward then backward, and prints them with the share of the bound."""
+    forward then backward, after a flush by writing (`turns_ms`, as
+    chip_smoke.py times) and by reading (`turns_ms_clean_l2`), and prints
+    them with the share of the bound."""
     order = list(fns) + list(fns)[::-1]
     ms = {k: [] for k in fns}
+    clean = {k: [] for k in fns}
     for k in order:
-        ms[k].append(time_cuda(fns[k], n))
-    emit(kernel=name, turns_ms=ms, bound_ms=bound_ms,
+        ms[k].append(time_cuda(fns[k], n, "write"))
+        clean[k].append(time_cuda(fns[k], n, "read"))
+    emit(kernel=name, turns_ms=ms, turns_ms_clean_l2=clean, bound_ms=bound_ms,
          share_of_bound={k: bound_ms / statistics.mean(v) for k, v in ms.items()},
          n=n, **kw)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m mcraw_torch.kernel_ab")
-    ap.add_argument("old_csrc", type=Path)
-    ap.add_argument("--variant", action="append", default=[], metavar="NAME=CSRC",
-                    help="a copy of today's csrc with an edit, timed beside new")
-    ap.add_argument("--n", type=int, default=20)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_ab: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    emit(card=card, torch=torch.__version__, cuda=torch.version.cuda)
-    dev = torch.device("cuda", 0)
-    build.lib()
-    old = old_library(args.old_csrc)
-    emit(ptxas_new=ptxas_lines(build.CSRC, build.BUILD_DIR),
-         ptxas_old=ptxas_lines(args.old_csrc, build.BUILD_DIR / "ab_old"))
-    variants = {}
-    for spec in args.variant:
-        name, csrc = spec.split("=", 1)
-        out_dir = build.BUILD_DIR / f"ab_{name}"
-        variants[name] = build.load(build.build(Path(csrc), out_dir))
-        emit(variant=name, ptxas=ptxas_lines(Path(csrc), out_dir))
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
-    # Modern unpack at a 4K 12-bit frame.
+
+def in_turns(libs: dict, call, new) -> dict:
+    """old, new, then the variants: `call(name)` runs library `name`, `new`
+    the current kernel through its wrapper."""
+    return {"old": call("old"), "new": new} | {k: call(k) for k in libs if k != "old"}
+
+
+def ab_unpack_modern(libs: dict, dev, n: int) -> None:
     rng = np.random.default_rng(21)
     payload = np.frombuffer(E.encode_modern(twelve_bit(rng, 0)), np.uint8)
     frame = U.upload(U.prepare_modern(payload, W, H), dev)
     tab = modern_tables(dev)
     offs = U.block_offsets(frame.bits, tab)
     kw = dict(ty=frame.tiles_y, tx=frame.tiles_x, height=H, width=W)
-    packed = torch.from_numpy(pack_descriptors()).to(dev)  # the old kernel's table
-    outs = {k: torch.empty((H, W), dtype=torch.uint16, device=dev) for k in ("old", *variants)}
+    outs = {k: torch.empty((H, W), dtype=torch.uint16, device=dev) for k in libs}
 
-    def unpack_old():
-        build.check(old.mcraw_unpack_modern(
-            frame.words.data_ptr(), frame.words.numel(), frame.bits.data_ptr(),
-            frame.refs.data_ptr(), offs.data_ptr(), packed.data_ptr(),
-            tab.class_index.data_ptr(), outs["old"].data_ptr(), frame.tiles_x, H, W,
-            stream()), "old mcraw_unpack_modern")
-
-    def unpack_variant(name):
+    def call(name):
         def run():
-            build.check(variants[name].mcraw_unpack_modern(
+            build.check(libs[name].mcraw_unpack_modern(
                 frame.words.data_ptr(), frame.words.numel(), frame.bits.data_ptr(),
                 frame.refs.data_ptr(), offs.data_ptr(), tab.quads.data_ptr(),
                 tab.class_index.data_ptr(), outs[name].data_ptr(), frame.tiles_x,
                 frame.tiles_y * frame.tiles_x, H, W, stream()), f"{name} mcraw_unpack_modern")
         return run
 
-    fns = {"old": unpack_old,
-           "new": lambda: U.decode_modern_device(frame.words, frame.bits, frame.refs, offs, **kw)}
-    fns |= {name: unpack_variant(name) for name in variants}
+    fns = in_turns(libs, call, lambda: U.decode_modern_device(
+        frame.words, frame.bits, frame.refs, offs, **kw))
     results = {k: f() for k, f in fns.items()}
     want = U.decode_modern_plain(frame.words, frame.bits, frame.refs, offs, **kw).to(torch.int32)
     torch.cuda.synchronize()
     got = {k: results["new"] if k == "new" else outs[k] for k in fns}
     nblk = frame.bits.numel()
     moved = len(payload) + nblk * (2 + 2 + 8) + 2 * H * W
-    turns("unpack_modern", fns, args.n, moved / PEAK_BYTES_PER_S * 1e3,
+    turns("unpack_modern", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
           frame=f"{W}x{H} 12-bit", bytes=moved,
           exact={k: bool(torch.equal(v.to(torch.int32), want)) for k, v in got.items()})
 
-    # Develop at a 4K 12-bit frame, the bench's parameters.
+
+def ab_develop(libs: dict, dev, n: int) -> None:
     x = torch.from_numpy(twelve_bit(np.random.default_rng(14), 0)).to(dev)
     params = D.pack_develop_params(*BENCH_DEVELOP_ARGS)
     prm = np.ascontiguousarray(params.reshape(-1))
@@ -195,38 +178,136 @@ def main(argv=None) -> int:
         return {"max_abs_err": int(d.max().item()), "channels_differ": int((d != 0).sum().item())}
 
     for mode in D.DEMOSAICS:
-        outs = {k: torch.empty((H, W), dtype=torch.uint32, device=dev)
-                for k in ("old", *variants)}
+        outs = {k: torch.empty((H, W), dtype=torch.uint32, device=dev) for k in libs}
 
-        def develop_old():
-            build.check(old.mcraw_develop(
-                x.data_ptr(), outs["old"].data_ptr(), 1, H, W, prm.ctypes.data,
-                cfa32.ctypes.data, D.DEMOSAICS.index(mode), stream()), "old mcraw_develop")
-
-        def develop_variant(name):
+        def call(name):
             def run():
-                build.check(variants[name].mcraw_develop(
+                build.check(libs[name].mcraw_develop(
                     x.data_ptr(), outs[name].data_ptr(), 1, H, W, prm.ctypes.data,
                     cfa32.ctypes.data, quantizer.data_ptr(), D.DEMOSAICS.index(mode),
                     stream()), f"{name} mcraw_develop")
             return run
 
-        fns = {"old": develop_old,
-               "new": lambda: D.develop_rgba_device(x, params, cfa=RGGB, demosaic=mode)}
-        fns |= {name: develop_variant(name) for name in variants}
+        fns = in_turns(libs, call,
+                       lambda: D.develop_rgba_device(x, params, cfa=RGGB, demosaic=mode))
         results = {k: f() for k, f in fns.items()}
         plain = D.develop_rgba_plain(x, params, cfa=RGGB, demosaic=mode)
         torch.cuda.synchronize()
         got = {k: results["new"] if k == "new" else outs[k] for k in fns}
         model = torch.from_numpy(P.develop_f64(
             x.cpu().numpy(), *BENCH_DEVELOP_ARGS, RGGB, demosaic=mode))
-        turns(f"develop_{mode}", fns, args.n, moved / PEAK_BYTES_PER_S * 1e3,
+        turns(f"develop_{mode}", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
               frame=f"{W}x{H} 12-bit", bytes=moved,
               vs_plain={k: differ(v, channels(plain)) for k, v in got.items()},
               vs_f64={k: differ(v, model) for k, v in got.items()},
               plain_vs_f64=differ(plain, model), channels=3 * H * W,
               equals_new={k: bool(torch.equal(v.to(torch.int64), got["new"].to(torch.int64)))
                           for k, v in got.items()})
+
+
+def legacy_image() -> np.ndarray:
+    """chip_smoke.py's first legacy frame."""
+    return twelve_bit(np.random.default_rng(12), 0)
+
+
+def ab_unpack_legacy(libs: dict, dev, n: int) -> None:
+    payload = np.frombuffer(E.encode_legacy(legacy_image()), np.uint8)
+    prep = L.prepare_legacy(payload, W, H)
+    frame = L.upload(prep, dev)
+    args = (frame.payload, frame.bits, frame.refs, frame.offsets)
+    kw = dict(height=H, width=W)
+    outs = {k: torch.empty((H, W), dtype=torch.uint16, device=dev) for k in libs}
+
+    def call(name):
+        def run():
+            build.check(libs[name].mcraw_unpack_legacy(
+                frame.payload.data_ptr(), frame.payload.numel(), frame.bits.data_ptr(),
+                frame.refs.data_ptr(), frame.offsets.data_ptr(), outs[name].data_ptr(),
+                H, W, R.legacy_padded_width(W), stream()), f"{name} mcraw_unpack_legacy")
+        return run
+
+    fns = in_turns(libs, call, lambda: L.decode_legacy_device(*args, **kw))
+    results = {k: f() for k, f in fns.items()}
+    want = L.decode_legacy_plain(*args, **kw).to(torch.int32)
+    torch.cuda.synchronize()
+    got = {k: results["new"] if k == "new" else outs[k] for k in fns}
+    nblk = L.num_blocks(W, H)
+    moved = len(payload) + 2 * H * W + nblk * (4 + 2 + 8)
+    turns("unpack_legacy", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
+          frame=f"legacy {W}x{H} 12-bit", bytes=moved, scan=prep.scan,
+          exact={k: bool(torch.equal(v.to(torch.int32), want)) for k, v in got.items()})
+
+
+def checksum_fns(libs: dict, x: torch.Tensor) -> tuple[dict, dict]:
+    """Callables for one checksum of `x` by each build (old, new,
+    variants), and the output words of the libraries called directly."""
+    outs = {k: torch.empty((), dtype=torch.int64, device=x.device) for k in libs}
+
+    def call(name):
+        def run():
+            if name == "old":  # the parent's entry adds into a word its caller zeroes
+                outs[name].zero_()
+            build.check(libs[name].mcraw_checksum(
+                x.data_ptr(), x.numel(), x.element_size(), outs[name].data_ptr(), stream()),
+                f"{name} mcraw_checksum")
+        return run
+
+    return in_turns(libs, call, lambda: C.device_checksum(x)), outs
+
+
+def ab_checksum(libs: dict, img: torch.Tensor, n: int) -> None:
+    fns, outs = checksum_fns(libs, img)
+    results = {k: f() for k, f in fns.items()}
+    want = int(C.checksum_plain(img).item())
+    got = {k: int((results["new"] if k == "new" else outs[k]).item()) for k in fns}
+    moved = 2 * img.numel() + 4
+    turns("checksum", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
+          input=f"{W}x{H} uint16 (the legacy frame's plane)", bytes=moved,
+          exact={k: v == want for k, v in got.items()})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m mcraw_torch.kernel_ab")
+    ap.add_argument("old_csrc", type=Path)
+    ap.add_argument("--variant", action="append", default=[], metavar="NAME=CSRC",
+                    help="a copy of today's csrc with an edit, timed beside new")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help=f"comma-separated subset of {','.join(KERNELS)}")
+    ap.add_argument("--n", type=int, default=20)
+    args = ap.parse_args(argv)
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(KERNELS):
+        ap.error(f"--kernels takes {','.join(KERNELS)}")
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    emit(card=card, torch=torch.__version__, cuda=torch.version.cuda)
+    dev = torch.device("cuda", 0)
+    build.lib()
+    libs = {"old": build.load(build.build(args.old_csrc, build.BUILD_DIR / "ab_old"))}
+    emit(ptxas_new=ptxas_lines(build.CSRC, build.BUILD_DIR),
+         ptxas_old=ptxas_lines(args.old_csrc, build.BUILD_DIR / "ab_old"))
+    for spec in args.variant:
+        name, csrc = spec.split("=", 1)
+        out_dir = build.BUILD_DIR / f"ab_{name}"
+        libs[name] = build.load(build.build(Path(csrc), out_dir))
+        emit(variant=name, ptxas=ptxas_lines(Path(csrc), out_dir))
+
+    if "unpack_modern" in kernels:
+        ab_unpack_modern(libs, dev, args.n)
+    if "develop" in kernels:
+        ab_develop(libs, dev, args.n)
+    if "unpack_legacy" in kernels:
+        ab_unpack_legacy(libs, dev, args.n)
+    if "checksum" in kernels:
+        ab_checksum(libs, torch.from_numpy(legacy_image()).to(dev), args.n)
+        # The fixed cost of a call (launches, zeroing, reduction): 16 elements.
+        tiny = torch.from_numpy(legacy_image()[0, :16].copy()).to(dev)
+        turns("checksum_16_elements", checksum_fns(libs, tiny)[0], args.n,
+              (2 * tiny.numel() + 4) / PEAK_BYTES_PER_S * 1e3)
     return 0
 
 

@@ -45,9 +45,9 @@ def device_checksum(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no checksum kernel for device {x.device}")
     _check(x)
     x = x.contiguous()
-    # The kernel adds into the low 32-bit word of a zeroed int64 (the card
-    # is little-endian), so the int64 holds the uint32 sum with no extra op.
-    out = torch.zeros((), dtype=torch.int64, device=x.device)
+    # The C entry zeroes the int64 and the kernel adds into its low 32-bit
+    # word (the card is little-endian), so it holds the uint32 sum.
+    out = torch.empty((), dtype=torch.int64, device=x.device)
     lib = build.lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -35,10 +35,10 @@ from .tables import legacy_tables
 # the threads of a parallel one.
 LEGACY_PARALLEL_MIN_BLOCKS = 1 << 16
 
-# Zeroed bytes after the payload. The kernel reads each value through a
-# 3-byte window, which for a field width >= 8 reaches up to 2 bytes past
-# the block; the host scan guarantees only that the block ends before the
-# payload does.
+# Zeroed bytes after the payload in the upload buffer. A value's window
+# reaches past its block's last byte; the kernel and the plain version read
+# 0 at or past the end of the buffer, so the tail is not needed for
+# correctness, only kept as the layout the host prep uploads.
 TAIL_BYTES = 4
 
 # Launch counters: the kernel's launches and the plain version's calls.

@@ -64,3 +64,53 @@ def test_no_fallback_off_the_cpu():
         C.device_checksum(torch.empty(4, dtype=torch.uint16, device="meta"))
     assert C.PLAIN_CALLS == before
 
+
+def vector_split(addr: int, n: int, itemsize: int):
+    """The kernel's split of n elements from byte address `addr`: (head,
+    nvec, tail start): scalars up to the first 16-byte boundary, whole
+    16-byte vectors, scalars after the last whole vector."""
+    per = 16 // itemsize
+    head = min(n, (-addr % 16) // itemsize)
+    nvec = (n - head) // per
+    return head, nvec, head + nvec * per
+
+
+def grid_stride_order(nvec: int, grid: int, threads: int, loads: int):
+    """The vectors each thread loads: steps of `loads` loads a grid stride
+    apart, each load guarded by the vector count."""
+    stride = grid * threads
+    order = []
+    for t in range(stride):
+        for i in range(t, nvec, loads * stride):
+            order += [j for j in range(i, i + loads * stride, stride) if j < nvec]
+    return order
+
+
+def split_model(a: np.ndarray, start: int, grid: int = 2, threads: int = 4,
+                loads: int = 8) -> int:
+    """The kernel's sum of a[start:] in NumPy, the buffer 16-byte aligned:
+    scalar head and tail, the body as 32-bit words (uint16 halves summed in
+    32-bit lanes), every vector loaded once by the grid stride."""
+    itemsize = a.dtype.itemsize
+    x = a[start:]
+    head, nvec, tail = vector_split(start * itemsize, len(x), itemsize)
+    assert (start + head) * itemsize % 16 == 0 or nvec == 0
+    order = grid_stride_order(nvec, grid, threads, loads)
+    assert sorted(order) == list(range(nvec))
+    vec = x[head:tail].view("<u4").reshape(nvec, 4).astype(np.uint64)
+    if itemsize == 2:
+        vec = (vec & 0xFFFF) + (vec >> 16)
+    acc = int(vec[order].sum()) if nvec else 0
+    acc += int(x[:head].astype(np.uint64).sum()) + int(x[tail:].astype(np.uint64).sum())
+    return acc & 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("start", range(8))
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32])
+def test_head_body_tail_split(dtype, start):
+    """Start offsets 0..7 elements and lengths 0..70: the split model equals
+    the plain version."""
+    a = _array((start + 70,), dtype, near_top=True, seed=start)
+    for n in range(71):
+        got = split_model(a[: start + n], start, threads=1 + n % 4, loads=1 + n % 8)
+        assert got == int(C.checksum_plain(torch.from_numpy(a[start : start + n])))

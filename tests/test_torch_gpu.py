@@ -110,23 +110,50 @@ def test_unpack_kernel_edges(cuda, ty, tx, height, width, content):
     assert torch.equal(got.to(torch.int32), want.to(torch.int32))
 
 
-@pytest.mark.parametrize(
-    "height, width", [(8, 96), (5, 50), (24, 1000), (3024, 4032), (3072, 4096)]
-)
-def test_unpack_legacy_kernel_equals_plain(cuda, height, width):
+def legacy_inputs(rng, height: int, width: int, content: str):
     """Random payload bytes on a synthetic header chain: bits 0..16 (every
-    value among the first 17 blocks), refs 0..4095, offsets the cumulative
-    sum of 2 + the block length."""
-    rng = np.random.default_rng(height + width)
+    value among the first 17 blocks), offsets the cumulative sum of 2 + the
+    block length. `content`: "chain" (refs 0..4095), "wrap" (refs 0..65535,
+    so that value + ref wraps), "shuffled" (the offsets permuted: the kernel
+    takes bounded reads from device memory), "near_end" (the last nine
+    blocks start from 4 bytes before to 4 bytes past the end of the
+    payload: bounded reads again) or "no_tail" (no zero tail after the
+    payload: the staged copy zero-fills past its end)."""
     nblk = L.num_blocks(width, height)
     bits = rng.integers(0, 17, size=nblk).astype(np.int32)
     bits[:17] = np.arange(17)
-    refs = rng.integers(0, 4096, size=nblk).astype(np.uint16)
+    hi = 1 << 16 if content == "wrap" else 4096
+    refs = rng.integers(0, hi, size=nblk).astype(np.uint16)
     step = 2 + T.LEGACY_BLOCK_LENGTH[bits].astype(np.int64)
     offsets = np.cumsum(step) - step + 2
-    payload = rng.integers(0, 256, size=int(step.sum()) + 1 + L.TAIL_BYTES,
-                           dtype=np.uint8)
-    args = [torch.from_numpy(a).to(cuda) for a in (payload, bits, refs, offsets)]
+    tail = 0 if content == "no_tail" else 1 + L.TAIL_BYTES
+    payload = rng.integers(0, 256, size=int(step.sum()) + tail, dtype=np.uint8)
+    if content == "shuffled":
+        offsets = offsets[rng.permutation(nblk)]
+    elif content == "near_end":
+        offsets[-9:] = len(payload) + np.arange(-4, 5)
+    return payload, bits, refs, offsets
+
+
+@pytest.mark.parametrize(
+    "height, width, content",
+    [
+        (8, 96, "chain"), (5, 50, "chain"), (24, 1000, "chain"), (3024, 4032, "chain"),
+        (3072, 4096, "chain"),
+        # Ragged widths: masked stores (W % 8 != 0) and runs of pairs that
+        # cross rows (4000 / 32 = 125 pairs a row).
+        (3072, 4000, "wrap"), (64, 4036, "wrap"), (64, 4090, "wrap"), (50, 33, "wrap"),
+        (70, 1, "wrap"),
+        (40, 256, "shuffled"), (3072, 4096, "shuffled"),
+        (16, 96, "near_end"), (24, 1000, "near_end"),
+        (24, 1000, "no_tail"), (3, 4090, "no_tail"),
+    ],
+)
+def test_unpack_legacy_kernel_equals_plain(cuda, height, width, content):
+    """The kernel element for element against the plain version."""
+    rng = np.random.default_rng(height + width)
+    inputs = legacy_inputs(rng, height, width, content)
+    args = [torch.from_numpy(a).to(cuda) for a in inputs]
     kw = dict(height=height, width=width)
     launches = L.KERNEL_LAUNCHES
     got = L.decode_legacy_device(*args, **kw)
@@ -138,26 +165,35 @@ def test_unpack_legacy_kernel_equals_plain(cuda, height, width):
 
 
 @pytest.mark.parametrize(
-    "shape, dtype, lo",
+    "shape, dtype, lo, start",
     [
-        ((1, 1), np.uint16, 0),
-        ((7, 13), np.uint16, 0),
-        ((3, 4, 5), np.uint32, 0),
-        ((1000, 1000), np.uint32, (1 << 32) - 4096),
-        ((3072, 4096), np.uint16, 0),
+        ((1, 1), np.uint16, 0, 0),
+        ((7, 13), np.uint16, 0, 0),
+        ((3, 4, 5), np.uint32, 0, 0),
+        ((1000, 1000), np.uint32, (1 << 32) - 4096, 0),
+        ((3072, 4096), np.uint16, 0, 0),
         # Overflows the JAX kernel's row-capped VMEM band; any shape here.
-        ((6144, 4096), np.uint32, 0),
+        ((6144, 4096), np.uint32, 0, 0),
+        # Views that start off a 16-byte boundary (x.view(-1)[start:]).
+        ((3072, 4096), np.uint16, 0, 1),
+        ((1000, 1000), np.uint32, (1 << 32) - 4096, 3),
+        # A 16-byte multiple, and lengths 1..17 from every start: scalar
+        # heads and tails around 0..2 vectors.
+        ((4096,), np.uint16, 0, 0),
+        *(((n,), np.uint16, 0, n % 8) for n in range(1, 18)),
+        *(((n,), np.uint32, 0, n % 4) for n in range(1, 18)),
     ],
 )
-def test_checksum_kernel_equals_plain(cuda, shape, dtype, lo):
+def test_checksum_kernel_equals_plain(cuda, shape, dtype, lo, start):
     hi = 1 << (8 * np.dtype(dtype).itemsize)
-    a = np.random.default_rng(2).integers(lo, hi, size=shape, dtype=np.uint64)
-    a = a.astype(dtype)
-    x = torch.from_numpy(a).to(cuda)
+    a = np.random.default_rng(2).integers(lo, hi, size=start + int(np.prod(shape)),
+                                          dtype=np.uint64).astype(dtype)
+    x = torch.from_numpy(a).to(cuda)[start:].view(shape)
     launches = C.KERNEL_LAUNCHES
     got = int(C.device_checksum(x))
     assert C.KERNEL_LAUNCHES == launches + 1
-    assert got == int(C.checksum_plain(x)) == int(a.astype(np.int64).sum() & 0xFFFFFFFF)
+    want = int(a[start:].astype(np.int64).sum() & 0xFFFFFFFF)
+    assert got == int(C.checksum_plain(x)) == want
 
 
 def test_decoder_on_card(cuda):

@@ -178,6 +178,125 @@ def funnel(payload, bits, refs, offsets, h, w):
     return img[:, :w]
 
 
+def byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint64 arrays: result byte k is byte
+    (sel >> 4k) & 7 of the 8 bytes y:x."""
+    b = y << np.uint64(32) | x
+    out = np.zeros(np.broadcast(b, sel).shape, np.uint64)
+    for k in range(4):
+        idx = (sel >> np.uint64(4 * k)) & np.uint64(7)
+        out |= ((b >> (np.uint64(8) * idx)) & np.uint64(0xFF)) << np.uint64(8 * k)
+    return out
+
+
+def staged_window(words, s):
+    """The kernel's 8-byte big-endian window at byte s: the three 32-bit
+    little-endian words from s // 4, bytes picked by two permutes."""
+    i, a = s >> 2, (s & 3).astype(np.uint64)
+    be = np.uint64(0x0123) + np.uint64(0x1111) * a
+    hi = byte_perm(words[i], words[i + 1], be)
+    lo = byte_perm(words[i + 1], words[i + 2], be)
+    return hi << np.uint64(32) | lo
+
+
+def quad_values(win, c, q):
+    """Values 4q .. 4q + 3 of a class-c block from its window: (..., 4)."""
+    c = np.asarray(c, np.int64)[..., None]
+    sh = 4 * ((np.asarray(q) * c[..., 0]) & 1)[..., None]
+    k = np.arange(4)
+    shift = (64 - sh - (k + 1) * c).astype(np.uint64)
+    mask = ((np.int64(1) << c) - 1).astype(np.uint64)
+    return (np.asarray(win, np.uint64)[..., None] >> shift) & mask
+
+
+def window_rule(payload, bits, refs, offsets, h, w):
+    """The redesigned kernel's arithmetic in NumPy: thread q of pair p
+    takes values 4q .. 4q + 3 of blocks 2p and 2p + 1 from one window each
+    at byte offset + qc // 2 and writes columns 8q .. 8q + 7 of the pair.
+    Bytes past the payload read 0 (the staged copy's zero fill)."""
+    pw = R.legacy_padded_width(w)
+    pairs = h * pw // 32
+    cl = np.clip(bits.astype(np.int64), 0, 16)
+    c = np.where(cl <= 10, cl, 16)
+    b = 2 * np.arange(pairs)[:, None, None] + np.arange(2)[None, None, :]  # (p, 1, e)
+    q = np.arange(4)[None, :, None]  # (1, q, 1)
+    cb = c[b]
+    s = offsets[b] + ((q * cb) >> 1)  # (p, q, e)
+    size = max(int(s.max()) + 12, len(payload))
+    buf = np.zeros(size + -size % 4, np.uint8)
+    buf[: len(payload)] = payload
+    words = buf.view("<u4").astype(np.uint64)
+    v = quad_values(staged_window(words, s), cb, q)  # (p, q, e, k)
+    v = np.where(cb[..., None] == 0, 0, v).astype(np.int64)
+    v = (v + refs.astype(np.int64)[b][..., None]) & 0xFFFF
+    img = v.transpose(0, 1, 3, 2).reshape(h, pw)  # columns 8q + 2k + e
+    return img[:, :w].astype(np.uint16)
+
+
+def table_values(payload, cls_index, offset, j):
+    """Value j of a block at `offset` by the byte-field tables of the JAX
+    package (bytes past the payload 0)."""
+    v = 0
+    for f in range(T.LEGACY_MAX_FIELDS):
+        i = offset + int(T.LEGACY_POS[cls_index, j, f])
+        byte = int(payload[i]) if 0 <= i < len(payload) else 0
+        v |= ((byte >> int(T.LEGACY_RSH[cls_index, j, f]))
+              & int(T.LEGACY_MSK[cls_index, j, f])) << int(T.LEGACY_LSH[cls_index, j, f])
+    return v
+
+
+@pytest.mark.parametrize("a", range(4))
+@pytest.mark.parametrize("q", range(4))
+@pytest.mark.parametrize("c", [*range(11), 16])
+def test_four_values_from_one_window(c, q, a):
+    """One pair, its first block of class c placed so that quad q's window
+    starts at byte a of a 32-bit word: the window rule equals the byte-field
+    tables and the plain version, for random payload bytes."""
+    rng = np.random.default_rng(100 * c + 10 * q + a)
+    cls_index = T.LEGACY_CLASSES.index(c)
+    for _ in range(8):
+        bits = np.array([c if c <= 10 else rng.integers(11, 17),
+                         rng.integers(0, 17)], np.int32)
+        o0 = 4 + (a - ((q * c) >> 1)) % 4
+        o1 = o0 + 2 + int(T.LEGACY_BLOCK_LENGTH[bits[0]])
+        offsets = np.array([o0, o1], np.int64)
+        refs = rng.integers(0, 1 << 16, size=2).astype(np.uint16)
+        payload = rng.integers(0, 256, size=o1 + 34 + L.TAIL_BYTES, dtype=np.uint8)
+        assert (o0 + ((q * c) >> 1)) % 4 == a
+        words = np.concatenate([payload, np.zeros(16, np.uint8)])
+        words = words[: len(words) // 4 * 4].view("<u4").astype(np.uint64)
+        win = staged_window(words, np.array(o0 + ((q * c) >> 1)))
+        got = quad_values(win, c, q).astype(np.int64)
+        want = [table_values(payload, cls_index, o0, 4 * q + k) for k in range(4)]
+        assert got.tolist() == want
+        plain = L.decode_legacy_plain(
+            *(torch.from_numpy(x) for x in (payload, bits, refs, offsets)),
+            height=1, width=32,
+        ).numpy().astype(np.int64)
+        assert plain[0, 8 * q : 8 * q + 8 : 2].tolist() == [
+            (v + int(refs[0])) & 0xFFFF for v in want
+        ]
+        assert np.array_equal(window_rule(payload, bits, refs, offsets, 1, 32), plain)
+
+
+@pytest.mark.parametrize(
+    "shape", [(8, 96), (5, 50), (24, 1000), (2, 4000), (2, 4036), (2, 4090), (7, 33), (9, 1)]
+)
+def test_plain_equals_window_rule(shape):
+    """Whole frames: runs of pairs that cross rows, ragged widths, refs up to
+    65535 (the sum wraps), no zero tail after the payload."""
+    h, w = shape
+    rng = np.random.default_rng(h * w)
+    payload, bits, refs, offsets = synthetic_chain(rng, h, w)
+    refs = rng.integers(0, 1 << 16, size=len(refs)).astype(np.uint16)
+    payload = payload[: -L.TAIL_BYTES]
+    got = L.decode_legacy_device(
+        *(torch.from_numpy(a) for a in (payload, bits, refs, offsets)),
+        height=h, width=w,
+    )
+    assert np.array_equal(got.numpy(), window_rule(payload, bits, refs, offsets, h, w))
+
+
 @pytest.mark.parametrize("shape", [(8, 96), (5, 50), (24, 1000), (3, 4032)])
 def test_plain_equals_kernel_closed_form(shape):
     h, w = shape
