@@ -24,7 +24,13 @@ failure exits non-zero and prints no result:
    the tiled kernel's edges (37, 251), (65, 130), (3, 101), (5, 7),
    (33, 66); (3072, 4096) in the bench's parameters; all four CFAs at a
    small size; the small ones also against the f64 model; a (3, 5, 250)
-   and a (2, 3072, 4096) batch bit-equal to single calls).
+   and a (2, 3072, 4096) batch bit-equal to single calls); each batched
+   unpack (one launch with a frame axis) element-exact against its plain
+   batched version and against one single-frame launch per frame: F = 3 4K
+   frames of the decode clips (modern 12-bit, worst case, all-16; legacy
+   12-bit, 12-bit, 16-bit), synthetic batches at widths 4000 and 4090
+   (modern), 4000 and 33 (legacy), a short encodedHeight, and a frame whose
+   offsets are shuffled and point past its own end between two plain ones.
 4. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - decode, one per codec: a 4096x3072 modern clip (three 12-bit frames,
@@ -38,23 +44,39 @@ failure exits non-zero and prints no result:
      checksum launch per frame, and no plain-version call. The legacy phase
      prints which host scan walked each frame's header chain and whether
      the native scans were built.
+   - batched decode: ``decode_batch()`` over the modern clip's five frames
+     (one run), ``decode_batch_iter(chunk_frames=2)`` on the modern clip and
+     ``(chunk_frames=4)`` on the legacy clip (its 4032x3024 frame splits
+     the runs), and ``make_frame_decoder()`` over every frame of both; every
+     frame equals its source and its device checksum the host's, one unpack
+     launch per run chunk (per frame for the frame decoder), no plain call,
+     one frame-decoder program per (codec, geometry).
    - develop: a clip of three 4096x3072 12-bit modern frames and one
      4032x3024 legacy frame (white 4095, black (64, 60, 70, 64), bggr,
      dual-illuminant matrices, a warm neutral) through
      ``mcraw_torch.preview.preview_frame_rgba`` on the card, every frame
      bilinear and two in Malvar; each RGBA within 1 LSB of the f64 model
      of its source image; one develop launch per call, no plain call, no
-     height <= 2 develop; ``preview_clip`` gives the same RGBA (device
-     checksum) as ``preview_frame_rgba`` for every frame.
-5. CLI: per decode clip, ``python -m mcraw_torch clip -n 5`` against
-   ``python -m mcraw clip -n 5 --backend numpy``: identical stdout,
+     height <= 2 develop; ``preview_clip(d, batch_frames=2)`` gives the
+     same RGBA (device checksum) as ``preview_frame_rgba`` for every frame,
+     with one unpack launch per run (the legacy frame splits them).
+5. CLI: per decode clip, ``python -m mcraw_torch clip -n 5``, ``... decode
+   clip -n 5`` and ``... decode clip -n 5 --batch --batch-frames 2``
+   against ``python -m mcraw clip -n 5 --backend numpy``: identical stdout,
    byte-identical audio.wav and DNGs; ``python -m mcraw_torch preview
    <develop clip> -n 2 --demosaic malvar``: PPMs within 1 of the f64 model.
 6. times on the card (printed, not asserted): CUDA-event medians of each
    kernel and its plain version at the 4K 12-bit frame of its codec (both
-   demosaic modes for develop), the ``load_frame_device`` split: host
-   scans (the legacy scan also on its own), H2D, device prep (modern) and
-   kernel, and the ``preview_frame_rgba`` split: decode and develop.
+   demosaic modes for develop), the ``load_frame_device`` split: host prep
+   (the legacy scan also on its own), its one H2D, device prep (modern) and
+   kernel, the ``preview_frame_rgba`` split: decode and develop; and for
+   ``decode_batch`` of the modern clip's five frames and the legacy clip's
+   first three, the wall per frame and its split (host prep, the scans
+   alone, H2D, device prep, kernel) beside the same ``decode_batch``
+   through a new staging (cold host buffers) and ``load_frame_device`` of
+   the same frames in the same turns, the batched launch against F single
+   launches (CUDA events), and ``FrameDecoder`` against
+   ``load_frame_device`` per frame.
 
 The line before last is ``{"kernels": [...]}``: one entry per TPU kernel
 of the repo (eight; the routed ones carry the numbers of the CUDA kernel
@@ -131,6 +153,7 @@ from mcraw_torch.kernels import legacy as L  # noqa: E402
 from mcraw_torch.kernels import native  # noqa: E402  (the C++ host scans)
 from mcraw_torch.kernels import tables as T  # noqa: E402
 from mcraw_torch.kernels import unpack as U  # noqa: E402
+from mcraw_torch.kernels.staging import Staging, slot_layout  # noqa: E402
 from mcraw_torch.kernels.tables import modern_tables  # noqa: E402
 from mcraw_torch.metadata import (  # noqa: E402
     CFA_PATTERNS,
@@ -351,6 +374,124 @@ def phase_kernels(rng) -> dict:
     return errs
 
 
+def slots(arrays):
+    """Concatenate per-frame buffers (each a multiple of 16 bytes) into one
+    uint8 buffer: (buffer, (F,) starts in bytes, (F,) sizes in bytes), the
+    layout of the batched host prep."""
+    sizes = np.array([a.nbytes for a in arrays], np.int64)
+    check(not (sizes % 16).any(), "slots must be 16-byte multiples")
+    starts, _ = slot_layout(sizes)
+    return np.concatenate([a.reshape(-1).view(np.uint8) for a in arrays]), starts, sizes
+
+
+def put(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(a).to(DEV)
+
+
+def synthetic_modern_batch(rng, ty: int, tx: int, contents, past_end=None):
+    """Per-frame edge_unpack_inputs for each of `contents` and their batch;
+    frame `past_end` also gets its last three blocks pointed at and past
+    the end of its own slot (it must read zeros there, not its
+    neighbour's words)."""
+    frames = [edge_unpack_inputs(rng, ty, tx, c) for c in contents]
+    if past_end is not None:
+        n = 4 * frames[past_end][0].numel()
+        frames[past_end][3][-3:] = torch.tensor([n - 4, n, n + 64], device=DEV)
+    buf, starts, sizes = slots([f[0].cpu().numpy() for f in frames])
+    batch = (put(buf.view("<i4")), put(starts // 4), put(sizes // 4),
+             *(torch.stack([f[k] for f in frames]) for k in (1, 2, 3)))
+    return frames, batch
+
+
+def encoded_modern_batch(payloads, h: int, w: int):
+    """The batched host prep, upload and device prep of encoded payloads,
+    and each frame's single-frame inputs (its own slot of the buffer)."""
+    dev = U.stage_modern_batch(Staging(DEV), payloads, w, h)
+    offs = U.block_offsets(dev.bits, modern_tables(DEV))
+    batch = (dev.words, dev.bases, dev.lengths, dev.bits, dev.refs, offs)
+    frames = [(dev.words[lo : lo + n], dev.bits[f], dev.refs[f], offs[f])
+              for f, (lo, n) in enumerate(zip(dev.bases.tolist(), dev.lengths.tolist()))]
+    return frames, batch, dict(ty=dev.tiles_y, tx=dev.tiles_x, height=h, width=w)
+
+
+def synthetic_legacy_batch(rng, h: int, w: int, contents):
+    frames = [random_legacy_inputs(rng, h, w, c) for c in contents]
+    pads = [np.concatenate([f[0].cpu().numpy(), np.zeros((-f[0].numel()) % 16, np.uint8)])
+            for f in frames]
+    buf, starts, _ = slots(pads)
+    lengths = np.array([f[0].numel() for f in frames], np.int64)
+    batch = (put(buf), put(starts), put(lengths),
+             *(torch.stack([f[k] for f in frames]) for k in (1, 2, 3)))
+    return frames, batch
+
+
+def encoded_legacy_batch(payloads, h: int, w: int):
+    dev = L.stage_legacy_batch(Staging(DEV), payloads, w, h)
+    frames = [(dev.payload[lo : lo + n], dev.bits[f], dev.refs[f], dev.offsets[f])
+              for f, (lo, n) in enumerate(zip(dev.bases.tolist(), dev.lengths.tolist()))]
+    return frames, tuple(dev), dict(height=h, width=w)
+
+
+def batch_check(name: str, batched, plain, single, frames, batch, kw, what: str) -> int:
+    """One batched launch against its plain batched version and against a
+    single-frame launch per frame, element for element; the max error."""
+    launches = COUNTED[name].KERNEL_LAUNCHES
+    got = batched(*batch, **kw)
+    torch.cuda.synchronize()
+    check(COUNTED[name].KERNEL_LAUNCHES == launches + 1, f"{name} batch {what}: launches")
+    want = plain(*batch, **kw)
+    singles = torch.stack([single(*f, **kw) for f in frames])
+    torch.cuda.synchronize()
+    err = max(max_abs_err(got, want), max_abs_err(got, singles))
+    check(got.shape == (len(frames), kw["height"], kw["width"]) and err == 0,
+          f"{name} batch {what}: {tuple(got.shape)}, err {err} against plain / singles")
+    emit("kernels", kernel=name, case="batch", what=what, frames=len(frames),
+         height=kw["height"], width=kw["width"], max_abs_err=err,
+         equals_plain=True, equals_single_calls=True)
+    return err
+
+
+def phase_kernels_batch(rng, payloads, lpayloads) -> dict:
+    """Each batched unpack (one launch with a frame axis) against its plain
+    batched version and against a single-frame launch per frame: F = 3 4K
+    frames of the decode clips (modern: 12-bit, worst case, all-16; legacy:
+    12-bit, 12-bit, 16-bit), synthetic batches at widths 4000 and 4090
+    (modern) or 4000 and 33 (legacy), a short encodedHeight, and a frame
+    whose offsets are shuffled and point past its own end, between two
+    plain ones."""
+    errs = {"unpack_modern": 0, "unpack_legacy": 0}
+    modern = (U.decode_modern_batch_device, U.decode_modern_batch_plain,
+              U.decode_modern_device)
+    legacy = (L.decode_legacy_batch_device, L.decode_legacy_batch_plain,
+              L.decode_legacy_device)
+    cases = [("unpack_modern", modern, "4K 12-bit, worst, all-16",
+              lambda: encoded_modern_batch([payloads[i] for i in (0, 3, 4)], H, W))]
+    for ty, tx, h, w, contents, past_end, what in (
+        (768, 63, H, 4000, ("random",) * 3, None, "W 4000"),
+        (768, 64, H, 4090, ("per_tile", "random", "all16"), None, "W 4090"),
+        (10, 8, 50, 512, ("random", "all16", "random"), None, "short encodedHeight"),
+        (9, 4, 36, 256, ("random", "scrambled", "random"), 1, "shuffled + past its end"),
+    ):
+        cases.append(("unpack_modern", modern, what, lambda ty=ty, tx=tx, h=h, w=w,
+                      c=contents, p=past_end: (*synthetic_modern_batch(rng, ty, tx, c, p),
+                                               dict(ty=ty, tx=tx, height=h, width=w))))
+    cases.append(("unpack_legacy", legacy, "4K 12-bit, 12-bit, 16-bit",
+                  lambda: encoded_legacy_batch(lpayloads[:3], H, W)))
+    for h, w, contents, what in (
+        (H, 4000, ("wrap", "chain", "wrap"), "W 4000"),
+        (50, 33, ("wrap", "chain", "wrap"), "W 33"),
+        (24, 1000, ("chain", "shuffled", "chain"), "shuffled"),
+        (16, 96, ("chain", "near_end", "no_tail"), "past its end, no tail"),
+    ):
+        cases.append(("unpack_legacy", legacy, what, lambda h=h, w=w, c=contents: (
+            *synthetic_legacy_batch(rng, h, w, c), dict(height=h, width=w))))
+    for name, fns, what, make in cases:
+        frames, batch, kw = make()
+        errs[name] = max(errs[name], batch_check(name, *fns, frames, batch, kw, what))
+        del frames, batch
+    return errs
+
+
 # Develop parameters: the CPU tests' (black, white, neutral, forward matrix)
 # and the bench's (bench.py:465-470).
 DEVELOP_ARGS = (
@@ -560,9 +701,64 @@ def phase_main_path(name: str, clip: Path, imgs, kernel: str) -> dict:
     return launches
 
 
+def counts() -> tuple[dict, dict]:
+    return ({k: mod.KERNEL_LAUNCHES for k, mod in COUNTED.items()},
+            {k: mod.PLAIN_CALLS for k, mod in COUNTED.items()})
+
+
+def phase_batch_path(name: str, clip: Path, imgs, kernel: str, path: str) -> dict:
+    """One batched path of the Decoder over every frame of `clip`: "batch"
+    (decode_batch, one run), "iter<k>" (decode_batch_iter, chunk_frames=k)
+    or "frame_decoder" (make_frame_decoder). Every frame equals its source
+    and its device checksum the host's; the counters show one unpack launch
+    of `kernel` per run chunk (per frame for the frame decoder), one
+    checksum per frame and no plain call; the frame decoder has one program
+    per (codec, geometry)."""
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        frames = d.frames
+        if path.startswith("iter"):
+            chunk = int(path[4:])
+            runs = [r for lo in range(0, len(frames), chunk)
+                    for r in d._homogeneous_runs(frames[lo : lo + chunk])]
+        reset_counters()
+        t0 = time.perf_counter()
+        outs, programs = [], None
+        if path == "frame_decoder":
+            fd = d.make_frame_decoder()
+            outs = [fd(ts)[0] for ts in frames]
+            programs = fd.num_programs
+            calls = len(frames)
+        else:
+            batches = ([d.decode_batch()] if path == "batch"
+                       else list(d.decode_batch_iter(chunk_frames=chunk)))
+            outs = [img for b, _ in batches for img in b]
+            calls = len(batches)
+        sums = [C.device_checksum(img) for img in outs]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, plain = counts()
+    check(len(outs) == len(imgs), f"{name} {path}: {len(outs)} frames")
+    for i, (img, cs, src) in enumerate(zip(outs, sums, imgs)):
+        check(img.device.type == "cuda" and img.dtype == torch.uint16
+              and img.shape == src.shape, f"{name} {path} frame {i}: {tuple(img.shape)}")
+        check(np.array_equal(img.cpu().numpy(), src), f"{name} {path} frame {i} != source")
+        check(int(cs.item()) == host_checksum(src), f"{name} {path} frame {i}: checksum")
+    want = {k: 0 for k in COUNTED} | {kernel: calls, "checksum": len(imgs)}
+    if path.startswith("iter"):
+        check(calls == len(runs), f"{name} {path}: {calls} launches for runs {runs}")
+    check(launches == want, f"{name} {path}: launch counts {launches}, expected {want}")
+    check(not any(plain.values()), f"{name} {path}: plain calls {plain}")
+    keys = len({src.shape for src in imgs})
+    if programs is not None:
+        check(programs == keys, f"{name}: {programs} programs for {keys} geometries")
+    emit("main_path", clip=name, path=path, frames=len(imgs), unpack_launches=calls,
+         seconds=secs, launches=launches, plain_calls=plain, programs=programs, exact=True)
+    return launches
+
+
 def legacy_scans(imgs, payloads) -> list[str]:
     """Which host scan walks each legacy frame's chain (host only)."""
-    return [L.prepare_legacy(p, img.shape[1], img.shape[0]).scan
+    return [L.scan_chain(p, L.num_blocks(img.shape[1], img.shape[0]))[1]
             for img, p in zip(imgs, payloads)]
 
 
@@ -644,12 +840,18 @@ def phase_develop_path(clip: Path, model: DevelopModel) -> dict:
             outs.append((rgba, C.device_checksum(rgba)))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = {k: mod.KERNEL_LAUNCHES for k, mod in COUNTED.items()}
-        plain = {k: mod.PLAIN_CALLS for k, mod in COUNTED.items()}
+        launches, plain = counts()
         develop_calls = P.DEVELOP_CALLS
-        clip_sums = [(ts, int(C.device_checksum(rgba).item()))
-                     for ts, rgba in P.preview_clip(d)]
         frames = d.frames
+        # The batched playback loop, counted on its own: runs of 2 frames.
+        reset_counters()
+        t0 = time.perf_counter()
+        clip_out = [(ts, C.device_checksum(rgba)) for ts, rgba in
+                    P.preview_clip(d, batch_frames=2)]
+        torch.cuda.synchronize()
+        clip_secs = time.perf_counter() - t0
+        clip_launches, clip_plain = counts()
+        clip_sums = [(ts, int(cs.item())) for ts, cs in clip_out]
     errs = []
     for (i, demosaic), (rgba, _) in zip(DEVELOP_RUNS, outs):
         h, w = DEVELOP_FRAMES[i][1:]
@@ -663,8 +865,14 @@ def phase_develop_path(clip: Path, model: DevelopModel) -> dict:
     bilinear = {frames[i]: int(cs.item())
                 for (i, demosaic), (_, cs) in zip(DEVELOP_RUNS, outs)
                 if demosaic == "bilinear"}
-    check(dict(clip_sums) == bilinear and len(clip_sums) == len(frames),
+    check(dict(clip_sums) == bilinear and [ts for ts, _ in clip_sums] == frames,
           f"preview_clip checksums {clip_sums} != preview_frame_rgba {bilinear}")
+    # DEVELOP_FRAMES (7, 7, 7, 6) in chunks of 2: runs (0, 1), (2), (3).
+    want_clip = {"unpack_modern": 2, "unpack_legacy": 1, "checksum": len(frames),
+                 "develop": len(frames)}
+    check(clip_launches == want_clip,
+          f"preview_clip: launch counts {clip_launches}, expected {want_clip}")
+    check(not any(clip_plain.values()), f"preview_clip: plain calls {clip_plain}")
     n_modern = sum(DEVELOP_FRAMES[i][0] == 7 for i, _ in DEVELOP_RUNS)
     want = {"unpack_modern": n_modern, "unpack_legacy": len(DEVELOP_RUNS) - n_modern,
             "checksum": len(DEVELOP_RUNS), "develop": len(DEVELOP_RUNS)}
@@ -673,39 +881,50 @@ def phase_develop_path(clip: Path, model: DevelopModel) -> dict:
     check(develop_calls == 0, f"develop path: {develop_calls} height <= 2 develop calls")
     emit("main_path", clip=clip.name, path="preview_frame_rgba", seconds=secs,
          launches=launches, plain_calls=plain, develop_calls=develop_calls,
-         frames=errs, preview_clip_equal=True, f64_weight=model.weight)
-    return launches
+         frames=errs, f64_weight=model.weight)
+    emit("main_path", clip=clip.name, path="preview_clip batch_frames=2", seconds=clip_secs,
+         launches=clip_launches, plain_calls=clip_plain, equals_preview_frame_rgba=True)
+    return {k: launches[k] + clip_launches[k] for k in COUNTED}
 
 
 # -- phase 5 -------------------------------------------------------------------
 
 
 def phase_cli(clip: Path, work: Path) -> None:
+    """python -m mcraw_torch <clip> -n 5, ... decode <clip> -n 5 and ...
+    decode <clip> -n 5 --batch --batch-frames 2 against python -m mcraw
+    <clip> -n 5 --backend numpy: identical stdout, byte-identical audio.wav
+    and DNGs."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
+    torch_cmd = [sys.executable, "-m", "mcraw_torch"]
     runs = {}
     for name, cmd in (
-        ("mcraw_torch", [sys.executable, "-m", "mcraw_torch", str(clip), "-n", "5"]),
         ("mcraw", [sys.executable, "-m", "mcraw", str(clip), "-n", "5",
                    "--backend", "numpy"]),
+        ("mcraw_torch", [*torch_cmd, str(clip), "-n", "5"]),
+        ("mcraw_torch decode", [*torch_cmd, "decode", str(clip), "-n", "5"]),
+        ("mcraw_torch decode --batch", [*torch_cmd, "decode", str(clip), "-n", "5",
+                                        "--batch", "--batch-frames", "2"]),
     ):
-        cwd = work / f"{clip.stem}_{name}"
+        cwd = work / f"{clip.stem}_{name.replace(' ', '_')}"
         cwd.mkdir()
         t0 = time.perf_counter()
         res = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
                              text=True, timeout=600)
         runs[name] = (cwd, res, time.perf_counter() - t0)
         check(res.returncode == 0,
-              f"{' '.join(cmd[1:3])} exited {res.returncode}: {res.stderr[-2000:]}")
-    (a, ra, ta), (b, rb, tb) = runs["mcraw_torch"], runs["mcraw"]
-    check(ra.stdout == rb.stdout, f"stdout differs:\n{ra.stdout}\n--\n{rb.stdout}")
-    names = sorted(p.name for p in a.iterdir())
-    check(names == sorted(p.name for p in b.iterdir()), "output file sets differ")
+              f"{' '.join(cmd[1:])} exited {res.returncode}: {res.stderr[-2000:]}")
+    b, rb, tb = runs.pop("mcraw")
+    names = sorted(p.name for p in b.iterdir())
     check("audio.wav" in names and sum(n.endswith(".dng") for n in names) == 5,
           f"outputs: {names}")
-    for n in names:
-        check(filecmp.cmp(a / n, b / n, shallow=False), f"{n} differs")
-    emit("cli", clip=clip.name, files=names, identical=True,
-         mcraw_torch_s=ta, mcraw_numpy_s=tb)
+    for name, (a, ra, ta) in runs.items():
+        check(ra.stdout == rb.stdout, f"{name} stdout differs:\n{ra.stdout}\n--\n{rb.stdout}")
+        check(names == sorted(p.name for p in a.iterdir()), f"{name}: output file sets differ")
+        for n in names:
+            check(filecmp.cmp(a / n, b / n, shallow=False), f"{name}: {n} differs")
+        emit("cli", clip=clip.name, command=name, files=names, identical=True,
+             mcraw_torch_s=ta, mcraw_numpy_s=tb)
 
 
 def phase_cli_preview(clip: Path, work: Path, model: DevelopModel) -> None:
@@ -785,9 +1004,15 @@ def bound(nbytes: int, fp32_ops: int = 0) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def medians(split: dict) -> dict:
+    """The median of each list of ms, and host_prep_ms: a staging's host
+    prep and H2D (stage_ms) less the H2D alone (h2d_ms)."""
+    med = {k: statistics.median(v) for k, v in split.items()}
+    return med | {"host_prep_ms": med["stage_ms"] - med["h2d_ms"]}
+
+
 def phase_times(payload: np.ndarray, card: str) -> dict:
-    frame = U.prepare_modern(payload, W, H)
-    dev = U.upload(frame, DEV)
+    dev = U.stage_modern(Staging(DEV), payload, W, H)
     offs = U.block_offsets(dev.bits, modern_tables(DEV))
     kw = dict(ty=dev.tiles_y, tx=dev.tiles_x, height=H, width=W)
     args = (dev.words, dev.bits, dev.refs, offs)
@@ -805,15 +1030,20 @@ def phase_times(payload: np.ndarray, card: str) -> dict:
     emit("times_kernels", card=card, frame=f"{W}x{H} 12-bit", n=N_TIMED,
          payload_bytes=len(payload), **t)
 
-    split = {"host_scans_ms": [], "h2d_ms": [], "device_prep_ms": [],
-             "kernel_ms": [], "load_frame_device_ms": []}
+    # stage_ms: the host prep into a kept staging and its one H2D; h2d_ms:
+    # that H2D again, alone. load_frame_device_ms: the whole single-frame
+    # decode through a staging kept as a Decoder keeps its own.
+    split = {"stage_ms": [], "h2d_ms": [], "device_prep_ms": [], "kernel_ms": [],
+             "load_frame_device_ms": []}
+    staging, kept = Staging(DEV), Staging(DEV)
     clock = time.perf_counter
     for _ in range(10):
         torch.cuda.synchronize()
         t0 = clock()
-        fr = U.prepare_modern(payload, W, H)
+        dv = U.stage_modern(staging, payload, W, H)
+        torch.cuda.synchronize()
         t1 = clock()
-        dv = U.upload(fr, DEV)
+        staging.upload()
         torch.cuda.synchronize()
         t2 = clock()
         of = U.block_offsets(dv.bits, modern_tables(DEV))
@@ -822,62 +1052,168 @@ def phase_times(payload: np.ndarray, card: str) -> dict:
         U.decode_modern_device(dv.words, dv.bits, dv.refs, of, **kw)
         torch.cuda.synchronize()
         t4 = clock()
-        mcraw_torch.pipeline.decode_modern_frame(payload, W, H, DEV)
+        mcraw_torch.pipeline.decode_modern_frame(payload, W, H, kept)
         torch.cuda.synchronize()
         t5 = clock()
         for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
             split[key].append(dt * 1e3)
-    med = {k: statistics.median(v) for k, v in split.items()}
     emit("times_load_frame_device", card=card, n=10, clock="host, synchronized",
-         **med)
+         **medians(split))
     return t
 
 
 def phase_times_legacy(payload: np.ndarray, card: str) -> dict:
     """The legacy kernel and its plain version at a 4K 12-bit frame, and
     the legacy load_frame_device split."""
-    frame = L.prepare_legacy(payload, W, H)
-    dev = L.upload(frame, DEV)
-    args = (dev.payload, dev.bits, dev.refs, dev.offsets)
+    nblk = L.num_blocks(W, H)
+    dev = L.stage_legacy(Staging(DEV), payload, W, H)
     kw = dict(height=H, width=W)
     t = {
-        "unpack_legacy_ms": time_cuda(lambda: L.decode_legacy_device(*args, **kw)),
-        "unpack_legacy_plain_ms": time_cuda(
-            lambda: L.decode_legacy_plain(*args, **kw)),
+        "unpack_legacy_ms": time_cuda(lambda: L.decode_legacy_device(*dev, **kw)),
+        "unpack_legacy_plain_ms": time_cuda(lambda: L.decode_legacy_plain(*dev, **kw)),
     }
-    nblk = L.num_blocks(W, H)
     moved = len(payload) + 2 * H * W + nblk * (4 + 2 + 8)
     t["unpack_legacy_bytes"] = moved
+    scan = L.scan_chain(payload, nblk)[1]
     emit("times_kernels", card=card, frame=f"legacy {W}x{H} 12-bit", n=N_TIMED,
-         scan=frame.scan, payload_bytes=len(payload), blocks=nblk,
+         scan=scan, payload_bytes=len(payload), blocks=nblk,
          kernel_bytes=moved, kernel_gbps=moved / t["unpack_legacy_ms"] / 1e6, **t)
 
-    # host_prep_ms is the scan plus the upload buffer; host_scan_ms, timed
-    # on its own, is the scan's part of it.
-    split = {"host_scan_ms": [], "host_prep_ms": [], "h2d_ms": [],
-             "kernel_ms": [], "load_frame_device_ms": []}
+    # host_scan_ms: the scan alone, into new arrays; the staging's host prep
+    # runs the same scan into its rows.
+    split = {"host_scan_ms": [], "stage_ms": [], "h2d_ms": [], "kernel_ms": [],
+             "load_frame_device_ms": []}
+    staging, kept = Staging(DEV), Staging(DEV)
     clock = time.perf_counter
     for _ in range(10):
         torch.cuda.synchronize()
         t0 = clock()
         L.scan_chain(payload, nblk)
         t1 = clock()
-        fr = L.prepare_legacy(payload, W, H)
+        dv = L.stage_legacy(staging, payload, W, H)
+        torch.cuda.synchronize()
         t2 = clock()
-        dv = L.upload(fr, DEV)
+        staging.upload()
         torch.cuda.synchronize()
         t3 = clock()
-        L.decode_legacy_device(dv.payload, dv.bits, dv.refs, dv.offsets, **kw)
+        L.decode_legacy_device(*dv, **kw)
         torch.cuda.synchronize()
         t4 = clock()
-        mcraw_torch.pipeline.decode_legacy_frame(payload, W, H, DEV)
+        L.decode_legacy(payload, W, H, kept)
         torch.cuda.synchronize()
         t5 = clock()
         for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
             split[key].append(dt * 1e3)
-    med = {k: statistics.median(v) for k, v in split.items()}
     emit("times_load_frame_device", card=card, codec="legacy", n=10,
-         clock="host, synchronized", scan=frame.scan, **med)
+         clock="host, synchronized", scan=scan, **medians(split))
+    return t
+
+
+def phase_times_batch(clip: Path, legacy_clip: Path, card: str) -> dict:
+    """decode_batch of the modern clip's five 4K frames and the legacy
+    clip's first three: host-clocked wall per frame and its split (host
+    prep, H2D, device prep, kernel; for legacy also the scans alone), the
+    same decode_batch through a new Staging each turn (cold: its host
+    buffer's pages touched for the first time), and load_frame_device of
+    the same frames in the same turns; CUDA-event medians of the batched
+    launch against F single-frame launches on the same inputs; and the
+    FrameDecoder against load_frame_device, per frame."""
+    clock = time.perf_counter
+    t = {}
+    for codec, path, n in (("modern", clip, 5), ("legacy", legacy_clip, 3)):
+        with mcraw_torch.Decoder(str(path), device="cuda") as d:
+            ts = d.frames[:n]
+            payloads = [np.asarray(d._reader.frame_payload(x)[0]) for x in ts]
+            split = {k: [] for k in ("stage_ms", "h2d_ms", "device_prep_ms", "kernel_ms",
+                                     "decode_batch_ms", "decode_batch_cold_ms",
+                                     "load_frame_device_ms", "host_scans_ms")}
+            staging = Staging(DEV)
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = clock()
+                if codec == "modern":
+                    dv = U.stage_modern_batch(staging, payloads, W, H)
+                    torch.cuda.synchronize()
+                    t1 = clock()
+                    staging.upload()
+                    torch.cuda.synchronize()
+                    t2 = clock()
+                    offs = U.block_offsets(dv.bits, modern_tables(DEV))
+                    torch.cuda.synchronize()
+                    t3 = clock()
+                    batch = (dv.words, dv.bases, dv.lengths, dv.bits, dv.refs, offs)
+                    kw = dict(ty=dv.tiles_y, tx=dv.tiles_x, height=H, width=W)
+                    U.decode_modern_batch_device(*batch, **kw)
+                else:
+                    batch = tuple(L.stage_legacy_batch(staging, payloads, W, H))
+                    torch.cuda.synchronize()
+                    t1 = clock()
+                    staging.upload()
+                    torch.cuda.synchronize()
+                    t2 = t3 = clock()
+                    kw = dict(height=H, width=W)
+                    L.decode_legacy_batch_device(*batch, **kw)
+                torch.cuda.synchronize()
+                t4 = clock()
+                d.decode_batch(ts)
+                torch.cuda.synchronize()
+                t5 = clock()
+                d._staging = Staging(DEV)
+                d.decode_batch(ts)
+                torch.cuda.synchronize()
+                t6 = clock()
+                for x in ts:  # the same frames one at a time, in the same turn
+                    d.load_frame_device(x)
+                torch.cuda.synchronize()
+                t7 = clock()
+                for p in payloads:
+                    if codec == "modern":
+                        U.scan_modern(p, W, H)
+                    else:
+                        L.scan_chain(p, L.num_blocks(W, H))
+                t8 = clock()
+                for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4,
+                                           t6 - t5, t7 - t6, t8 - t7)):
+                    split[key].append(dt * 1e3)
+            med = medians(split)
+            emit("times_decode_batch", card=card, codec=codec, frames=n,
+                 frame=f"{W}x{H}", n=5, clock="host, synchronized",
+                 per_frame_ms=med["decode_batch_ms"] / n,
+                 cold_per_frame_ms=med["decode_batch_cold_ms"] / n,
+                 load_frame_device_per_frame_ms=med["load_frame_device_ms"] / n, **med)
+
+            # The batched launch against F single launches, same inputs.
+            if codec == "modern":
+                batched, single = U.decode_modern_batch_device, U.decode_modern_device
+            else:
+                batched, single = L.decode_legacy_batch_device, L.decode_legacy_device
+            frames = [(batch[0][lo : lo + m], *(a[f] for a in batch[3:]))
+                      for f, (lo, m) in enumerate(zip(batch[1].tolist(), batch[2].tolist()))]
+            batch_ms = time_cuda(lambda: batched(*batch, **kw))
+            singles_ms = time_cuda(lambda: [single(*f, **kw) for f in frames])
+            moved = (sum(len(p) for p in payloads) + 2 * n * H * W
+                     + batch[3].numel() * (batch[3].element_size() + 2 + 8))
+            emit("times_kernels", card=card, frame=f"{codec} {n} x {W}x{H} 12-bit",
+                 n=N_TIMED, batch_ms=batch_ms, single_calls_ms=singles_ms,
+                 ratio=batch_ms / singles_ms, kernel_bytes=moved,
+                 bound_ms=bound(moved)[0])
+            t[f"{codec}_batch"] = (n, batch_ms, singles_ms, bound(moved)[0])
+
+            # FrameDecoder against load_frame_device, per frame.
+            fd = d.make_frame_decoder()
+            lat = {"frame_decoder_ms": [], "load_frame_device_ms": []}
+            for _ in range(3):
+                for x in ts:
+                    for key, fn in (("frame_decoder_ms", fd), ("load_frame_device_ms",
+                                                               d.load_frame_device)):
+                        torch.cuda.synchronize()
+                        t0 = clock()
+                        fn(x)
+                        torch.cuda.synchronize()
+                        lat[key].append((clock() - t0) * 1e3)
+            emit("times_frame_decoder", card=card, codec=codec, frame=f"{W}x{H}",
+                 n=len(lat["frame_decoder_ms"]), clock="host, synchronized",
+                 **{k: statistics.median(v) for k, v in lat.items()})
     return t
 
 
@@ -938,11 +1274,14 @@ TPU_KERNELS = (
 )
 
 
-def kernels_line(t: dict, errs: dict, modern: dict, old: dict, dev: dict) -> list:
-    """The {"kernels": [...]} entries: launches on the main paths, errors of
-    phase 3, times of phase 6, bounds from this run's inputs. A routed TPU
-    kernel carries the numbers of the CUDA kernel that computes it."""
-    launches = {k: modern[k] + old[k] + dev[k] for k in COUNTED}
+def kernels_line(t: dict, errs: dict, paths: list) -> list:
+    """The {"kernels": [...]} entries: launches on the main paths (`paths`,
+    one launch-count dict each, the batched launches among them), errors
+    of phase 3, times of phase 6, bounds from this run's inputs. A routed
+    TPU kernel carries the numbers of the CUDA kernel that computes it; the
+    unpack rows also carry the batched launch's time (batch_ms, F frames)
+    beside F single launches (single_calls_ms) and its bound."""
+    launches = {k: sum(p[k] for p in paths) for k in COUNTED}
     cuda = {
         "unpack_modern": (t["unpack_ms"], t["unpack_plain_ms"], None,
                           bound(t["unpack_bytes"])),
@@ -965,6 +1304,11 @@ def kernels_line(t: dict, errs: dict, modern: dict, old: dict, dev: dict) -> lis
         if kernel == "develop":
             rows[-1]["malvar_ms"] = t["develop_malvar_ms"]
             rows[-1]["malvar_plain_ms"] = t["develop_malvar_plain_ms"]
+        batch = {"unpack_modern": "modern_batch", "unpack_legacy": "legacy_batch"}.get(kernel)
+        if batch:
+            n, batch_ms, singles_ms, batch_bound_ms = t[batch]
+            rows[-1].update(batch_frames=n, batch_ms=batch_ms, single_calls_ms=singles_ms,
+                            batch_bound_ms=batch_bound_ms)
     return rows
 
 
@@ -986,26 +1330,34 @@ def main() -> None:
              bytes=legacy.stat().st_size, encode_s=time.perf_counter() - t0,
              payload_bytes=[len(p) for p in lpayloads],
              scans=legacy_scans(limgs, lpayloads), native=native.have_native())
+        for name, err in phase_kernels_batch(np.random.default_rng(2025), payloads,
+                                             lpayloads).items():
+            errs[name] = max(errs[name], err)
         develop = work / "develop.mcraw"
         t0 = time.perf_counter()
         dimgs, dcm = make_develop_clip(develop)
         emit("clip", clip=develop.name, frames=len(dimgs),
              bytes=develop.stat().st_size, encode_s=time.perf_counter() - t0,
              shapes=[list(img.shape) for img in dimgs])
-        modern = phase_main_path(clip.name, clip, imgs, "unpack_modern")
-        old = phase_main_path(legacy.name, legacy, limgs, "unpack_legacy")
+        paths = [phase_main_path(clip.name, clip, imgs, "unpack_modern"),
+                 phase_main_path(legacy.name, legacy, limgs, "unpack_legacy")]
+        for name, path, src, kernel, batch_paths in (
+            (clip.name, clip, imgs, "unpack_modern", ("batch", "iter2", "frame_decoder")),
+            (legacy.name, legacy, limgs, "unpack_legacy", ("iter4", "frame_decoder")),
+        ):
+            paths += [phase_batch_path(name, path, src, kernel, p) for p in batch_paths]
         model = DevelopModel(dimgs, dcm)
-        dev = phase_develop_path(develop, model)
+        paths.append(phase_develop_path(develop, model))
         phase_cli(clip, work)
         phase_cli(legacy, work)
         phase_cli_preview(develop, work, model)
         emit("f64_model", calls=len(model._cache), seconds=model.seconds)
         t = (phase_times(payloads[0], card) | phase_times_legacy(lpayloads[0], card)
-             | phase_times_develop(develop, card))
+             | phase_times_develop(develop, card) | phase_times_batch(clip, legacy, card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
-    kernels = kernels_line(t, errs, modern, old, dev)
+    kernels = kernels_line(t, errs, paths)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,16 @@ from .errors import (  # noqa: F401
     MotionCamException,
 )
 
+from .container import (  # noqa: F401
+    COMPRESSION_TYPE,
+    COMPRESSION_TYPE_LEGACY,
+    ContainerReader,
+    ItemType,
+)
+from .metadata import ContainerMetadata, FrameMetadata  # noqa: F401
+
 from . import preview  # noqa: F401
-from .pipeline import Decoder  # noqa: F401
+from .codecs import decode_legacy, decode_modern  # noqa: F401
+from .pipeline import AudioChunkLoader, Decoder, FrameDecoder  # noqa: F401
 
 __version__ = "0.1.0"

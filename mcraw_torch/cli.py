@@ -1,12 +1,16 @@
-"""Command-line interface: the decode path of ``python -m mcraw``.
+"""Command-line interface: the decode and preview paths of ``python -m mcraw``.
 
-``python -m mcraw_torch <file> [-n N]`` prints the frame count, writes
-``audio.wav``, then ``frame_%06d.dng`` for the first N frames: stdout and
-files byte-identical to ``python -m mcraw <file> [-n N]`` (and so to the
-C++ reference example), for clips of either codec or a mix of both.
-Extras: ``--output-dir``, ``--resume`` (skip DNGs that exist) and
-``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain torch
-versions).
+``python -m mcraw_torch <file> [-n N]`` and ``python -m mcraw_torch decode
+<file> [-n N]`` print the frame count, write ``audio.wav``, then
+``frame_%06d.dng`` for the first N frames: stdout and files byte-identical
+to ``python -m mcraw <file> [-n N]`` (and so to the C++ reference example),
+for clips of either codec or a mix of both. ``<file> ...`` keeps the
+reference's argv edges; ``decode`` parses strictly. Extras:
+``--output-dir``, ``--resume`` (skip DNGs that exist), ``--batch`` (decode
+in batched launches of ``--batch-frames`` frames, default 16; every frame
+is written, as the reference's batch branch does) and ``--device``
+(default ``cuda``; ``cpu`` runs the kernels' plain torch versions).
+``--pipeline``, ``--verbose`` and ``--trace-dir`` are not ported yet.
 
 ``python -m mcraw_torch preview <file> [-n N] [--output-dir D]
 [--demosaic bilinear|malvar] [--device cuda|cpu]`` develops the first N
@@ -31,6 +35,13 @@ from .util import outpath as _outpath
 
 USAGE = "Usage: decoder <input file> [-n number of frames to export]"
 NOT_PORTED = ("info", "encode", "verify")
+NOT_PORTED_FLAGS = ("pipeline", "verbose", "trace_dir")
+
+
+def _not_ported(what: str, use: str) -> int:
+    print(f"Error: '{what}' is not yet ported to mcraw_torch; use "
+          f"python -m mcraw {use}", file=sys.stderr)
+    return 2
 
 
 def _decode_body(args: argparse.Namespace) -> int:
@@ -56,24 +67,42 @@ def _decode_body(args: argparse.Namespace) -> int:
             d.load_audio(),
         )
 
-        for i in range(end_frame):
-            path = _outpath(outdir, f"frame_{i:06d}.dng")
-            if args.resume and os.path.exists(path):
-                continue
-            img, metadata = d.load_frame(frames[i])
-            print(f"Writing {path}")
-            write_dng(path, img, metadata, container_metadata)
+        if args.batch and args.batch_frames <= 0:
+            print("Error: --batch-frames must be positive", file=sys.stderr)
+            return -1
+
+        if args.batch and end_frame > 0:
+            # Chunked launches bound device and host memory on long clips;
+            # each chunk comes to the host once.
+            i = 0
+            for imgs, metas in d.decode_batch_iter(
+                frames[:end_frame], chunk_frames=args.batch_frames
+            ):
+                imgs = imgs.cpu().numpy()
+                for img, metadata in zip(imgs, metas):
+                    path = _outpath(outdir, f"frame_{i:06d}.dng")
+                    print(f"Writing {path}")
+                    write_dng(path, img, metadata, container_metadata)
+                    i += 1
+        else:
+            for i in range(end_frame):
+                path = _outpath(outdir, f"frame_{i:06d}.dng")
+                if args.resume and os.path.exists(path):
+                    continue
+                img, metadata = d.load_frame(frames[i])
+                print(f"Writing {path}")
+                write_dng(path, img, metadata, container_metadata)
     except MotionCamException as e:
         print(f"Error: {e}", file=sys.stderr)
         return -1
     return 0
 
 
-def _decode_args(argv: list[str]) -> argparse.Namespace:
-    # Reference argv edges (mcraw.cli.main): for `<file> ...` a dangling
+def _decode_args(argv: list[str], ref_compat: bool) -> argparse.Namespace:
+    # Reference argv edges (mcraw.cli.main) for `<file> ...`: a dangling
     # `-n` is ignored, the -n value is prefix-parsed like std::stoi ("2x" ->
-    # 2), and unrecognized extra arguments are ignored.
-    ref_compat = not argv[0].startswith("-")
+    # 2), and unrecognized extra arguments are ignored. `decode <file> ...`
+    # parses strictly.
     if ref_compat:
         if len(argv) == 2 and argv[1] == "-n":
             argv = argv[:1]
@@ -82,15 +111,22 @@ def _decode_args(argv: list[str]) -> argparse.Namespace:
             if m:
                 argv[2] = m.group(0)
 
-    ap = argparse.ArgumentParser(prog="mcraw_torch")
+    ap = argparse.ArgumentParser(prog="mcraw_torch" if ref_compat else "mcraw_torch decode")
     ap.add_argument("input")
     ap.add_argument("-n", dest="num_frames", type=int, default=None,
                     help="number of frames to export")
     ap.add_argument("--output-dir", default=".")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
+    ap.add_argument("--batch", action="store_true",
+                    help="decode frames in batched launches")
+    ap.add_argument("--batch-frames", type=int, default=16,
+                    help="frames per batched launch (bounds memory)")
     ap.add_argument("--resume", action="store_true",
                     help="skip frames whose DNG already exists")
+    ap.add_argument("--pipeline", action="store_true", help="not yet ported")
+    ap.add_argument("--verbose", action="store_true", help="not yet ported")
+    ap.add_argument("--trace-dir", default=None, help="not yet ported")
     if ref_compat:
         args, _extras = ap.parse_known_args(argv)
     else:
@@ -137,13 +173,17 @@ def main(argv: list[str] | None = None) -> int:
         print(USAGE)
         return -1
     if argv[0] in NOT_PORTED:
-        print(f"Error: '{argv[0]}' is not yet ported to mcraw_torch; use "
-              f"python -m mcraw {argv[0]}", file=sys.stderr)
-        return 2
+        return _not_ported(argv[0], argv[0])
     if argv[0] == "preview":
         body, args = _preview_body, _preview_args(argv[1:])
     else:
-        body, args = _decode_body, _decode_args(argv)
+        sub = argv[0] == "decode"
+        ref_compat = not sub and not argv[0].startswith("-")
+        body, args = _decode_body, _decode_args(argv[sub:], ref_compat)
+        for flag in NOT_PORTED_FLAGS:
+            if getattr(args, flag):
+                name = "--" + flag.replace("_", "-")
+                return _not_ported(name, f"decode {name}")
     try:
         return body(args)
     except BrokenPipeError:

@@ -44,6 +44,15 @@
 //   8-byte aligned, or a span larger than the staging buffer) send the run
 //   to per-word reads from device memory; either way a word outside the
 //   payload reads as 0, so a malformed offset never reads past the buffer.
+// - A batch of F frames of one geometry is one launch of the same kernel
+//   with a frame axis (blockIdx.y = f). Frame f reads its own words
+//   [bases[f], bases[f] + lengths[f]) of one concatenated buffer (both
+//   clamped to the buffer), its own rows of the (F, nblk) bits, refs and
+//   frame-local offsets, and writes its own (height, width) plane of the
+//   (F, height, width) output, so it computes exactly what a single-frame
+//   launch on those inputs computes: a word at or past the frame's own
+//   length reads as 0, never as the next frame's. Indices within a frame
+//   stay 32-bit; the frame's base pointers are int64.
 
 #include <cstdint>
 
@@ -124,11 +133,31 @@ __device__ __forceinline__ void block_values(const Words<kStaged>& w, const int4
   }
 }
 
+// kBatch false: one frame, the pointers as given. kBatch true: frame
+// blockIdx.y of a batch; words is the concatenated buffer of n_words words,
+// bases / lengths its (F,) per-frame spans, nblk the stride of the
+// metadata rows and frame_elems that of the output planes.
+template <bool kBatch>
 __global__ void __launch_bounds__(kThreads) unpack_modern_kernel(
     const int32_t* __restrict__ words, int64_t n_words, const uint16_t* __restrict__ bits,
     const uint16_t* __restrict__ refs, const int64_t* __restrict__ offsets,
     const int4* __restrict__ desc, const int64_t* __restrict__ class_index,
-    uint16_t* __restrict__ out, int64_t tx, int64_t tiles, int64_t rows, int64_t width) {
+    uint16_t* __restrict__ out, int64_t tx, int64_t tiles, int64_t rows, int64_t width,
+    const int64_t* __restrict__ bases, const int64_t* __restrict__ lengths, int64_t nblk,
+    int64_t frame_elems) {
+  if constexpr (kBatch) {
+    const int64_t f = blockIdx.y;
+    int64_t base = bases[f];
+    int64_t len = lengths[f];
+    base = base < 0 ? 0 : (base > n_words ? n_words : base);
+    len = len < 0 ? 0 : (len > n_words - base ? n_words - base : len);
+    words += base;
+    n_words = len;
+    bits += f * nblk;
+    refs += f * nblk;
+    offsets += f * nblk;
+    out += f * frame_elems;
+  }
   __shared__ int4 s_desc[kDesc];
   __shared__ __align__(16) uint32_t s_words[kSpanWords];
   __shared__ int64_t s_off[kRunBlocks];
@@ -243,9 +272,36 @@ extern "C" int mcraw_unpack_modern(const int32_t* words, int64_t n_words,
   if (tiles <= 0 || rows <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   const int64_t runs = (tiles + kRunTiles - 1) / kRunTiles;
   if (runs > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  unpack_modern_kernel<<<static_cast<unsigned>(runs), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  unpack_modern_kernel<false><<<static_cast<unsigned>(runs), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       words, n_words, bits, refs, offsets, reinterpret_cast<const int4*>(desc), class_index,
-      out, tx, tiles, rows, width);
+      out, tx, tiles, rows, width, nullptr, nullptr, 0, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batch: frame f of `frames` (<= 65,535, the grid's y limit) unpacks
+// words [bases[f], bases[f] + lengths[f]) of the n_words-word buffer
+// `words` (clamped to it) with row f of the (frames, nblk) bits, refs and
+// offsets into plane f (frame_elems = height * width apart) of `out`; tx,
+// tiles, rows and width as for mcraw_unpack_modern, shared by every frame.
+// bases and lengths are device arrays of int64 words. Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int mcraw_unpack_modern_batch(const int32_t* words, int64_t n_words,
+                                         const int64_t* bases, const int64_t* lengths,
+                                         int64_t frames, int64_t nblk, const uint16_t* bits,
+                                         const uint16_t* refs, const int64_t* offsets,
+                                         const int32_t* desc, const int64_t* class_index,
+                                         uint16_t* out, int64_t frame_elems, int64_t tx,
+                                         int64_t tiles, int64_t rows, int64_t width,
+                                         void* stream) {
+  if (frames <= 0 || tiles <= 0 || rows <= 0 || width <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t runs = (tiles + kRunTiles - 1) / kRunTiles;
+  if (runs > 0x7FFFFFFF || frames > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(frames));
+  unpack_modern_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      words, n_words, bits, refs, offsets, reinterpret_cast<const int4*>(desc), class_index,
+      out, tx, tiles, rows, width, bases, lengths, nblk, frame_elems);
   return static_cast<int>(cudaGetLastError());
 }

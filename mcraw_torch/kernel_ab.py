@@ -46,6 +46,7 @@ from .kernels import develop as D
 from .kernels import legacy as L
 from .kernels import numpy_ref as R
 from .kernels import unpack as U
+from .kernels.staging import Staging
 from .kernels.tables import modern_tables
 
 H, W = 3072, 4096
@@ -133,7 +134,7 @@ def in_turns(libs: dict, call, new) -> dict:
 def ab_unpack_modern(libs: dict, dev, n: int) -> None:
     rng = np.random.default_rng(21)
     payload = np.frombuffer(E.encode_modern(twelve_bit(rng, 0)), np.uint8)
-    frame = U.upload(U.prepare_modern(payload, W, H), dev)
+    frame = U.stage_modern(Staging(dev), payload, W, H)
     tab = modern_tables(dev)
     offs = U.block_offsets(frame.bits, tab)
     kw = dict(ty=frame.tiles_y, tx=frame.tiles_x, height=H, width=W)
@@ -212,8 +213,8 @@ def legacy_image() -> np.ndarray:
 
 def ab_unpack_legacy(libs: dict, dev, n: int) -> None:
     payload = np.frombuffer(E.encode_legacy(legacy_image()), np.uint8)
-    prep = L.prepare_legacy(payload, W, H)
-    frame = L.upload(prep, dev)
+    frame = L.stage_legacy(Staging(dev), payload, W, H)
+    scan = L.scan_chain(payload, L.num_blocks(W, H))[1]
     args = (frame.payload, frame.bits, frame.refs, frame.offsets)
     kw = dict(height=H, width=W)
     outs = {k: torch.empty((H, W), dtype=torch.uint16, device=dev) for k in libs}
@@ -234,7 +235,7 @@ def ab_unpack_legacy(libs: dict, dev, n: int) -> None:
     nblk = L.num_blocks(W, H)
     moved = len(payload) + 2 * H * W + nblk * (4 + 2 + 8)
     turns("unpack_legacy", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
-          frame=f"legacy {W}x{H} 12-bit", bytes=moved, scan=prep.scan,
+          frame=f"legacy {W}x{H} 12-bit", bytes=moved, scan=scan,
           exact={k: bool(torch.equal(v.to(torch.int32), want)) for k, v in got.items()})
 
 

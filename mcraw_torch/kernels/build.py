@@ -123,6 +123,18 @@ def load(path: Path) -> ctypes.CDLL:
     cdll.mcraw_unpack_legacy.argtypes = [
         p, i64, p, p, p, p, i64, i64, i64, p,
     ]
+    # The batch entries; an earlier csrc (python -m mcraw_torch.kernel_ab)
+    # may not have them.
+    if hasattr(cdll, "mcraw_unpack_modern_batch"):
+        cdll.mcraw_unpack_modern_batch.restype = ctypes.c_int
+        cdll.mcraw_unpack_modern_batch.argtypes = [
+            p, i64, p, p, i64, i64, p, p, p, p, p, p, i64, i64, i64, i64, i64, p,
+        ]
+    if hasattr(cdll, "mcraw_unpack_legacy_batch"):
+        cdll.mcraw_unpack_legacy_batch.restype = ctypes.c_int
+        cdll.mcraw_unpack_legacy_batch.argtypes = [
+            p, i64, p, p, i64, p, p, p, p, i64, i64, i64, p,
+        ]
     cdll.mcraw_checksum.restype = ctypes.c_int
     cdll.mcraw_checksum.argtypes = [p, i64, ctypes.c_int32, p, p]
     cdll.mcraw_develop.restype = ctypes.c_int

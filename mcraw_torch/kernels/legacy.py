@@ -3,12 +3,13 @@
 The frame's path, as in the JAX package's single-frame device path
 (``pallas_legacy.prepare_legacy_light`` + ``decode_legacy_device_v6``):
 
-1. :func:`prepare_legacy` (host): walk the inline 2-byte header chain with
-   the scan ladder of ``mcraw.kernels.unpack.prepare_legacy`` (C++ via
-   :mod:`mcraw_torch.kernels.native`), giving every block's bits, reference
-   and payload offset, and build the upload buffer.
-2. :func:`upload` (H2D).
-3. :func:`decode_legacy_device`: the hand-written CUDA kernel
+1. :func:`stage_legacy` (host, then one H2D): walk the inline 2-byte
+   header chain with the scan ladder of the JAX package's
+   ``unpack.prepare_legacy`` (C++ via :mod:`mcraw_torch.kernels.native`), which
+   writes every block's bits, reference and payload offset straight into
+   a :class:`~mcraw_torch.kernels.staging.Staging`, beside the payload and
+   its zeroed tail, and send them.
+2. :func:`decode_legacy_device`: the hand-written CUDA kernel
    (``csrc/unpack_legacy.cu``) unpacks every block's MSB-first bitstream,
    adds its reference and writes the even/odd-interleaved rows of the
    (height, width) uint16 plane.
@@ -16,6 +17,12 @@ The frame's path, as in the JAX package's single-frame device path
 :func:`decode_legacy_plain` is the same function in plain torch, driven by
 the byte-field tables. The wrapper takes it only for tensors on the CPU; a
 CUDA tensor goes to the kernel or the call raises.
+
+A batch of F frames of one geometry takes the same steps once for all of
+them (:func:`stage_legacy_batch`: each frame's scan into its own rows, its
+payload into its own slot, one H2D; :func:`decode_legacy_batch_device`:
+one launch with a frame axis); a single frame is its batch of one. Frame f
+of its output is exactly what the single-frame path gives for frame f.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from . import build
 from . import native
 from . import numpy_ref as R
 from .tables import legacy_tables
+from .staging import Staging, check_batch_inputs, frame_spans, slot_bytes, slot_layout
 
 # mcraw.kernels.unpack.LEGACY_PARALLEL_MIN_BLOCKS (that module imports
 # JAX): below this block count the serial scan is faster than dispatching
@@ -46,24 +54,15 @@ KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 
-class LegacyFrame(NamedTuple):
-    """Host-side result of :func:`prepare_legacy` for one frame."""
-
-    payload: np.ndarray  # (n + TAIL_BYTES,) uint8: payload + zeroed tail
-    bits: np.ndarray  # (nblk,) int32 header bits
-    refs: np.ndarray  # (nblk,) uint16 12-bit references
-    offsets: np.ndarray  # (nblk,) int64 byte offset just past each header
-    scan: str  # the scan that walked the chain: parallel, speculative, serial
-
-
 def num_blocks(width: int, height: int) -> int:
     """Blocks in a frame: two 16-value blocks per 32 padded columns."""
     return height * (R.legacy_padded_width(width) // 32) * 2
 
 
-def scan_chain(payload: np.ndarray, nblk: int):
+def scan_chain(payload: np.ndarray, nblk: int, out=None):
     """Walk the header chain of `nblk` blocks: ((bits, refs, offsets), the
-    name of the scan that did it).
+    name of the scan that did it). `out`, three (nblk,) int32 / uint16 /
+    int64 arrays, receives the result in place of new ones.
 
     Large frames try the chunk-parallel scan over the trailing offset table,
     then the speculative parallel scan; either returns None where it cannot
@@ -74,47 +73,66 @@ def scan_chain(payload: np.ndarray, nblk: int):
     if nblk >= LEGACY_PARALLEL_MIN_BLOCKS:
         chunks = R.legacy_chunk_offsets(payload)
         if chunks:
-            scanned = native.legacy_scan_parallel(payload, nblk, chunks)
+            scanned = native.legacy_scan_parallel(payload, nblk, chunks, out=out)
             scan = "parallel"
         if scanned is None:
-            scanned = native.legacy_scan_speculative(payload, nblk)
+            scanned = native.legacy_scan_speculative(payload, nblk, out=out)
             scan = "speculative"
     if scanned is None:
-        scanned = native.legacy_scan(payload, nblk)
+        scanned = native.legacy_scan(payload, nblk, out=out)
         scan = "serial"
     return scanned, scan
-
-
-def prepare_legacy(payload: np.ndarray, width: int, height: int) -> LegacyFrame:
-    """The header-chain scan (:func:`scan_chain`) and the upload buffer
-    (host side)."""
-    payload = np.asarray(payload, dtype=np.uint8)
-    (bits, refs, offsets), scan = scan_chain(payload, num_blocks(width, height))
-
-    n = len(payload)
-    buf = np.zeros(n + TAIL_BYTES, dtype=np.uint8)
-    buf[:n] = payload
-    return LegacyFrame(buf, bits, refs, offsets, scan)
 
 
 class DeviceLegacyFrame(NamedTuple):
     """A frame's inputs on the device, ready for the unpack."""
 
-    payload: torch.Tensor  # (n + TAIL_BYTES,) uint8
-    bits: torch.Tensor  # (nblk,) int32
-    refs: torch.Tensor  # (nblk,) uint16
-    offsets: torch.Tensor  # (nblk,) int64
+    payload: torch.Tensor  # (n + TAIL_BYTES,) uint8: payload + zeroed tail
+    bits: torch.Tensor  # (nblk,) int32 header bits
+    refs: torch.Tensor  # (nblk,) uint16 12-bit references
+    offsets: torch.Tensor  # (nblk,) int64 byte offset just past each header
 
 
-def upload(frame: LegacyFrame, device: torch.device) -> DeviceLegacyFrame:
-    """Copy a prepared frame's buffers to `device`."""
+class DeviceLegacyBatch(NamedTuple):
+    """A batch's inputs on the device, ready for the unpack."""
 
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(device)
+    payload: torch.Tensor  # (P,) uint8: every frame's slot, one after another
+    bases: torch.Tensor  # (F,) int64 first byte of each frame's slot
+    lengths: torch.Tensor  # (F,) int64 payload + TAIL_BYTES of each frame
+    bits: torch.Tensor  # (F, nblk) int32
+    refs: torch.Tensor  # (F, nblk) uint16
+    offsets: torch.Tensor  # (F, nblk) int64, frame-local
 
-    return DeviceLegacyFrame(
-        put(frame.payload), put(frame.bits), put(frame.refs), put(frame.offsets)
-    )
+
+def stage_legacy_batch(staging: Staging, payloads, width: int, height: int
+                       ) -> DeviceLegacyBatch:
+    """The batch's inputs laid out in `staging` and sent in one H2D: each
+    payload straight into its 16-byte aligned slot, followed by its zeroed
+    tail; each frame's :func:`scan_chain` straight into its rows."""
+    payloads = [np.asarray(p, dtype=np.uint8) for p in payloads]
+    if not payloads:
+        raise ValueError("a batch needs at least one frame")
+    sizes = [slot_bytes(len(p), TAIL_BYTES) for p in payloads]
+    starts, total = slot_layout(sizes)
+    frames, nblk = len(payloads), num_blocks(width, height)
+    buf, bases, lengths, bits, refs, offsets = staging.host(
+        ((total,), np.uint8), ((frames,), np.int64), ((frames,), np.int64),
+        ((frames, nblk), np.int32), ((frames, nblk), np.uint16), ((frames, nblk), np.int64))
+    for f, (p, lo, size) in enumerate(zip(payloads, starts.tolist(), sizes)):
+        scan_chain(p, nblk, out=(bits[f], refs[f], offsets[f]))
+        buf[lo : lo + len(p)] = p
+        buf[lo + len(p) : lo + size] = 0
+    bases[:] = starts
+    lengths[:] = [len(p) + TAIL_BYTES for p in payloads]
+    return DeviceLegacyBatch(*staging.upload())
+
+
+def stage_legacy(staging: Staging, payload, width: int, height: int) -> DeviceLegacyFrame:
+    """One frame's inputs on the device: the batch of one of
+    :func:`stage_legacy_batch`."""
+    b = stage_legacy_batch(staging, [payload], width, height)
+    return DeviceLegacyFrame(b.payload[: len(payload) + TAIL_BYTES], b.bits[0], b.refs[0],
+                             b.offsets[0])
 
 
 def _check_inputs(payload, bits, refs, offsets, nblk: int) -> None:
@@ -134,6 +152,24 @@ def _check_inputs(payload, bits, refs, offsets, nblk: int) -> None:
     for name, t in (("bits", bits), ("refs", refs), ("offsets", offsets)):
         if t.numel() != nblk:
             raise ValueError(f"{name} has {t.numel()} entries, need {nblk}")
+
+
+def _plain_into(out, payload, bits, refs, offsets, *, padded_width: int) -> None:
+    """The plain unpack of one frame into its (height, width) plane."""
+    height, width = out.shape
+    if height == 0 or width == 0:
+        return
+    tab = legacy_tables(payload.device)
+    cls = tab.class_index[bits.to(torch.int64).clamp(0, 16)]  # (nblk,)
+    idx = offsets[:, None, None] + tab.pos[cls]  # (nblk, 16, 2)
+    n = payload.numel()
+    inside = (idx >= 0) & (idx < n)
+    p = payload.to(torch.int64) if n else payload.new_zeros(1, dtype=torch.int64)
+    byte = torch.where(inside, p[idx.clamp(0, max(n - 1, 0))], 0)
+    f = ((byte >> tab.rsh[cls]) & tab.msk[cls]) << tab.lsh[cls]
+    v = ((f[..., 0] | f[..., 1]) + refs.to(torch.int64)[:, None]) & 0xFFFF
+    img = v.reshape(height * (padded_width // 32), 2, 16).transpose(1, 2)  # (pair, k, parity)
+    out[:] = img.reshape(height, padded_width)[:, :width].to(torch.uint16)
 
 
 def decode_legacy_plain(
@@ -156,22 +192,11 @@ def decode_legacy_plain(
     casts at the end."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
-    pw = R.legacy_padded_width(width)
     _check_inputs(payload, bits, refs, offsets, num_blocks(width, height))
-    dev = payload.device
-    if height == 0 or width == 0:
-        return torch.empty((height, width), dtype=torch.uint16, device=dev)
-    tab = legacy_tables(dev)
-    cls = tab.class_index[bits.to(torch.int64).clamp(0, 16)]  # (nblk,)
-    idx = offsets[:, None, None] + tab.pos[cls]  # (nblk, 16, 2)
-    n = payload.numel()
-    inside = (idx >= 0) & (idx < n)
-    byte = payload.to(torch.int64)[idx.clamp(0, max(n - 1, 0))]
-    byte = torch.where(inside, byte, 0)
-    f = ((byte >> tab.rsh[cls]) & tab.msk[cls]) << tab.lsh[cls]
-    v = ((f[..., 0] | f[..., 1]) + refs.to(torch.int64)[:, None]) & 0xFFFF
-    img = v.reshape(height * (pw // 32), 2, 16).transpose(1, 2)  # (pair, k, parity)
-    return img.reshape(height, pw)[:, :width].to(torch.uint16)
+    out = torch.empty((height, width), dtype=torch.uint16, device=payload.device)
+    _plain_into(out, payload, bits, refs, offsets,
+                padded_width=R.legacy_padded_width(width))
+    return out
 
 
 def decode_legacy_device(
@@ -214,11 +239,95 @@ def decode_legacy_device(
     return out
 
 
-def decode_legacy(
-    payload: np.ndarray, width: int, height: int, device: torch.device
+def _check_legacy_batch(payload, bases, lengths, bits, refs, offsets, nblk) -> int:
+    if payload.dtype != torch.uint8:
+        raise ValueError(f"payload must be uint8, got {payload.dtype}")
+    return check_batch_inputs(payload, bases, lengths, (
+        ("bits", bits, torch.int32), ("refs", refs, torch.uint16),
+        ("offsets", offsets, torch.int64)), nblk)
+
+
+def decode_legacy_batch_plain(
+    payload: torch.Tensor,
+    bases: torch.Tensor,
+    lengths: torch.Tensor,
+    bits: torch.Tensor,
+    refs: torch.Tensor,
+    offsets: torch.Tensor,
+    *,
+    height: int,
+    width: int,
 ) -> torch.Tensor:
-    """One legacy payload -> (height, width) uint16 on `device`."""
-    dev = upload(prepare_legacy(payload, width, height), device)
-    return decode_legacy_device(
-        dev.payload, dev.bits, dev.refs, dev.offsets, height=height, width=width
-    )
+    """Plain torch version of the batched legacy unpack (any device): frame
+    f is :func:`decode_legacy_plain` of payload[bases[f] : bases[f] +
+    lengths[f]] (clamped to the buffer) and row f of bits, refs and
+    offsets; stacked into (F, height, width)."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    frames = _check_legacy_batch(payload, bases, lengths, bits, refs, offsets,
+                                 num_blocks(width, height))
+    out = torch.empty((frames, height, width), dtype=torch.uint16, device=payload.device)
+    pw = R.legacy_padded_width(width)
+    for f, (lo, hi) in enumerate(frame_spans(bases, lengths, payload.numel())):
+        _plain_into(out[f], payload[lo:hi], bits[f], refs[f], offsets[f], padded_width=pw)
+    return out
+
+
+def decode_legacy_batch_device(
+    payload: torch.Tensor,
+    bases: torch.Tensor,
+    lengths: torch.Tensor,
+    bits: torch.Tensor,
+    refs: torch.Tensor,
+    offsets: torch.Tensor,
+    *,
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """Unpack F legacy frames of one geometry in one launch: (F, height,
+    width) uint16, frame f exactly :func:`decode_legacy_device` of its own
+    inputs.
+
+    payload: (P,) uint8, every frame's slot; bases, lengths: (F,) int64
+    bytes, frame f's payload and tail; bits, refs, offsets: (F, nblk) int32
+    / uint16 / int64 frame-local, from the host scan. CUDA tensors launch
+    the kernel once on the current stream; CPU tensors take
+    :func:`decode_legacy_batch_plain`; any other device raises."""
+    global KERNEL_LAUNCHES
+    if payload.device.type == "cpu":
+        return decode_legacy_batch_plain(
+            payload, bases, lengths, bits, refs, offsets, height=height, width=width
+        )
+    if payload.device.type != "cuda":
+        raise ValueError(f"no legacy unpack kernel for device {payload.device}")
+    frames = _check_legacy_batch(payload, bases, lengths, bits, refs, offsets,
+                                 num_blocks(width, height))
+    out = torch.empty((frames, height, width), dtype=torch.uint16, device=payload.device)
+    if height == 0 or width == 0 or frames == 0:
+        return out
+    lib = build.lib()
+    with torch.cuda.device(payload.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mcraw_unpack_legacy_batch(
+            payload.data_ptr(), payload.numel(), bases.data_ptr(), lengths.data_ptr(),
+            frames, bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
+            out.data_ptr(), height, width, R.legacy_padded_width(width), stream,
+        )
+    build.check(err, "mcraw_unpack_legacy_batch")
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+def decode_legacy(payload: np.ndarray, width: int, height: int, staging: Staging
+                  ) -> torch.Tensor:
+    """One legacy payload -> (height, width) uint16 on the staging's
+    device."""
+    dev = stage_legacy(staging, payload, width, height)
+    return decode_legacy_device(*dev, height=height, width=width)
+
+
+def decode_legacy_batch(payloads, width: int, height: int, staging: Staging) -> torch.Tensor:
+    """F legacy payloads of one geometry -> (F, height, width) uint16 on
+    the staging's device, in one launch."""
+    dev = stage_legacy_batch(staging, payloads, width, height)
+    return decode_legacy_batch_device(*dev, height=height, width=width)

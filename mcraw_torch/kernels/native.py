@@ -122,16 +122,26 @@ def decode_metadata_stream(data: np.ndarray, offset: int) -> tuple[np.ndarray, i
     return out[:num_blocks], int(end)
 
 
+def _scan_out(num_blocks: int, out):
+    """The (bits, refs, offsets) arrays a scan writes: `out`, three
+    contiguous (num_blocks,) int32 / uint16 / int64 arrays, or new ones."""
+    if out is None:
+        return (np.zeros(num_blocks, dtype=np.int32), np.zeros(num_blocks, dtype=np.uint16),
+                np.zeros(num_blocks, dtype=np.int64))
+    for a, dtype in zip(out, (np.int32, np.uint16, np.int64)):
+        if a.dtype != dtype or a.shape != (num_blocks,) or not a.flags.c_contiguous:
+            raise ValueError(f"scan output must be a contiguous ({num_blocks},) {dtype}")
+    return out
+
+
 def legacy_scan(
-    data: np.ndarray, num_blocks: int, start_offset: int = 0
+    data: np.ndarray, num_blocks: int, start_offset: int = 0, out=None
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Walk the legacy header chain: (bits, refs, payload offsets just past
-    each header)."""
+    each header), written into `out` (see :func:`_scan_out`) if given."""
     lib = get_lib()
     data = np.ascontiguousarray(data, dtype=np.uint8)
-    bits = np.zeros(num_blocks, dtype=np.int32)
-    refs = np.zeros(num_blocks, dtype=np.uint16)
-    offs = np.zeros(num_blocks, dtype=np.int64)
+    bits, refs, offs = _scan_out(num_blocks, out)
     end = lib.mcraw_legacy_scan(
         data.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         len(data),
@@ -167,6 +177,7 @@ def legacy_scan_parallel(
     data: np.ndarray,
     num_blocks: int,
     chunk_starts,
+    out=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
     """Chunk-parallel legacy header walk over the trailing offset table.
 
@@ -176,7 +187,9 @@ def legacy_scan_parallel(
     concatenation equals the serial walk. Each segment is validated to end
     EXACTLY at the next boundary — a bogus table (block straddling a
     boundary, short counts) returns None and callers fall back to the
-    serial scan. Threads release the GIL inside the ctypes call.
+    serial scan. Threads release the GIL inside the ctypes call. A result
+    goes into `out` (see :func:`_scan_out`) if given; a None leaves it
+    untouched.
     """
     lib = get_lib()
     n = len(data)
@@ -223,10 +236,16 @@ def legacy_scan_parallel(
             return None
     if have < num_blocks:
         return None
-    bits = np.concatenate([p[0] for p in parts])
-    refs = np.concatenate([p[1] for p in parts])
-    offs = np.concatenate([p[2] for p in parts])
-    return bits, refs, offs
+    return _concatenate(parts, num_blocks, out)
+
+
+def _concatenate(parts, num_blocks: int, out):
+    """The (bits, refs, offsets) pieces of a parallel scan, in order, in
+    the arrays of :func:`_scan_out`."""
+    out = _scan_out(num_blocks, out)
+    for k, a in enumerate(out):
+        np.concatenate([p[k] for p in parts], out=a)
+    return out
 
 
 def legacy_scan_speculative(
@@ -236,6 +255,7 @@ def legacy_scan_speculative(
     nseg: int | None = None,
     window: int = 4096,
     stats: dict | None = None,
+    out=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
     """Parallel legacy header walk WITHOUT the trailing offset table.
 
@@ -258,7 +278,8 @@ def legacy_scan_speculative(
     `num_blocks` blocks (truncation near EOF, tiny payloads) — callers fall
     back to the serial scan for its exact error semantics. `stats`
     (optional dict) gets `spliced`/`rescanned` segment counts and
-    `splice_bytes` (serial bytes spent per splice).
+    `splice_bytes` (serial bytes spent per splice). A result goes into
+    `out` (see :func:`_scan_out`) if given; a None leaves it untouched.
     """
     lib = get_lib()
     n = len(data)
@@ -363,8 +384,4 @@ def legacy_scan_speculative(
         stats.update(st)
     if have < num_blocks:
         return None
-    return (
-        np.concatenate([p[0] for p in parts]),
-        np.concatenate([p[1] for p in parts]),
-        np.concatenate([p[2] for p in parts]),
-    )
+    return _concatenate(parts, num_blocks, out)

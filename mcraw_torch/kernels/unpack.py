@@ -3,12 +3,13 @@
 The frame's path, as in the JAX package's single-frame device path
 (``pallas_unpack.prepare_modern_light`` + ``decode_modern_device_v6``):
 
-1. :func:`prepare_modern` (host): read and validate the 16-byte header,
-   run the two serial metadata-stream scans (C++ via
-   :mod:`mcraw_torch.kernels.native`), and build the upload buffer.
-2. :func:`upload` (H2D) and :func:`block_offsets` (device): clamp each
-   block's bit width to 16, map it to a byte length, and take
-   ``16 + exclusive prefix sum`` as an int64 ``torch.cumsum``.
+1. :func:`stage_modern` (host, then one H2D): read and validate the
+   16-byte header, run the two serial metadata-stream scans (C++ via
+   :mod:`mcraw_torch.kernels.native`), lay the payload and the streams out
+   in a :class:`~mcraw_torch.kernels.staging.Staging` and send them.
+2. :func:`block_offsets` (device): clamp each block's bit width to 16, map
+   it to a byte length, and take ``16 + exclusive prefix sum`` as an int64
+   ``torch.cumsum``.
 3. :func:`decode_modern_device`: the hand-written CUDA kernel
    (``csrc/unpack_modern.cu``) unpacks every block, adds its reference and
    writes Bayer-de-interleaved rows of the (height, width) uint16 plane.
@@ -16,6 +17,14 @@ The frame's path, as in the JAX package's single-frame device path
 :func:`decode_modern_plain` is the same function in plain torch. The wrapper
 takes it only for tensors on the CPU; a CUDA tensor goes to the kernel or
 the call raises.
+
+A batch of F frames of one geometry takes the same steps once for all of
+them: :func:`stage_modern_batch` writes each payload into its 16-byte
+aligned slot and sends the batch in one H2D (a single frame is its batch
+of one), :func:`block_offsets` runs along the last axis of the (F, nblk)
+bits, and :func:`decode_modern_batch_device` is one launch of the kernel
+with a frame axis. Frame f of its output is exactly what the single-frame
+path gives for frame f.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from . import build
 from . import numpy_ref as R
 from . import tables as T
 from .native import decode_metadata_stream
+from .staging import (SHARE_GEOMETRY, Staging, check_batch_inputs, frame_spans, slot_bytes,
+                      slot_layout)
 from .tables import ModernTables, modern_tables
 
 # Zeroed bytes after the payload: one maximal block, so no word load of the
@@ -41,22 +52,21 @@ KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
 
-class ModernFrame(NamedTuple):
-    """Host-side result of :func:`prepare_modern` for one frame."""
+class ModernScan(NamedTuple):
+    """The header checks' and metadata scans' result for one payload."""
 
-    words: np.ndarray  # (P,) int32: payload + zeroed tail, little-endian
-    bits: np.ndarray  # (nblk,) uint16 raw bits stream (clamped on device)
-    refs: np.ndarray  # (nblk,) uint16 block references
+    n: int  # payload bytes
+    bits: np.ndarray  # (nblk,) uint16
+    refs: np.ndarray  # (nblk,) uint16
     tiles_y: int
     tiles_x: int
 
 
-def prepare_modern(payload: np.ndarray, width: int, height: int) -> ModernFrame:
+def scan_modern(payload: np.ndarray, width: int, height: int) -> ModernScan:
     """Header checks + the two serial metadata scans (host side).
 
     Raises :class:`DecodeError` with the texts of the JAX package's
     ``prepare_modern_light``."""
-    payload = np.asarray(payload, dtype=np.uint8)
     n = len(payload)
     enc_w, enc_h, bits_off, refs_off = R.read_metadata_header(payload)
     if bits_off > n or refs_off > n:
@@ -76,41 +86,73 @@ def prepare_modern(payload: np.ndarray, width: int, height: int) -> ModernFrame:
     total = int(T.MODERN_BLOCK_LENGTH.take(bits, mode="clip").sum(dtype=np.int64))
     if 16 + total > n:
         raise DecodeError("main data truncated")
-
-    size = n + TAIL_BYTES
-    size += (-size) % 16
-    buf = np.zeros(size, dtype=np.uint8)
-    buf[:n] = payload
-    return ModernFrame(buf.view("<i4"), bits, refs, ty, tx)
+    return ModernScan(n, bits, refs, ty, tx)
 
 
 class DeviceFrame(NamedTuple):
     """A frame's inputs on the device, ready for the unpack."""
 
-    words: torch.Tensor  # (P,) int32
-    bits: torch.Tensor  # (nblk,) uint16
-    refs: torch.Tensor  # (nblk,) uint16
+    words: torch.Tensor  # (P,) int32: payload + zeroed tail, 16-byte multiple
+    bits: torch.Tensor  # (nblk,) uint16 raw bits stream (clamped on device)
+    refs: torch.Tensor  # (nblk,) uint16 block references
     tiles_y: int
     tiles_x: int
 
 
-def upload(frame: ModernFrame, device: torch.device) -> DeviceFrame:
-    """Copy a prepared frame's buffers to `device`."""
+class DeviceBatch(NamedTuple):
+    """A batch's inputs on the device, ready for the unpack."""
 
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(device)
+    words: torch.Tensor  # (P,) int32: every frame's slot, one after another
+    bases: torch.Tensor  # (F,) int64 first word of each frame's slot
+    lengths: torch.Tensor  # (F,) int64 words of each slot
+    bits: torch.Tensor  # (F, nblk) uint16
+    refs: torch.Tensor  # (F, nblk) uint16
+    tiles_y: int
+    tiles_x: int
 
-    return DeviceFrame(
-        put(frame.words), put(frame.bits), put(frame.refs),
-        frame.tiles_y, frame.tiles_x,
-    )
+
+def stage_modern_batch(staging: Staging, payloads, width: int, height: int) -> DeviceBatch:
+    """:func:`scan_modern` of each payload, then the batch's inputs laid
+    out in `staging` (each payload straight into its 16-byte aligned slot,
+    followed by a zeroed tail of TAIL_BYTES) and sent in one H2D. Frames
+    whose encoded geometry (tiles_y, tiles_x) differs raise ValueError."""
+    payloads = [np.asarray(p, dtype=np.uint8) for p in payloads]
+    if not payloads:
+        raise ValueError("a batch needs at least one frame")
+    scans = []
+    for p in payloads:
+        scan = scan_modern(p, width, height)
+        if scans and scan[3:] != scans[0][3:]:
+            raise ValueError(SHARE_GEOMETRY)
+        scans.append(scan)
+    sizes = [slot_bytes(sc.n, TAIL_BYTES) for sc in scans]
+    starts, total = slot_layout(sizes)
+    frames, nblk = len(scans), scans[0].bits.size
+    words, bases, lengths, bits, refs = staging.host(
+        ((total // 4,), np.int32), ((frames,), np.int64), ((frames,), np.int64),
+        ((frames, nblk), np.uint16), ((frames, nblk), np.uint16))
+    buf = words.view(np.uint8)
+    for f, (p, sc, lo, size) in enumerate(zip(payloads, scans, starts.tolist(), sizes)):
+        buf[lo : lo + sc.n] = p
+        buf[lo + sc.n : lo + size] = 0
+        bits[f], refs[f] = sc.bits, sc.refs
+    bases[:], lengths[:] = starts // 4, np.asarray(sizes) // 4
+    return DeviceBatch(*staging.upload(), scans[0].tiles_y, scans[0].tiles_x)
+
+
+def stage_modern(staging: Staging, payload, width: int, height: int) -> DeviceFrame:
+    """One frame's inputs on the device: the batch of one of
+    :func:`stage_modern_batch`."""
+    b = stage_modern_batch(staging, [payload], width, height)
+    return DeviceFrame(b.words, b.bits[0], b.refs[0], b.tiles_y, b.tiles_x)
 
 
 def block_offsets(bits: torch.Tensor, tables: ModernTables) -> torch.Tensor:
-    """(nblk,) int64 payload byte offset of every main-data block:
-    16 + the exclusive prefix sum of the clamped bits' block lengths."""
+    """(..., nblk) int64 payload byte offset of every main-data block: 16 +
+    the exclusive prefix sum of the clamped bits' block lengths, along the
+    last axis (one frame's blocks, or each row of a batch's (F, nblk))."""
     lengths = tables.block_length[bits.to(torch.int64).clamp_(max=16)]
-    return R.METADATA_OFFSET + torch.cumsum(lengths, 0) - lengths
+    return R.METADATA_OFFSET + torch.cumsum(lengths, -1) - lengths
 
 
 def _check_inputs(words, bits, refs, offsets, ty: int, tx: int) -> None:
@@ -147,10 +189,34 @@ def unpack_launch(ty: int, tx: int, height: int, width: int) -> UnpackLaunch:
     return UnpackLaunch(rows, -(-rows // 4) * tx if rows > 0 and width > 0 else 0)
 
 
-def _output(height: int, width: int, ty: int, device) -> torch.Tensor:
+def _output(height: int, width: int, ty: int, device, frames: int | None = None):
     # Rows past 4*ty (a short encodedHeight) are never written: zero them.
     alloc = torch.zeros if height > 4 * ty else torch.empty
-    return alloc((height, width), dtype=torch.uint16, device=device)
+    shape = (height, width) if frames is None else (frames, height, width)
+    return alloc(shape, dtype=torch.uint16, device=device)
+
+
+def _plain_into(out, words, bits, refs, offsets, *, ty: int, tx: int) -> None:
+    """The plain unpack of one frame into its (height, width) plane `out`,
+    whose rows past 4*ty are already zero."""
+    height, width = out.shape
+    rows = min(height, 4 * ty)
+    if rows == 0 or width == 0:
+        return
+    tab = modern_tables(words.device)
+    n = words.numel()
+    cls = tab.class_index[bits.to(torch.int64).clamp_(max=16)]  # (nblk,)
+    wi = (offsets >> 2)[:, None, None] + tab.widx[cls]  # (nblk, 64, 3)
+    inside = (wi >= 0) & (wi < n)
+    w = words.to(torch.int64) if n else words.new_zeros(1, dtype=torch.int64)
+    w = torch.where(inside, w[wi.clamp(0, max(n - 1, 0))] & 0xFFFFFFFF, 0)
+    nb = tab.nbits[cls]
+    f = ((w >> tab.rsh[cls]) & ((1 << nb) - 1)) << tab.lsh[cls]
+    v = f[..., 0] | f[..., 1] | f[..., 2]  # disjoint fields
+    v = (v + refs.to(torch.int64)[:, None]) & 0xFFFF  # (nblk, 64)
+    img = v.reshape(ty, tx, 2, 2, 2, 32).permute(0, 4, 2, 1, 5, 3)
+    img = img.reshape(4 * ty, 64 * tx)  # (ty, h, q, tx, k, c)
+    out[:rows] = img[:rows, :width].to(torch.uint16)
 
 
 def decode_modern_plain(
@@ -173,23 +239,8 @@ def decode_modern_plain(
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     _check_inputs(words, bits, refs, offsets, ty, tx)
-    tab = modern_tables(words.device)
     out = _output(height, width, ty, words.device)
-    rows = min(height, 4 * ty)
-    if rows == 0 or width == 0:
-        return out
-    cls = tab.class_index[bits.to(torch.int64).clamp_(max=16)]  # (nblk,)
-    wi = (offsets >> 2)[:, None, None] + tab.widx[cls]  # (nblk, 64, 3)
-    inside = (wi >= 0) & (wi < words.numel())
-    w = words.to(torch.int64)[wi.clamp(0, max(words.numel() - 1, 0))]
-    w = torch.where(inside, w & 0xFFFFFFFF, 0)
-    nb = tab.nbits[cls]
-    f = ((w >> tab.rsh[cls]) & ((1 << nb) - 1)) << tab.lsh[cls]
-    v = f[..., 0] | f[..., 1] | f[..., 2]  # disjoint fields
-    v = (v + refs.to(torch.int64)[:, None]) & 0xFFFF  # (nblk, 64)
-    img = v.reshape(ty, tx, 2, 2, 2, 32).permute(0, 4, 2, 1, 5, 3)
-    img = img.reshape(4 * ty, 64 * tx)  # (ty, h, q, tx, k, c)
-    out[:rows] = img[:rows, :width].to(torch.uint16)
+    _plain_into(out, words, bits, refs, offsets, ty=ty, tx=tx)
     return out
 
 
@@ -236,5 +287,90 @@ def decode_modern_device(
             out.data_ptr(), tx, launch.tiles, launch.rows, width, stream,
         )
     build.check(err, "mcraw_unpack_modern")
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+def _check_modern_batch(words, bases, lengths, bits, refs, offsets, ty, tx) -> int:
+    if words.dtype != torch.int32:
+        raise ValueError(f"words must be int32, got {words.dtype}")
+    return check_batch_inputs(words, bases, lengths, (
+        ("bits", bits, torch.uint16), ("refs", refs, torch.uint16),
+        ("offsets", offsets, torch.int64)), 4 * ty * tx)
+
+
+def decode_modern_batch_plain(
+    words: torch.Tensor,
+    bases: torch.Tensor,
+    lengths: torch.Tensor,
+    bits: torch.Tensor,
+    refs: torch.Tensor,
+    offsets: torch.Tensor,
+    *,
+    ty: int,
+    tx: int,
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """Plain torch version of the batched unpack (any device): frame f is
+    :func:`decode_modern_plain` of words[bases[f] : bases[f] + lengths[f]]
+    (clamped to the buffer) and row f of bits, refs and offsets; stacked
+    into (F, height, width)."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    frames = _check_modern_batch(words, bases, lengths, bits, refs, offsets, ty, tx)
+    out = _output(height, width, ty, words.device, frames)
+    for f, (lo, hi) in enumerate(frame_spans(bases, lengths, words.numel())):
+        _plain_into(out[f], words[lo:hi], bits[f], refs[f], offsets[f], ty=ty, tx=tx)
+    return out
+
+
+def decode_modern_batch_device(
+    words: torch.Tensor,
+    bases: torch.Tensor,
+    lengths: torch.Tensor,
+    bits: torch.Tensor,
+    refs: torch.Tensor,
+    offsets: torch.Tensor,
+    *,
+    ty: int,
+    tx: int,
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """Unpack F frames of one geometry in one launch: (F, height, width)
+    uint16, frame f exactly :func:`decode_modern_device` of its own inputs.
+
+    words: (P,) int32, every frame's payload slot; bases, lengths: (F,)
+    int64 words, frame f's slot; bits, refs: (F, 4*ty*tx) uint16; offsets:
+    (F, 4*ty*tx) int64 frame-local, from :func:`block_offsets`. CUDA tensors
+    launch the kernel once on the current stream; CPU tensors take
+    :func:`decode_modern_batch_plain`; any other device raises."""
+    global KERNEL_LAUNCHES
+    if words.device.type == "cpu":
+        return decode_modern_batch_plain(
+            words, bases, lengths, bits, refs, offsets,
+            ty=ty, tx=tx, height=height, width=width,
+        )
+    if words.device.type != "cuda":
+        raise ValueError(f"no unpack kernel for device {words.device}")
+    frames = _check_modern_batch(words, bases, lengths, bits, refs, offsets, ty, tx)
+    if width > 64 * tx:
+        raise ValueError(f"width {width} exceeds the encoded width {64 * tx}")
+    tab = modern_tables(words.device)
+    out = _output(height, width, ty, words.device, frames)
+    launch = unpack_launch(ty, tx, height, width)
+    if launch.tiles == 0 or frames == 0:
+        return out
+    lib = build.lib()
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mcraw_unpack_modern_batch(
+            words.data_ptr(), words.numel(), bases.data_ptr(), lengths.data_ptr(),
+            frames, 4 * ty * tx, bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
+            tab.quads.data_ptr(), tab.class_index.data_ptr(), out.data_ptr(),
+            height * width, tx, launch.tiles, launch.rows, width, stream,
+        )
+    build.check(err, "mcraw_unpack_modern_batch")
     KERNEL_LAUNCHES += 1
     return out

@@ -1,19 +1,26 @@
-"""Decoder facade on PyTorch: the single-frame surface of mcraw.Decoder.
+"""Decoder facade on PyTorch: the surface of mcraw.Decoder.
 
     d = Decoder(path, device="cuda")
     d.frames                       # sorted timestamps
     d.container_metadata           # parsed container JSON
     img, meta = d.load_frame(ts)   # (H, W) uint16 numpy + frame JSON
     img, meta = d.load_frame_device(ts)  # (H, W) torch.uint16 on the device
-    d.load_audio() / d.audio_chunks()
+    imgs, metas = d.decode_batch(timestamps)  # (F, H, W), one launch
+    for imgs, metas in d.decode_batch_iter(chunk_frames=16): ...
+    fd = d.make_frame_decoder(); img, meta = fd(ts)  # one staging per geometry
+    d.load_audio() / d.audio_chunks() / d.load_audio_stream()
 
 Modern-codec (compressionType 7) frames decode through
 :mod:`mcraw_torch.kernels.unpack` (host scans, upload, device prep, the CUDA
 modern unpack kernel), legacy-codec (compressionType 6) frames through
 :mod:`mcraw_torch.kernels.legacy` (host header-chain scan, upload, the CUDA
-legacy unpack kernel); a clip may mix both. ``device="cpu"`` runs the
-kernels' plain torch versions. The container, metadata and error model are
-the port's copies of the JAX package's NumPy-only modules.
+legacy unpack kernel); a clip may mix both. A batch of frames of one codec
+and one geometry is one launch of its codec's kernel with a frame axis. A
+frame or a batch goes up in one H2D from the decoder's
+:class:`~mcraw_torch.kernels.staging.Staging`, whose buffers it reuses.
+``device="cpu"`` runs the kernels' plain torch versions. The container,
+metadata and error model are the port's copies of the JAX package's
+NumPy-only modules.
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ import torch
 
 from .container import COMPRESSION_TYPE, COMPRESSION_TYPE_LEGACY, ContainerReader
 from .errors import DecodeError, IOException, MotionCamException
+from .kernels import legacy as L
 from .kernels import unpack as U
 from .kernels.legacy import decode_legacy as decode_legacy_frame
+from .kernels.staging import SHARE_GEOMETRY, Staging
 from .kernels.tables import modern_tables
 from .metadata import ContainerMetadata, FrameMetadata
 
@@ -82,14 +91,25 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def decode_modern_frame(
-    payload: np.ndarray, width: int, height: int, device: torch.device
+    payload: np.ndarray, width: int, height: int, staging: Staging
 ) -> torch.Tensor:
-    """One modern payload -> (height, width) uint16 on `device`."""
-    frame = U.prepare_modern(payload, width, height)
-    dev = U.upload(frame, device)
-    offsets = U.block_offsets(dev.bits, modern_tables(device))
+    """One modern payload -> (height, width) uint16 on the staging's
+    device."""
+    dev = U.stage_modern(staging, payload, width, height)
+    offsets = U.block_offsets(dev.bits, modern_tables(staging.device))
     return U.decode_modern_device(
         dev.words, dev.bits, dev.refs, offsets,
+        ty=dev.tiles_y, tx=dev.tiles_x, height=height, width=width,
+    )
+
+
+def decode_modern_batch(payloads, width: int, height: int, staging: Staging) -> torch.Tensor:
+    """F modern payloads of one geometry -> (F, height, width) uint16 on
+    the staging's device, in one launch."""
+    dev = U.stage_modern_batch(staging, payloads, width, height)
+    offsets = U.block_offsets(dev.bits, modern_tables(staging.device))
+    return U.decode_modern_batch_device(
+        dev.words, dev.bases, dev.lengths, dev.bits, dev.refs, offsets,
         ty=dev.tiles_y, tx=dev.tiles_x, height=height, width=width,
     )
 
@@ -100,6 +120,8 @@ class Decoder:
         device: "cuda" (the default; raises without a card) or "cpu"."""
         self._device = resolve_device(device)
         self._reader = ContainerReader(source)
+        self._staging = Staging(self._device)
+        self._audio_loader: AudioChunkLoader | None = None
 
     @property
     def device(self) -> torch.device:
@@ -116,6 +138,9 @@ class Decoder:
 
     @property
     def container_metadata(self) -> dict:
+        return self._reader.container_metadata
+
+    def get_container_metadata(self) -> dict:
         return self._reader.container_metadata
 
     @property
@@ -147,6 +172,19 @@ class Decoder:
     def load_frame_device(self, timestamp: int) -> tuple[torch.Tensor, dict]:
         """Decode one frame; the (H, W) torch.uint16 result stays on the
         decoder's device."""
+        payload, meta, fm, modern = self._checked_frame(timestamp)
+        return self._decode_frame(payload, fm, modern, self._staging), meta
+
+    def _decode_frame(self, payload, fm: FrameMetadata, modern: bool,
+                      staging: Staging) -> torch.Tensor:
+        """One checked frame through `staging`: (H, W) uint16 on the device."""
+        decode = decode_modern_frame if modern else decode_legacy_frame
+        with _uncompress_error_text(modern):
+            return decode(payload, fm.width, fm.height, staging)
+
+    def _checked_frame(self, timestamp: int):
+        """(payload, frame JSON, FrameMetadata, modern) of one frame, its
+        codec and geometry checked as load_frame_device checks them."""
         payload, meta = self._reader.frame_payload(timestamp)
         fm = FrameMetadata(meta)
         ct = fm.compression_type
@@ -154,10 +192,70 @@ class Decoder:
             raise IOException("Invalid compression type")
         modern = ct == COMPRESSION_TYPE
         self._reference_return_check(payload, fm, modern)
-        decode = decode_modern_frame if modern else decode_legacy_frame
+        return payload, meta, fm, modern
+
+    # -- batched decode ----------------------------------------------------------
+
+    def decode_batch(self, timestamps: list[int] | None = None):
+        """Decode frames of one codec and one geometry in one launch of the
+        codec's kernel: ((F, H, W) uint16 on the decoder's device, [frame
+        JSON, ...]). Mixed codecs raise IOException("mixed codecs in one
+        batch"), mixed (width, height) or encoded geometry a ValueError, a
+        bad frame what load_frame_device raises for it, and no frames an
+        IndexError (as mcraw.Decoder.decode_batch on the CPU). The
+        decoder's staging buffers keep the size of the largest batch it
+        has decoded; for long clips use :meth:`decode_batch_iter`, which
+        bounds that, and the output, to one chunk."""
+        if timestamps is None:
+            timestamps = self.frames
+        if not timestamps:
+            raise IndexError("decode_batch needs at least one frame")
+        frames = [self._checked_frame(ts) for ts in timestamps]
+        if len({modern for *_, modern in frames}) > 1:
+            raise IOException("mixed codecs in one batch")
+        if len({(fm.width, fm.height) for _, _, fm, _ in frames}) > 1:
+            raise ValueError(SHARE_GEOMETRY)
+        _, _, fm, modern = frames[0]
+        decode = decode_modern_batch if modern else L.decode_legacy_batch
         with _uncompress_error_text(modern):
-            img = decode(payload, fm.width, fm.height, self._device)
-        return img, meta
+            imgs = decode([p for p, *_ in frames], fm.width, fm.height, self._staging)
+        return imgs, [meta for _, meta, *_ in frames]
+
+    def _homogeneous_runs(self, timestamps: list[int]) -> list[list[int]]:
+        """Split a timestamp list at (codec, width, height) boundaries:
+        maximal runs in stream order, one launch each (a homogeneous clip
+        is one run). Only the frame JSON is parsed here."""
+        runs: list[list[int]] = []
+        key = None
+        for ts in timestamps:
+            _, meta = self._reader.frame_payload(ts)
+            fm = FrameMetadata(meta)
+            k = (fm.compression_type, fm.width, fm.height)
+            if k != key:
+                runs.append([])
+                key = k
+            runs[-1].append(ts)
+        return runs
+
+    def decode_batch_iter(
+        self, timestamps: list[int] | None = None, chunk_frames: int = 16
+    ) -> Iterator[tuple[torch.Tensor, list[dict]]]:
+        """Constant-memory batched decode: yields ((C, H, W) uint16 on the
+        device, [frame JSON, ...]) per homogeneous run of up to
+        `chunk_frames` frames, in stream order; a clip that switches codec
+        or resolution mid-stream splits into one launch per run."""
+        if timestamps is None:
+            timestamps = self.frames
+        if chunk_frames <= 0:
+            raise ValueError("chunk_frames must be positive")
+        for lo in range(0, len(timestamps), chunk_frames):
+            for run in self._homogeneous_runs(timestamps[lo : lo + chunk_frames]):
+                yield self.decode_batch(run)
+
+    def make_frame_decoder(self) -> "FrameDecoder":
+        """Persistent single-frame decode loop (the latency path): see
+        :class:`FrameDecoder`."""
+        return FrameDecoder(self)
 
     @staticmethod
     def _reference_return_check(payload, fm: FrameMetadata, modern: bool) -> None:
@@ -194,3 +292,64 @@ class Decoder:
             if chunk is None:
                 return
             yield chunk
+
+    def load_audio_stream(self) -> "AudioChunkLoader":
+        """The persistent streaming loader: one :class:`AudioChunkLoader`
+        per Decoder, returned by every call, so iteration state persists
+        across calls (Decoder::loadAudio())."""
+        if self._audio_loader is None:
+            self._audio_loader = AudioChunkLoader(self._reader)
+        return self._audio_loader
+
+
+class AudioChunkLoader:
+    """Stateful streaming audio loader. :meth:`next` returns the next
+    ``(timestamp_ns, int16 samples)`` chunk, or None past the last chunk or
+    on a failed chunk load; a failure does not advance the index, so a
+    retry reads the same chunk again."""
+
+    def __init__(self, reader):
+        self._reader = reader
+        self._idx = 0
+
+    def next(self) -> AudioChunk | None:
+        if self._idx >= self._reader.num_audio_chunks:
+            return None
+        chunk = self._reader.audio_chunk(self._idx)
+        if chunk is None:
+            return None
+        self._idx += 1
+        return chunk
+
+    def __iter__(self) -> Iterator[AudioChunk]:
+        while (chunk := self.next()) is not None:
+            yield chunk
+
+
+class FrameDecoder:
+    """Persistent single-frame decode loop (the latency path), from
+    :meth:`Decoder.make_frame_decoder`. Call with a timestamp; returns
+    ((H, W) uint16 on the decoder's device, frame JSON), a fresh output
+    tensor each call.
+
+    One program per (codec, width, height) key, kept for the object's
+    lifetime: a :class:`~mcraw_torch.kernels.staging.Staging` whose host and
+    device input buffers grow to the key's largest frame. Each call is
+    :meth:`Decoder.load_frame_device`'s path through the key's buffers: the
+    host prep, one H2D, the device prep and one launch of the codec's
+    kernel. A homogeneous clip has one key."""
+
+    def __init__(self, decoder: Decoder):
+        self._d = decoder
+        self._programs: dict[tuple, Staging] = {}
+
+    @property
+    def num_programs(self) -> int:
+        return len(self._programs)
+
+    def __call__(self, timestamp: int) -> tuple[torch.Tensor, dict]:
+        payload, meta, fm, modern = self._d._checked_frame(timestamp)
+        key = (fm.compression_type, fm.width, fm.height)
+        if key not in self._programs:
+            self._programs[key] = Staging(self._d.device)
+        return self._d._decode_frame(payload, fm, modern, self._programs[key]), meta

@@ -296,15 +296,19 @@ def preview_frame(decoder, timestamp: int,
     return rgba_to_rgb(preview_frame_rgba(decoder, timestamp, demosaic=demosaic))
 
 
-def preview_clip(decoder, timestamps=None, demosaic: str = "bilinear"):
+def preview_clip(decoder, timestamps=None, batch_frames: int = 8,
+                 demosaic: str = "bilinear"):
     """Playback: yields (timestamp, (H, W) uint32 RGBA8888 on the device)
-    for each frame, decoded and developed on the decoder's device."""
+    for each frame in order, decoding in batched launches of up to
+    `batch_frames` frames (``decoder.decode_batch_iter``) and developing
+    each frame of a batch with its own parameters."""
     if timestamps is None:
         timestamps = decoder.frames
     cm = ContainerMetadata(decoder.container_metadata)
     cfa = tuple(cm.cfa_pattern)
-    # One frame per decode until batched decode is ported (ROADMAP queue 1
-    # item 9), which moves this loop onto decode_batch_iter.
-    for ts in timestamps:
-        img, meta = decoder.load_frame_device(ts)
-        yield ts, _frame_rgba(img, FrameMetadata(meta), cm, cfa, demosaic=demosaic)
+    i = 0
+    for imgs, metas in decoder.decode_batch_iter(timestamps, chunk_frames=batch_frames):
+        for img, meta in zip(imgs, metas):
+            yield timestamps[i], _frame_rgba(img, FrameMetadata(meta), cm, cfa,
+                                             demosaic=demosaic)
+            i += 1

@@ -54,8 +54,48 @@ def test_plain_equals_pallas_interpret(shape, dtype):
 
 
 def test_rejects_other_dtypes():
-    with pytest.raises(ValueError, match="uint16 or uint32"):
-        C.device_checksum(torch.zeros(4, dtype=torch.int32))
+    """Integer dtypes only, as the JAX package's checksum."""
+    for dtype in (torch.float32, torch.bool, torch.float16):
+        with pytest.raises(ValueError, match="integer"):
+            C.device_checksum(torch.zeros(4, dtype=dtype))
+
+
+INTEGER_DTYPES = [np.int8, np.uint8, np.int16, np.uint16, np.int32, np.uint32, np.int64,
+                  np.uint64]
+
+
+@pytest.mark.parametrize("dtype", INTEGER_DTYPES)
+@pytest.mark.parametrize("shape", [(1,), (7, 13), (3, 4, 5)])
+def test_any_integer_dtype_equals_numpy(shape, dtype):
+    """Every integer dtype, its full range (negative values as two's
+    complement), against numpy's int64 sum and the JAX package's
+    checksum (its uint32 reduction)."""
+    info = np.iinfo(dtype)
+    a = np.random.default_rng(len(shape)).integers(info.min, info.max, size=shape,
+                                                   dtype=dtype, endpoint=True)
+    before = (C.PLAIN_CALLS, C.KERNEL_LAUNCHES)
+    got = C.device_checksum(torch.from_numpy(a))
+    assert (C.PLAIN_CALLS, C.KERNEL_LAUNCHES) == (before[0] + 1, before[1])
+    assert got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == host_checksum(a)
+    if np.dtype(dtype).itemsize <= 4:  # JAX keeps 64-bit types off by default
+        assert int(got) == int(JC.device_checksum(jnp.asarray(a)))
+
+
+@pytest.mark.parametrize("dtype", INTEGER_DTYPES)
+@pytest.mark.parametrize("shape", [(), (1,), (7, 13), (3, 4, 5)])
+def test_kernel_elements_keep_the_sum(shape, dtype):
+    """What the kernel sums for each integer dtype (16- or 32-bit words,
+    contiguous) has the wrap-around sum of the tensor, also for a strided
+    view; the kernel itself runs on the card (test_torch_gpu.py)."""
+    info = np.iinfo(dtype)
+    a = np.random.default_rng(len(shape)).integers(info.min, info.max, size=(2, *shape),
+                                                   dtype=dtype, endpoint=True)
+    x = torch.from_numpy(a)[1]
+    words, elem_bytes = C.kernel_elements(x.transpose(0, -1) if x.dim() > 1 else x)
+    assert words.is_contiguous() and words.element_size() == elem_bytes in (2, 4)
+    raw = words.numpy().view(np.uint16 if elem_bytes == 2 else np.uint32)
+    assert int(raw.astype(np.uint64).sum()) & 0xFFFFFFFF == host_checksum(a[1])
 
 
 def test_no_fallback_off_the_cpu():

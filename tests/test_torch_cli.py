@@ -224,3 +224,109 @@ def test_fresh_interpreter_never_imports_jax(clip, legacy_clip, tmp_path):
     res = _run(["-c", code], tmp_path)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "False"
+
+
+# -- the decode subcommand and --batch -------------------------------------------
+
+
+def _in_process(main, argv, cwd, monkeypatch, capsys):
+    cwd.mkdir()
+    monkeypatch.chdir(cwd)
+    rc = main(argv)
+    return rc, capsys.readouterr()
+
+
+@pytest.mark.parametrize("batch", [[], ["--batch"], ["--batch", "--batch-frames", "2"],
+                                   ["--batch", "--batch-frames", "1"]])
+@pytest.mark.parametrize("which, n", [("modern", "2"), ("modern", "-1"), ("legacy", "3"),
+                                      ("legacy", "0")])
+def test_decode_subcommand_parity(clip, legacy_clip, tmp_path, monkeypatch, capsys,
+                                  which, n, batch):
+    """python -m mcraw_torch decode [--batch] against python -m mcraw decode
+    --backend numpy, in-process: the same exit code, stdout and stderr, and
+    byte-identical audio.wav and DNGs (tolerance 0)."""
+    src = str(clip if which == "modern" else legacy_clip)
+    rc_a, a = _in_process(cli.main, ["decode", src, "-n", n, "--device", "cpu", *batch],
+                          tmp_path / "mine", monkeypatch, capsys)
+    rc_b, b = _in_process(ref_cli.main, ["decode", src, "-n", n, "--backend", "numpy"],
+                          tmp_path / "ref", monkeypatch, capsys)
+    assert rc_a == rc_b == 0
+    assert a.out == b.out and a.err == b.err == ""
+    _assert_same_outputs(tmp_path / "mine", tmp_path / "ref", 3 if n == "-1" else int(n))
+
+
+@pytest.mark.parametrize("which", ["modern", "legacy"])
+def test_decode_batch_subprocess_parity(clip, legacy_clip, tmp_path, which):
+    """The module entry point: python -m mcraw_torch decode --batch against
+    python -m mcraw decode --backend numpy, byte for byte."""
+    src = str(clip if which == "modern" else legacy_clip)
+    mine, ref = tmp_path / "mine", tmp_path / "ref"
+    mine.mkdir()
+    ref.mkdir()
+    got = _run(["-m", "mcraw_torch", "decode", src, "-n", "3", "--batch", "--batch-frames",
+                "2", "--device", "cpu", "--output-dir", "out"], mine)
+    want = _run(["-m", "mcraw", "decode", src, "-n", "3", "--backend", "numpy",
+                 "--output-dir", "out"], ref)
+    assert got.returncode == want.returncode == 0, got.stderr + want.stderr
+    assert got.stdout == want.stdout
+    assert got.stdout.splitlines()[-1] == "Writing out/frame_000002.dng"
+    _assert_same_outputs(mine / "out", ref / "out", 3)
+
+
+@pytest.mark.parametrize("frames", ["0", "-3"])
+def test_batch_frames_must_be_positive(clip, tmp_path, monkeypatch, capsys, frames):
+    """The reference's check, after it has written audio.wav."""
+    argv = ["decode", str(clip), "--batch", "--batch-frames", frames]
+    rc_a, a = _in_process(cli.main, [*argv, "--device", "cpu"], tmp_path / "mine",
+                          monkeypatch, capsys)
+    rc_b, b = _in_process(ref_cli.main, [*argv, "--backend", "numpy"], tmp_path / "ref",
+                          monkeypatch, capsys)
+    assert rc_a == rc_b == -1
+    assert a.out == b.out == "Found 3 frames\n"
+    assert a.err == b.err == "Error: --batch-frames must be positive\n"
+    _assert_same_outputs(tmp_path / "mine", tmp_path / "ref", 0)
+
+
+def test_batch_does_not_skip_under_resume(clip, tmp_path, monkeypatch, capsys):
+    """As the reference's batch branch: --resume skips nothing with
+    --batch, and every frame is written again."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "frame_000000.dng").write_bytes(b"stale")
+    assert cli.main(["decode", str(clip), "-n", "2", "--batch", "--resume",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.splitlines()[1:] == ["Writing frame_000000.dng", "Writing frame_000001.dng"]
+    assert (tmp_path / "frame_000000.dng").read_bytes() != b"stale"
+    assert cli.main(["decode", str(clip), "-n", "2", "--resume", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == "Found 3 frames\n"
+
+
+@pytest.mark.parametrize("flag", [["--pipeline"], ["--verbose"], ["--trace-dir", "t"]])
+@pytest.mark.parametrize("sub", [True, False])
+def test_decode_flags_not_yet_ported(clip, tmp_path, monkeypatch, capsys, flag, sub):
+    monkeypatch.chdir(tmp_path)
+    argv = (["decode"] if sub else []) + [str(clip), *flag]
+    assert cli.main(argv) == 2
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and flag[0] in err
+    assert not list(tmp_path.iterdir())
+
+
+def test_decode_subcommand_parses_strictly(clip, capsys):
+    """`decode` takes no unknown arguments (an argparse error, exit 2, as
+    mcraw's); `<file> ...` ignores them."""
+    for main in (cli.main, ref_cli.main):
+        with pytest.raises(SystemExit) as e:
+            main(["decode", str(clip), "--bogus"])
+        assert e.value.code == 2
+    capsys.readouterr()
+
+
+def test_decode_subcommand_missing_file_parity(tmp_path, capsys):
+    missing = str(tmp_path / "nope.mcraw")
+    rc_a = cli.main(["decode", missing, "--device", "cpu"])
+    a = capsys.readouterr()
+    rc_b = ref_cli.main(["decode", missing, "--backend", "numpy"])
+    b = capsys.readouterr()
+    assert rc_a == rc_b == -1
+    assert a.out == b.out == "" and a.err == b.err and a.err.startswith("Error: Failed to open")

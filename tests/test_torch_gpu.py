@@ -196,6 +196,22 @@ def test_checksum_kernel_equals_plain(cuda, shape, dtype, lo, start):
     assert got == int(C.checksum_plain(x)) == want
 
 
+@pytest.mark.parametrize("dtype", [np.int8, np.uint8, np.int16, np.uint16, np.int32,
+                                   np.uint32, np.int64, np.uint64])
+@pytest.mark.parametrize("shape", [(1,), (7, 13), (3072, 4096)])
+def test_checksum_kernel_takes_every_integer_dtype(cuda, shape, dtype):
+    """Every integer dtype, its full range, through the kernel (after its
+    conversion to 32-bit words on the card), never the plain version."""
+    info = np.iinfo(dtype)
+    a = np.random.default_rng(len(shape)).integers(info.min, info.max, size=shape,
+                                                   dtype=dtype, endpoint=True)
+    x = torch.from_numpy(a).to(cuda)
+    before = (C.KERNEL_LAUNCHES, C.PLAIN_CALLS)
+    got = int(C.device_checksum(x))
+    assert (C.KERNEL_LAUNCHES, C.PLAIN_CALLS) == (before[0] + 1, before[1])
+    assert got == int(a.astype(np.int64).sum() & 0xFFFFFFFF)
+
+
 def test_decoder_on_card(cuda):
     """Modern and legacy frames in one clip; each goes through its codec's
     kernel and no plain version."""
@@ -323,3 +339,125 @@ def test_preview_on_card(cuda):
         model = P.develop_f64(img, meta.black_level, meta.white_level, neutral, fwd,
                               tuple(meta.cfa_pattern), demosaic="malvar")
         assert np.abs(_channels(rgba) - model).max() <= 1
+
+
+# -- batched kernels: one launch with a frame axis ------------------------------
+
+
+def _slots(arrays):
+    """Concatenate per-frame buffers (each a multiple of 16 bytes) into one
+    uint8 buffer: (buffer, (F,) starts in bytes, (F,) sizes in bytes)."""
+    sizes = np.array([a.nbytes for a in arrays], np.int64)
+    assert not (sizes % 16).any()
+    return (np.concatenate([a.reshape(-1).view(np.uint8) for a in arrays]),
+            np.cumsum(sizes) - sizes, sizes)
+
+
+def modern_batch_inputs(rng, contents, ty, tx, device, past_end=None):
+    """Per-frame inputs of edge_unpack_inputs for each of `contents`, and
+    their concatenation; frame `past_end` also gets its last three blocks
+    pointed at and past the end of its own slot."""
+    frames = [edge_unpack_inputs(rng, ty, tx, c, device) for c in contents]
+    if past_end is not None:
+        w, b, r, offs = frames[past_end]
+        n = 4 * w.numel()
+        offs[-3:] = torch.tensor([n - 4, n, n + 64], device=device)
+    buf, starts, sizes = _slots([f[0].cpu().numpy() for f in frames])
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    batch = (put(buf.view("<i4")), put(starts // 4), put(sizes // 4),
+             torch.stack([f[1] for f in frames]), torch.stack([f[2] for f in frames]),
+             torch.stack([f[3] for f in frames]))
+    return frames, batch
+
+
+@pytest.mark.parametrize(
+    "ty, tx, height, width, contents",
+    [
+        (768, 64, 3072, 4096, ("random", "per_tile", "all16")),
+        (768, 63, 3072, 4000, ("random", "random", "random")),
+        (768, 64, 3072, 4090, ("per_tile", "random", "all16")),
+        (10, 8, 50, 512, ("random", "all16", "random")),  # short encodedHeight
+        (9, 4, 36, 256, ("random", "scrambled", "random")),  # shuffled + past its end
+    ],
+)
+def test_unpack_batch_kernel_equals_single_calls_and_plain(cuda, ty, tx, height, width,
+                                                            contents):
+    rng = np.random.default_rng(ty + tx + width)
+    past_end = 1 if "scrambled" in contents else None
+    frames, batch = modern_batch_inputs(rng, contents, ty, tx, cuda, past_end)
+    kw = dict(ty=ty, tx=tx, height=height, width=width)
+    launches = U.KERNEL_LAUNCHES
+    got = U.decode_modern_batch_device(*batch, **kw)
+    torch.cuda.synchronize()
+    assert U.KERNEL_LAUNCHES == launches + 1
+    assert got.shape == (len(contents), height, width) and got.dtype == torch.uint16
+    plain = U.decode_modern_batch_plain(*batch, **kw)
+    assert torch.equal(got.to(torch.int32), plain.to(torch.int32))
+    for f, frame in enumerate(frames):
+        single = U.decode_modern_device(*frame, **kw)
+        assert torch.equal(got[f].to(torch.int32), single.to(torch.int32)), f
+
+
+def legacy_batch_inputs(rng, height, width, contents, device):
+    frames = [legacy_inputs(rng, height, width, c) for c in contents]
+    slots = [np.concatenate([p, np.zeros((-len(p)) % 16, np.uint8)]) for p, *_ in frames]
+    buf, starts, _ = _slots(slots)
+    lengths = np.array([len(p) for p, *_ in frames], np.int64)
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    batch = [put(a) for a in (buf, starts, lengths)] + [
+        put(np.stack([f[k] for f in frames])) for k in (1, 2, 3)]
+    return [[put(a) for a in f] for f in frames], batch
+
+
+@pytest.mark.parametrize(
+    "height, width, contents",
+    [
+        (3072, 4096, ("chain", "wrap", "chain")),
+        (3072, 4000, ("wrap", "chain", "wrap")),
+        (50, 33, ("wrap", "wrap", "chain")),
+        (24, 1000, ("chain", "shuffled", "chain")),
+        (16, 96, ("chain", "near_end", "no_tail")),
+    ],
+)
+def test_unpack_legacy_batch_kernel_equals_single_calls_and_plain(cuda, height, width,
+                                                                   contents):
+    rng = np.random.default_rng(height * width)
+    frames, batch = legacy_batch_inputs(rng, height, width, contents, cuda)
+    kw = dict(height=height, width=width)
+    launches = L.KERNEL_LAUNCHES
+    got = L.decode_legacy_batch_device(*batch, **kw)
+    torch.cuda.synchronize()
+    assert L.KERNEL_LAUNCHES == launches + 1
+    assert got.shape == (len(contents), height, width)
+    plain = L.decode_legacy_batch_plain(*batch, **kw)
+    assert torch.equal(got.to(torch.int32), plain.to(torch.int32))
+    for f, frame in enumerate(frames):
+        single = L.decode_legacy_device(*frame, **kw)
+        assert torch.equal(got[f].to(torch.int32), single.to(torch.int32)), f
+
+
+def test_batch_surface_on_card(cuda):
+    """decode_batch_iter, FrameDecoder and the batched preview_clip on a
+    mixed clip: one unpack launch per run, no plain call, exact."""
+    rng = np.random.default_rng(8)
+    writer = E.ContainerWriter(example_container_metadata(sensor="bggr", white_level=4095.0))
+    imgs = []
+    specs = [(7, 16, 256), (7, 16, 256), (7, 16, 256), (6, 16, 256), (6, 24, 4032),
+             (6, 24, 4032)]
+    for i, (ct, h, w) in enumerate(specs):
+        img = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
+        imgs.append(img)
+        payload = E.encode_modern(img) if ct == 7 else E.encode_legacy(img)
+        writer.add_frame(i, payload, example_frame_metadata(w, h, ct))
+    d = Decoder(writer.finish(), device="cuda")
+    counts = (U.KERNEL_LAUNCHES, L.KERNEL_LAUNCHES, U.PLAIN_CALLS, L.PLAIN_CALLS)
+    outs = [img for imgs_, _ in d.decode_batch_iter(chunk_frames=2) for img in imgs_]
+    assert (U.KERNEL_LAUNCHES, L.KERNEL_LAUNCHES, U.PLAIN_CALLS, L.PLAIN_CALLS) == (
+        counts[0] + 2, counts[1] + 2, counts[2], counts[3])
+    fd = d.make_frame_decoder()
+    for ts, img, out in zip(d.frames, imgs, outs, strict=True):
+        assert np.array_equal(out.cpu().numpy(), img)
+        assert np.array_equal(fd(ts)[0].cpu().numpy(), img)
+    assert fd.num_programs == 3
+    for (ts, rgba) in P.preview_clip(d, batch_frames=4):
+        assert torch.equal(rgba.to(torch.int64), P.preview_frame_rgba(d, ts).to(torch.int64))

@@ -20,6 +20,7 @@ from mcraw.kernels import unpack as JU
 from mcraw_torch.errors import DecodeError
 from mcraw_torch.kernels import legacy as L
 from mcraw_torch.kernels import native
+from mcraw_torch.kernels.staging import Staging
 from mcraw_torch.kernels.tables import legacy_tables
 
 CPU = torch.device("cpu")
@@ -52,7 +53,7 @@ def test_decode_equals_oracle(shape, maxv, table):
     rng = np.random.default_rng(h * w + maxv)
     img = rng.integers(0, maxv + 1, size=(h, w), dtype=np.uint16)
     payload = encode(img, table)
-    out = L.decode_legacy(payload, w, h, CPU)
+    out = L.decode_legacy(payload, w, h, Staging(CPU))
     assert out.dtype == torch.uint16 and out.shape == (h, w)
     assert np.array_equal(out.numpy(), R.decode_legacy(payload, w, h))
     assert np.array_equal(out.numpy(), img)
@@ -66,7 +67,7 @@ def test_bogus_table_decodes_exactly(shape, monkeypatch):
     payload = encode(img, "bogus")
     good = R.legacy_chunk_offsets(encode(img, "table"))
     assert R.legacy_chunk_offsets(payload) == [p + 1 for p in good]
-    out = L.decode_legacy(payload, w, h, CPU).numpy()
+    out = L.decode_legacy(payload, w, h, Staging(CPU)).numpy()
     assert np.array_equal(out, img)
 
 
@@ -83,11 +84,13 @@ def test_large_frame_scan_ladder(table, scan, monkeypatch):
     assert L.num_blocks(w, h) == L.LEGACY_PARALLEL_MIN_BLOCKS
     img = np.random.default_rng(8).integers(0, 4096, size=(h, w), dtype=np.uint16)
     payload = encode(img, table)
-    frame = L.prepare_legacy(payload, w, h)
-    assert frame.scan == (scan if native.have_native() else "serial")
-    for got, want in zip(frame[1:4], R.legacy_scan(payload, L.num_blocks(w, h))):
-        assert np.array_equal(got, want)
-    out = L.decode_legacy(payload, w, h, CPU).numpy()
+    nblk = L.num_blocks(w, h)
+    scanned, got_scan = L.scan_chain(payload, nblk)
+    assert got_scan == (scan if native.have_native() else "serial")
+    staged = [t.numpy() for t in L.stage_legacy(Staging(CPU), payload, w, h)[1:]]
+    for got, staged_rows, want in zip(scanned, staged, R.legacy_scan(payload, nblk)):
+        assert np.array_equal(got, want) and np.array_equal(staged_rows, want)
+    out = L.decode_legacy(payload, w, h, Staging(CPU)).numpy()
     assert np.array_equal(out, img)
 
 
@@ -99,9 +102,10 @@ def test_host_prep_matches_jax(shape, table):
     h, w = shape
     img = np.random.default_rng(3).integers(0, 4096, size=(h, w), dtype=np.uint16)
     payload = encode(img, table)
-    frame = L.prepare_legacy(payload, w, h)
-    assert frame.bits.dtype == np.int32 and frame.refs.dtype == np.uint16
-    assert frame.offsets.dtype == np.int64
+    frame = L.stage_legacy(Staging(CPU), payload, w, h)
+    assert frame.bits.dtype == torch.int32 and frame.refs.dtype == torch.uint16
+    assert frame.offsets.dtype == torch.int64
+    frame = L.DeviceLegacyFrame(*(t.numpy() for t in frame))
     _p32, offs, bits, refs, _pw, _rows = PL.prepare_legacy_light(payload, w, h)
     assert np.array_equal(frame.bits, bits) and np.array_equal(frame.refs, refs)
     assert np.array_equal(frame.offsets, offs)
@@ -142,7 +146,7 @@ def test_decode_equals_jax_pallas(kernel, shape, maxv):
     img = np.random.default_rng(maxv + w).integers(0, maxv + 1, size=(h, w),
                                                   dtype=np.uint16)
     payload = encode(img, "table")
-    out = L.decode_legacy(payload, w, h, CPU).numpy()
+    out = L.decode_legacy(payload, w, h, Staging(CPU)).numpy()
     assert np.array_equal(out, np.asarray(JAX_KERNELS[kernel](payload, w, h)))
     assert np.array_equal(out, img)
 
@@ -332,7 +336,7 @@ def test_truncated_payload_raises_decode_error():
     img = np.random.default_rng(6).integers(0, 4096, size=(8, 96), dtype=np.uint16)
     payload = np.frombuffer(E.encode_legacy(img)[:200], np.uint8)
     with pytest.raises(DecodeError, match="legacy stream truncated"):
-        L.decode_legacy(payload, 96, 8, CPU)
+        L.decode_legacy(payload, 96, 8, Staging(CPU))
 
 
 def test_wrapper_checks_inputs():
@@ -366,5 +370,5 @@ def test_plain_counter_counts_cpu_calls():
     img = np.zeros((2, 32), np.uint16)
     payload = np.frombuffer(E.encode_legacy(img), np.uint8)
     before = (L.PLAIN_CALLS, L.KERNEL_LAUNCHES)
-    L.decode_legacy(payload, 32, 2, CPU)
+    L.decode_legacy(payload, 32, 2, Staging(CPU))
     assert (L.PLAIN_CALLS, L.KERNEL_LAUNCHES) == (before[0] + 1, before[1])

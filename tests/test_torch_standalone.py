@@ -99,10 +99,28 @@ with mcraw_torch.Decoder(str(path), device="cpu") as d:
                                  demosaic=demosaic)
             errs.append(int(np.abs(rgb - want).max()))
     audio = d.load_audio()
+    # The batch surface: runs of one (codec, geometry), the latency path,
+    # the batched preview, the CPU codecs and the CLI's decode --batch.
+    runs = [tuple(x.shape) for x, _ in d.decode_batch_iter(chunk_frames=2)]
+    fd = d.make_frame_decoder()
+    for ts, img in zip(d.frames, imgs):
+        assert np.array_equal(fd(ts)[0].numpy(), img), ts
+    clip = list(P.preview_clip(d, None, 2))
+    assert [ts for ts, _ in clip] == d.frames
+    payload, meta = d._reader.frame_payload(d.frames[0])
+    assert np.array_equal(mcraw_torch.decode_modern(payload, 192, 12), imgs[0])
+    payload, meta = d._reader.frame_payload(d.frames[1])
+    assert np.array_equal(mcraw_torch.decode_legacy(payload, 200, 12), imgs[1])
+    stream = [c for c in d.load_audio_stream()]
+from mcraw_torch import cli
+rc = cli.main(["decode", str(path), "--batch", "--batch-frames", "2", "--device", "cpu",
+               "--output-dir", str(path.parent / "out")])
+assert rc == 0 and len(list((path.parent / "out").glob("frame_*.dng"))) == 3
 leaked = sorted(m for m in sys.modules
                 if m in ("mcraw", "jax") or m.startswith(("mcraw.", "jax.")))
 print(json.dumps({"modules": len(modules), "frames": len(imgs), "f64_err": max(errs),
-                  "audio_chunks": len(audio), "leaked": leaked}))
+                  "audio_chunks": len(audio), "stream_chunks": len(stream), "runs": runs,
+                  "programs": fd.num_programs, "leaked": leaked}))
 """
 
 
@@ -116,7 +134,9 @@ def test_runs_with_mcraw_and_jax_refused(tmp_path):
     assert res.returncode == 0, res.stderr[-4000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["modules"] == len(PORT_FILES) - 1  # every .py but the package root
-    assert out["frames"] == 3 and out["audio_chunks"] == 3
+    assert out["frames"] == 3 and out["audio_chunks"] == out["stream_chunks"] == 3
+    assert out["runs"] == [[1, 12, 192], [1, 12, 200], [1, 12, 130]]
+    assert out["programs"] == 3
     assert out["f64_err"] <= 1
     assert out["leaked"] == []
 

@@ -21,6 +21,7 @@ from mcraw.pipeline import Decoder as JaxDecoder
 from mcraw_torch import Decoder
 from mcraw_torch.errors import DecodeError
 from mcraw_torch.kernels import unpack as U
+from mcraw_torch.kernels.staging import Staging
 from mcraw_torch.kernels.tables import modern_tables
 from mcraw_torch.pipeline import decode_modern_frame
 
@@ -94,7 +95,7 @@ def test_encoded_frames_equal_oracle_and_jax_v6(shape, kind):
     rng = np.random.default_rng(h * w)
     img = _content(rng, kind, h, w)
     payload = np.frombuffer(E.encode_modern(img), dtype=np.uint8)
-    out = decode_modern_frame(payload, w, h, torch.device("cpu")).numpy()
+    out = decode_modern_frame(payload, w, h, Staging("cpu")).numpy()
     assert np.array_equal(out, img)
     assert np.array_equal(out, R.decode_modern(payload, w, h))
     p32, bits, refs, ty, tx, _spans = PK.prepare_modern_light(payload, w, h)
@@ -115,9 +116,9 @@ def test_all_bit_widths_in_one_frame():
     for b in range(17):
         img[:, 64 * b : 64 * (b + 1)] = rng.integers(0, 1 << b, size=(h, 64))
     payload = np.frombuffer(E.encode_modern(img), dtype=np.uint8)
-    frame = U.prepare_modern(payload, w, h)
+    frame = U.scan_modern(payload, w, h)
     assert set(np.minimum(frame.bits, 16)) >= set(range(11))
-    out = decode_modern_frame(payload, w, h, torch.device("cpu")).numpy()
+    out = decode_modern_frame(payload, w, h, Staging("cpu")).numpy()
     assert np.array_equal(out, img)
 
 
@@ -127,14 +128,14 @@ def test_host_prep_matches_jax(shape):
     rng = np.random.default_rng(7)
     img = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
     payload = np.frombuffer(E.encode_modern(img), dtype=np.uint8)
-    frame = U.prepare_modern(payload, w, h)
+    frame = U.stage_modern(Staging("cpu"), payload, w, h)
     _p32, bits, refs, ty, tx, _ = PK.prepare_modern_light(payload, w, h)
     assert (frame.tiles_y, frame.tiles_x) == (ty, tx)
-    assert frame.bits.dtype == np.uint16 and frame.refs.dtype == np.uint16
-    assert np.array_equal(frame.bits, bits) and np.array_equal(frame.refs, refs)
+    assert frame.bits.dtype == torch.uint16 and frame.refs.dtype == torch.uint16
+    assert np.array_equal(frame.bits.numpy(), bits) and np.array_equal(frame.refs.numpy(), refs)
     # Upload buffer: payload + >= 128 zero bytes, 16-byte multiple.
-    raw = frame.words.view(np.uint8)
-    assert frame.words.dtype == np.int32
+    raw = frame.words.numpy().view(np.uint8)
+    assert frame.words.dtype == torch.int32
     assert len(raw) % 16 == 0 and len(raw) >= len(payload) + 128
     assert np.array_equal(raw[: len(payload)], payload)
     assert not raw[len(payload):].any()
@@ -169,7 +170,7 @@ def test_host_prep_errors_match_jax(kind):
     with pytest.raises(JE.DecodeError) as ref:
         PK.prepare_modern_light(payload, width, 8)
     with pytest.raises(DecodeError) as got:
-        U.prepare_modern(payload, width, 8)
+        U.stage_modern(Staging("cpu"), payload, width, 8)
     assert type(got.value).__name__ == type(ref.value).__name__
     assert str(got.value) == str(ref.value)
 
@@ -237,7 +238,7 @@ def test_routes_decode_modern_pallas(shape, maxv):
     img = np.random.default_rng(maxv + w).integers(0, maxv + 1, size=(h, w),
                                                   dtype=np.uint16)
     payload = np.frombuffer(E.encode_modern(img), dtype=np.uint8)
-    out = decode_modern_frame(payload, w, h, torch.device("cpu")).numpy()
+    out = decode_modern_frame(payload, w, h, Staging("cpu")).numpy()
     want = np.asarray(PK.decode_modern_pallas(payload, w, h, interpret=True))
     assert np.array_equal(out, want) and np.array_equal(out, img)
 
@@ -262,7 +263,7 @@ def test_routes_unpack_blocks_pallas_v2(shape, maxv):
     )[:n]
     zero = np.zeros(n, np.uint16)
     want = R.modern_deinterleave(vals, zero, plan.tiles_y, plan.tiles_x)[:h, :w]
-    out = decode_modern_frame(payload, w, h, torch.device("cpu")).numpy()
+    out = decode_modern_frame(payload, w, h, Staging("cpu")).numpy()
     assert np.array_equal(out, want) and np.array_equal(out, img)
 
 
