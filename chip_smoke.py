@@ -60,11 +60,29 @@ failure exits non-zero and prints no result:
      height <= 2 develop; ``preview_clip(d, batch_frames=2)`` gives the
      same RGBA (device checksum) as ``preview_frame_rgba`` for every frame,
      with one unpack launch per run (the legacy frame splits them).
+   - export: ``mcraw_torch.clip.export_clip(Decoder(clip, device="cuda"),
+     prefetch=4, writers=4)`` on each decode clip: every DNG byte-identical
+     to ``dng_bytes`` of its source image, one unpack launch of the clip's
+     codec per frame, no plain call, ``stage_timing`` with parse, unpack
+     and emit (emit once a frame), no Staging laid out by two threads; then
+     a small clip with an 8-byte corrupt payload between two good frames:
+     one frame failed, with the error text of ``python -m mcraw decode
+     --pipeline --backend numpy``, the good frames byte-identical to its.
 5. CLI: per decode clip, ``python -m mcraw_torch clip -n 5``, ``... decode
    clip -n 5`` and ``... decode clip -n 5 --batch --batch-frames 2``
-   against ``python -m mcraw clip -n 5 --backend numpy``: identical stdout,
-   byte-identical audio.wav and DNGs; ``python -m mcraw_torch preview
-   <develop clip> -n 2 --demosaic malvar``: PPMs within 1 of the f64 model.
+   against ``python -m mcraw clip -n 5 --backend numpy``, the four at
+   once: identical stdout, byte-identical audio.wav and DNGs. Against
+   ``python -m mcraw ... --backend numpy``, four processes at a time:
+   ``info``, ``verify`` and
+   ``verify --quick`` on both decode clips and the corrupt clip (identical
+   stdout and exit code), ``encode --codec 7`` and ``--codec 6``
+   (byte-identical files), and per decode clip ``decode -n 5 --pipeline``
+   (the same Found line and multiset of Writing lines, an Exported line,
+   byte-identical files) with ``--verbose`` (a stage_timing event with
+   parse, unpack and emit on stderr) and with ``--trace-dir`` (the codec's
+   unpack kernel once per frame among the trace's device kernels).
+   ``python -m mcraw_torch preview <develop clip> -n 2 --demosaic
+   malvar``: PPMs within 1 of the f64 model.
 6. times on the card (printed, not asserted): CUDA-event medians of each
    kernel and its plain version at the 4K 12-bit frame of its codec (both
    demosaic modes for develop), the ``load_frame_device`` split: host prep
@@ -76,7 +94,13 @@ failure exits non-zero and prints no result:
    through a new staging (cold host buffers) and ``load_frame_device`` of
    the same frames in the same turns, the batched launch against F single
    launches (CUDA events), and ``FrameDecoder`` against
-   ``load_frame_device`` per frame.
+   ``load_frame_device`` per frame. Per decode clip, its frames repeated to
+   64 (the 8 frames in flight reach steady state), in 2 turns,
+   ``export_clip``'s wall and fps beside the sequential decode loop
+   (``load_frame`` and ``write_dng`` per frame, over 10 frames), the
+   stage_timing split and the count of cold Stagings; then one export
+   under ``mcraw_torch.observe.device_trace``: the device busy share (the
+   union of kernel, memcpy and memset intervals over the export's wall).
 
 The line before last is ``{"kernels": [...]}``: one entry per TPU kernel
 of the repo (eight; the routed ones carry the numbers of the CUDA kernel
@@ -90,15 +114,20 @@ separate process to compare with).
 
 from __future__ import annotations
 
+import contextlib
 import filecmp
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -145,7 +174,9 @@ torch.backends.cudnn.allow_tf32 = False
 import mcraw_torch  # noqa: E402
 from mcraw_torch import encode as E  # noqa: E402  (the fixture writer)
 from mcraw_torch import preview as P  # noqa: E402
+from mcraw_torch.clip import export_clip  # noqa: E402
 from mcraw_torch.color import interpolated_matrices  # noqa: E402
+from mcraw_torch.emit.dng import dng_bytes, write_dng  # noqa: E402
 from mcraw_torch.kernels import build  # noqa: E402
 from mcraw_torch.kernels import checksum as C  # noqa: E402
 from mcraw_torch.kernels import develop as D  # noqa: E402
@@ -162,6 +193,7 @@ from mcraw_torch.metadata import (  # noqa: E402
     example_container_metadata,
     example_frame_metadata,
 )
+from mcraw_torch.observe import device_trace  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -887,6 +919,104 @@ def phase_develop_path(clip: Path, model: DevelopModel) -> dict:
     return {k: launches[k] + clip_launches[k] for k in COUNTED}
 
 
+@contextlib.contextmanager
+def staging_threads():
+    """While open, records which threads lay out each Staging: {Staging:
+    set of thread ids}."""
+    users: dict = {}
+    host = Staging.host
+
+    def recording(self, *parts):
+        users.setdefault(self, set()).add(threading.get_ident())
+        return host(self, *parts)
+
+    Staging.host = recording
+    try:
+        yield users
+    finally:
+        Staging.host = host
+
+
+def phase_export_path(name: str, clip: Path, imgs, kernel: str, work: Path) -> dict:
+    """export_clip(Decoder(clip, device="cuda"), prefetch=4, writers=4):
+    every frame done, every DNG byte-identical to dng_bytes of its source
+    image; one unpack launch of `kernel` per frame and no plain call;
+    stage_timing with parse, unpack and emit (emit once a frame); no
+    Staging laid out by two threads."""
+    out = work / f"{clip.stem}_export"
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        cm = d.container_metadata
+        metas = [d._reader.frame_payload(ts)[1] for ts in d.frames]
+        with staging_threads() as users:
+            reset_counters()
+            stats = export_clip(d, str(out), prefetch=4, writers=4)
+            torch.cuda.synchronize()
+            launches, plain = counts()
+    n = len(imgs)
+    check(stats.frames_done == n and stats.frames_failed == 0,
+          f"{name} export: {stats.frames_done} done, {stats.frames_failed} failed "
+          f"{stats.errors}")
+    for i, (img, meta) in enumerate(zip(imgs, metas)):
+        check((out / f"frame_{i:06d}.dng").read_bytes() == dng_bytes(img, meta, cm),
+              f"{name} export: frame_{i:06d}.dng != dng_bytes of its source image")
+    shutil.rmtree(out)
+    want = {k: 0 for k in COUNTED} | {kernel: n}
+    check(launches == want, f"{name} export: launch counts {launches}, expected {want}")
+    check(not any(plain.values()), f"{name} export: plain calls {plain}")
+    timing = stats.stage_timing
+    check({"parse", "unpack", "emit"} <= set(timing) and timing["emit"]["count"] == n,
+          f"{name} export: stage_timing {timing}")
+    shared = [len(t) for t in users.values() if len(t) > 1]
+    check(not shared, f"{name} export: a Staging laid out by {shared} threads")
+    emit("main_path", clip=name, path="export_clip prefetch=4 writers=4", frames=n,
+         seconds=stats.wall_seconds, fps=stats.fps, launches=launches, plain_calls=plain,
+         stage_timing=timing, stagings=len(users),
+         threads=len(set().union(*users.values())), identical=True)
+    return launches
+
+
+def make_corrupt_clip(path: Path) -> None:
+    """Three 256x16 modern frames, the middle one an 8-byte zero payload."""
+    rng = np.random.default_rng(15)
+    writer = E.ContainerWriter(example_container_metadata())
+    for i in range(3):
+        img = rng.integers(0, 4096, size=(16, 256), dtype=np.uint16)
+        payload = b"\x00" * 8 if i == 1 else E.encode_modern(img)
+        writer.add_frame(1000 + 33 * i, payload, example_frame_metadata(256, 16, 7))
+        writer.add_audio(rng.integers(-3000, 3000, size=2048).astype(np.int16), i * 10**6)
+    path.write_bytes(writer.finish())
+
+
+def phase_export_corrupt(clip: Path, work: Path) -> dict:
+    """export_clip of the corrupt clip on the card: the good frames written
+    byte-identical to ``python -m mcraw decode --pipeline --backend
+    numpy``'s, the bad one in errors with the text that command reports."""
+    ref = work / "corrupt_ref"
+    res = subprocess.run([sys.executable, "-m", "mcraw", "decode", str(clip), "--pipeline",
+                          "--backend", "numpy", "--output-dir", str(ref)],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"mcraw decode --pipeline exited {res.returncode}: {res.stderr}")
+    want = [ln for ln in res.stderr.splitlines() if ln.startswith("Error: frame ")]
+    out = work / "corrupt_export"
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        reset_counters()
+        stats = export_clip(d, str(out), prefetch=4, writers=4)
+        torch.cuda.synchronize()
+        launches, plain = counts()
+    got = [f"Error: frame {ts}: {err}" for ts, err in stats.errors]
+    check(stats.frames_done == 2 and stats.frames_failed == 1 and got == want,
+          f"corrupt export: {stats.frames_done} done, errors {got}, mcraw's {want}")
+    for n in ("frame_000000.dng", "frame_000002.dng"):
+        check(filecmp.cmp(out / n, ref / n, shallow=False), f"corrupt export: {n} differs")
+    want_launches = {k: 0 for k in COUNTED} | {"unpack_modern": 2}
+    check(launches == want_launches and not any(plain.values()),
+          f"corrupt export: launches {launches}, plain {plain}")
+    emit("main_path", clip=clip.name, path="export_clip, a corrupt frame", frames=3,
+         frames_failed=stats.frames_failed, errors=got, launches=launches, plain_calls=plain)
+    return launches
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 
@@ -894,26 +1024,20 @@ def phase_cli(clip: Path, work: Path) -> None:
     """python -m mcraw_torch <clip> -n 5, ... decode <clip> -n 5 and ...
     decode <clip> -n 5 --batch --batch-frames 2 against python -m mcraw
     <clip> -n 5 --backend numpy: identical stdout, byte-identical audio.wav
-    and DNGs."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    torch_cmd = [sys.executable, "-m", "mcraw_torch"]
+    and DNGs. The four commands run at once (``run_all``)."""
+    cmds = {
+        "mcraw": ["mcraw", str(clip), "-n", "5", "--backend", "numpy"],
+        "mcraw_torch": ["mcraw_torch", str(clip), "-n", "5"],
+        "mcraw_torch decode": ["mcraw_torch", "decode", str(clip), "-n", "5"],
+        "mcraw_torch decode --batch": ["mcraw_torch", "decode", str(clip), "-n", "5",
+                                       "--batch", "--batch-frames", "2"],
+    }
+    cwds = {name: work / f"{clip.stem}_{name.replace(' ', '_')}" for name in cmds}
     runs = {}
-    for name, cmd in (
-        ("mcraw", [sys.executable, "-m", "mcraw", str(clip), "-n", "5",
-                   "--backend", "numpy"]),
-        ("mcraw_torch", [*torch_cmd, str(clip), "-n", "5"]),
-        ("mcraw_torch decode", [*torch_cmd, "decode", str(clip), "-n", "5"]),
-        ("mcraw_torch decode --batch", [*torch_cmd, "decode", str(clip), "-n", "5",
-                                        "--batch", "--batch-frames", "2"]),
-    ):
-        cwd = work / f"{clip.stem}_{name.replace(' ', '_')}"
-        cwd.mkdir()
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
-                             text=True, timeout=600)
-        runs[name] = (cwd, res, time.perf_counter() - t0)
+    for name, (res, secs) in run_all({k: (cmd, cwds[k]) for k, cmd in cmds.items()}).items():
         check(res.returncode == 0,
-              f"{' '.join(cmd[1:])} exited {res.returncode}: {res.stderr[-2000:]}")
+              f"{' '.join(cmds[name])} exited {res.returncode}: {res.stderr[-2000:]}")
+        runs[name] = (cwds[name], res, secs)
     b, rb, tb = runs.pop("mcraw")
     names = sorted(p.name for p in b.iterdir())
     check("audio.wav" in names and sum(n.endswith(".dng") for n in names) == 5,
@@ -925,6 +1049,132 @@ def phase_cli(clip: Path, work: Path) -> None:
             check(filecmp.cmp(a / n, b / n, shallow=False), f"{name}: {n} differs")
         emit("cli", clip=clip.name, command=name, files=names, identical=True,
              mcraw_torch_s=ta, mcraw_numpy_s=tb)
+
+
+KERNEL_NAMES = {6: "unpack_legacy_kernel", 7: "unpack_modern_kernel"}
+WRITING = re.compile(r"Writing (\S+?\.dng)")
+
+
+def run_all(runs: dict) -> dict:
+    """Run {name: (argv, cwd)} four at a time: {name: (result, seconds)}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+
+    def run(item):
+        name, (cmd, cwd) = item
+        cwd.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", *cmd], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=600)
+        return name, (res, time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(4) as pool:
+        return dict(pool.map(run, runs.items()))
+
+
+def trace_kernels(trace_dir: Path) -> list[str]:
+    """Names of the device kernel events of the one Chrome trace in
+    `trace_dir`."""
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"{trace_dir}: traces {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def phase_cli_export(clips: dict, corrupt: Path, work: Path) -> None:
+    """The rest of the CLI against ``python -m mcraw ... --backend numpy``
+    (mcraw's default for info and encode), each side a separate process:
+    info and verify [--quick] on each clip of `clips` ({path: codec}) and
+    on the corrupt clip (identical stdout and exit code); encode --codec 7
+    and 6 (byte-identical files); and per clip ``decode -n 5 --pipeline``
+    (the same Found line, the same multiset of Writing lines, an Exported
+    line, byte-identical audio.wav and DNGs) with --verbose (a stage_timing
+    event with parse, unpack and emit) and with --trace-dir T (the codec's
+    unpack kernel as a device kernel once per frame)."""
+    ref, mine = ("mcraw",), ("mcraw_torch",)
+    runs = {}
+    for clip in [*clips, corrupt]:
+        for what, args in (("info", ["info"]), ("verify", ["verify"]),
+                           ("verify --quick", ["verify", "--quick"])):
+            cwd = work / "cli_export" / clip.stem
+            runs[clip.stem, what, "mcraw"] = ([*ref, *args, str(clip)] + (
+                ["--backend", "numpy"] if what != "info" else []), cwd)
+            runs[clip.stem, what, "mcraw_torch"] = ([*mine, *args, str(clip)], cwd)
+    for codec in (7, 6):
+        args = ["encode", "out.mcraw", "--codec", str(codec), "--frames", "2", "--width",
+                "512", "--height", "64", "--seed", "5"]
+        for side in (ref, mine):
+            runs[f"codec{codec}", "encode", side[0]] = (
+                [*side, *args], work / "cli_export" / f"encode{codec}" / side[0])
+    for clip in clips:
+        base = ["decode", str(clip), "-n", "5", "--pipeline"]
+        pipe = work / "cli_export" / f"{clip.stem}_pipeline"
+        runs[clip.stem, "pipeline", "mcraw"] = ([*ref, *base, "--backend", "numpy"], pipe / "ref")
+        runs[clip.stem, "pipeline --verbose", "mcraw_torch"] = (
+            [*mine, *base, "--verbose"], pipe / "verbose")
+        runs[clip.stem, "pipeline --trace-dir", "mcraw_torch"] = (
+            [*mine, *base, "--trace-dir", "trace"], pipe / "trace")
+    t0 = time.perf_counter()
+    done = run_all(runs)
+    wall = time.perf_counter() - t0
+    for clip in [*clips, corrupt]:
+        for what in ("info", "verify", "verify --quick"):
+            (a, ta), (b, tb) = done[clip.stem, what, "mcraw_torch"], done[clip.stem, what, "mcraw"]
+            check(a.returncode == b.returncode and a.stdout == b.stdout,
+                  f"{what} {clip.name}: exit {a.returncode} / {b.returncode}\n{a.stdout}\n--\n"
+                  f"{b.stdout}\n{a.stderr[-2000:]}")
+            emit("cli", clip=clip.name, command=what, exit=a.returncode, identical=True,
+                 mcraw_torch_s=ta, mcraw_numpy_s=tb)
+    for codec in (7, 6):
+        (a, _), (b, _) = done[f"codec{codec}", "encode", "mcraw_torch"], done[
+            f"codec{codec}", "encode", "mcraw"]
+        files = [work / "cli_export" / f"encode{codec}" / side / "out.mcraw"
+                 for side in ("mcraw_torch", "mcraw")]
+        check(a.returncode == b.returncode == 0 and a.stdout == b.stdout
+              and filecmp.cmp(*files, shallow=False), f"encode --codec {codec} differs")
+        emit("cli", command=f"encode --codec {codec}", bytes=files[0].stat().st_size,
+             identical=True)
+    for clip, codec in clips.items():
+        pipe = work / "cli_export" / f"{clip.stem}_pipeline"
+        b, tb = done[clip.stem, "pipeline", "mcraw"]
+        check(b.returncode == 0, f"mcraw --pipeline {clip.name}: {b.stderr[-2000:]}")
+        names = sorted(p.name for p in (pipe / "ref").iterdir())
+        want = b.stdout.splitlines()
+        for what, cwd in (("pipeline --verbose", pipe / "verbose"),
+                          ("pipeline --trace-dir", pipe / "trace")):
+            a, ta = done[clip.stem, what, "mcraw_torch"]
+            got = a.stdout.splitlines()
+            check(a.returncode == 0, f"{what} {clip.name} exited {a.returncode}: "
+                  f"{a.stderr[-2000:]}")
+            # mcraw's writer threads print a line and its newline apart, so
+            # its lines may run together: compare the written paths.
+            check(got[0] == want[0] and len(got) == 7
+                  and all(ln.startswith("Writing ") for ln in got[1:-1])
+                  and Counter(WRITING.findall(a.stdout)) == Counter(WRITING.findall(b.stdout))
+                  and got[-1].startswith("Exported 5 frames in "),
+                  f"{what} {clip.name} stdout:\n{a.stdout}\n--\n{b.stdout}")
+            check(names == sorted(p.name for p in cwd.iterdir() if p.name != "trace"),
+                  f"{what} {clip.name}: output files differ")
+            for n in names:
+                check(filecmp.cmp(cwd / n, pipe / "ref" / n, shallow=False),
+                      f"{what} {clip.name}: {n} differs")
+            row = dict(clip=clip.name, command=f"decode -n 5 {what}", files=names,
+                       identical=True, writing_order=[ln.split()[-1] for ln in got[1:-1]],
+                       mcraw_torch_s=ta, mcraw_numpy_s=tb)
+            if what == "pipeline --verbose":
+                timing = [json.loads(ln) for ln in a.stderr.splitlines()
+                          if ln.startswith('{"event": "stage_timing"')]
+                check(len(timing) == 1 and {"parse", "unpack", "emit"} <= set(timing[0])
+                      and timing[0]["emit"]["count"] == 5,
+                      f"--verbose {clip.name}: stage_timing {timing}\n{a.stderr[-2000:]}")
+                row["stage_timing"] = timing[0]
+            else:
+                kernels = trace_kernels(cwd / "trace")
+                found = {c: sum(KERNEL_NAMES[c] in k for k in kernels) for c in KERNEL_NAMES}
+                check(found == {c: 5 if c == codec else 0 for c in KERNEL_NAMES},
+                      f"--trace-dir {clip.name}: unpack kernels {found} in {Counter(kernels)}")
+                row["trace_kernels"] = dict(Counter(kernels))
+            emit("cli", **row)
+    emit("cli_export", commands=len(runs), wall_s=wall, parallel=4)
 
 
 def phase_cli_preview(clip: Path, work: Path, model: DevelopModel) -> None:
@@ -1031,8 +1281,9 @@ def phase_times(payload: np.ndarray, card: str) -> dict:
          payload_bytes=len(payload), **t)
 
     # stage_ms: the host prep into a kept staging and its one H2D; h2d_ms:
-    # that H2D again, alone. load_frame_device_ms: the whole single-frame
-    # decode through a staging kept as a Decoder keeps its own.
+    # that H2D again, alone. load_frame_device_ms: the Decoder's
+    # single-frame decode (decode_modern_frame, without the container
+    # read) through a staging kept as a Decoder keeps its own.
     split = {"stage_ms": [], "h2d_ms": [], "device_prep_ms": [], "kernel_ms": [],
              "load_frame_device_ms": []}
     staging, kept = Staging(DEV), Staging(DEV)
@@ -1052,7 +1303,7 @@ def phase_times(payload: np.ndarray, card: str) -> dict:
         U.decode_modern_device(dv.words, dv.bits, dv.refs, of, **kw)
         torch.cuda.synchronize()
         t4 = clock()
-        mcraw_torch.pipeline.decode_modern_frame(payload, W, H, kept)
+        U.decode_modern_frame(payload, W, H, kept)
         torch.cuda.synchronize()
         t5 = clock()
         for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
@@ -1080,7 +1331,8 @@ def phase_times_legacy(payload: np.ndarray, card: str) -> dict:
          kernel_bytes=moved, kernel_gbps=moved / t["unpack_legacy_ms"] / 1e6, **t)
 
     # host_scan_ms: the scan alone, into new arrays; the staging's host prep
-    # runs the same scan into its rows.
+    # runs the same scan into its rows. load_frame_device_ms: the Decoder's
+    # single-frame decode (decode_legacy, without the container read).
     split = {"host_scan_ms": [], "stage_ms": [], "h2d_ms": [], "kernel_ms": [],
              "load_frame_device_ms": []}
     staging, kept = Staging(DEV), Staging(DEV)
@@ -1260,6 +1512,110 @@ def phase_times_develop(clip: Path, card: str) -> dict:
     return t
 
 
+def device_busy(trace_dir: Path, wall_s: float) -> dict:
+    """From the Chrome trace in `trace_dir`: the union of the device's
+    kernel, memcpy and memset intervals over `wall_s` (the busy share), and
+    the sum of each kind's durations."""
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"{trace_dir}: traces {traces}")
+    device = [e for e in json.loads(traces[0].read_text())["traceEvents"]
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    sums = Counter()
+    for e in device:
+        sums[e["cat"] + "_ms"] += e["dur"] / 1e3
+    check(sums["kernel_ms"] > 0, f"{trace_dir}: no device kernel in the trace")
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return {"busy_ms": busy_us / 1e3, "wall_ms": wall_s * 1e3,
+            "busy_share": busy_us / 1e6 / wall_s, **sums}
+
+
+# Frames of the timed exports: 8 frames are in flight (prefetch + writers),
+# so a 64-frame export is mostly steady state, not the pipeline's fill and
+# drain. The sequential loop has no fill: its first frames give its rate.
+EXPORT_FRAMES = 64
+SEQUENTIAL_FRAMES = 10
+
+
+def long_clip(src: Path, dst: Path, frames: int) -> None:
+    """A clip of `frames` frames, those of `src` repeated in order (33 ms
+    apart), with its container JSON, its frame JSON and no audio."""
+    reader = mcraw_torch.ContainerReader(str(src))
+    items = [reader.frame_payload(ts) for ts in reader.frames]
+    writer = E.ContainerWriter(reader.container_metadata)
+    for i in range(frames):
+        payload, meta = items[i % len(items)]
+        writer.add_frame(1000 + 33 * i, np.asarray(payload).tobytes(), meta)
+    reader.close()
+    dst.write_bytes(writer.finish())
+
+
+def phase_times_export(clips: dict, card: str, work: Path) -> None:
+    """Per 4K clip, its frames repeated to EXPORT_FRAMES, in 2 turns:
+    export_clip (prefetch=4, writers=4) wall and fps, beside the sequential
+    decode loop (load_frame and write_dng per frame, what ``decode`` does)
+    over the first SEQUENTIAL_FRAMES frames of the same clip; the median
+    stage_timing split; the Stagings the export laid out (each one's first
+    frame is cold: new host and device buffers); then one export under
+    device_trace: its fps and the device busy share."""
+    clock = time.perf_counter
+    out = work / "times_export"
+    for clip in clips:
+        long = work / f"{clip.stem}_long.mcraw"
+        long_clip(clip, long, EXPORT_FRAMES)
+        rows = {"export_s": [], "sequential_s": []}
+        with mcraw_torch.Decoder(str(long), device="cuda") as d:
+            frames, cm = d.frames, d.container_metadata
+            timings, stagings = [], []
+            for _ in range(2):
+                with staging_threads() as users:
+                    torch.cuda.synchronize()
+                    t0 = clock()
+                    stats = export_clip(d, str(out), prefetch=4, writers=4)
+                    t1 = clock()
+                check(stats.frames_done == len(frames),
+                      f"{long.name} export: {stats.frames_done} done, {stats.errors}")
+                shutil.rmtree(out)
+                out.mkdir()
+                t2 = clock()
+                for i, ts in enumerate(frames[:SEQUENTIAL_FRAMES]):
+                    img, meta = d.load_frame(ts)
+                    write_dng(str(out / f"frame_{i:06d}.dng"), img, meta, cm)
+                t3 = clock()
+                shutil.rmtree(out)
+                rows["export_s"].append(t1 - t0)
+                rows["sequential_s"].append(t3 - t2)
+                timings.append(stats.stage_timing)
+                stagings.append(len(users))
+            torch.cuda.synchronize()
+            with device_trace(str(work / "busy_trace"), DEV):
+                t0 = clock()
+                stats = export_clip(d, str(out), prefetch=4, writers=4)
+                torch.cuda.synchronize()
+                wall = clock() - t0
+            shutil.rmtree(out)
+        long.unlink()
+        n = len(frames)
+        med = {k: statistics.median(v) for k, v in rows.items()}
+        split = {stage: statistics.median(t[stage]["seconds"] for t in timings) * 1e3 / n
+                 for stage in ("parse", "unpack", "emit")}
+        emit("times_export", card=card, clip=long.name, frames=n,
+             frame=f"{W}x{H}, {clip.name}'s frames repeated", turns=2, clock="host",
+             export_s=rows["export_s"], sequential_s=rows["sequential_s"],
+             sequential_frames=SEQUENTIAL_FRAMES, export_fps=n / med["export_s"],
+             sequential_fps=SEQUENTIAL_FRAMES / med["sequential_s"],
+             export_per_frame_ms=med["export_s"] * 1e3 / n,
+             sequential_per_frame_ms=med["sequential_s"] * 1e3 / SEQUENTIAL_FRAMES,
+             stage_ms_per_frame=split, stage_note="summed over the threads",
+             cold_staging_frames=stagings, cold_staging_share=max(stagings) / n)
+        emit("times_export_trace", card=card, clip=long.name, frames=n,
+             traced_export_fps=n / wall, **device_busy(work / "busy_trace", wall))
+        shutil.rmtree(work / "busy_trace")
+
+
 # Every TPU kernel of the repo (each function that reaches pl.pallas_call)
 # and the CUDA kernel that computes it: (name, TPU kernel, CUDA kernel).
 TPU_KERNELS = (
@@ -1348,12 +1704,19 @@ def main() -> None:
             paths += [phase_batch_path(name, path, src, kernel, p) for p in batch_paths]
         model = DevelopModel(dimgs, dcm)
         paths.append(phase_develop_path(develop, model))
+        paths += [phase_export_path(clip.name, clip, imgs, "unpack_modern", work),
+                  phase_export_path(legacy.name, legacy, limgs, "unpack_legacy", work)]
+        corrupt = work / "corrupt.mcraw"
+        make_corrupt_clip(corrupt)
+        paths.append(phase_export_corrupt(corrupt, work))
         phase_cli(clip, work)
         phase_cli(legacy, work)
+        phase_cli_export({clip: 7, legacy: 6}, corrupt, work)
         phase_cli_preview(develop, work, model)
         emit("f64_model", calls=len(model._cache), seconds=model.seconds)
         t = (phase_times(payloads[0], card) | phase_times_legacy(lpayloads[0], card)
              | phase_times_develop(develop, card) | phase_times_batch(clip, legacy, card))
+        phase_times_export((clip, legacy), card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")

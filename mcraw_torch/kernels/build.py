@@ -36,6 +36,10 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib = None
 
+# Guards the wrappers' KERNEL_LAUNCHES / PLAIN_CALLS increments: export
+# workers launch from several threads, and `x += 1` is a read-modify-write.
+COUNTER_LOCK = threading.Lock()
+
 
 def _sources(csrc: Path = CSRC) -> list[Path]:
     return sorted(csrc.glob("*.cu"))

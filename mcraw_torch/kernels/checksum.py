@@ -32,7 +32,8 @@ def checksum_plain(x: torch.Tensor) -> torch.Tensor:
     for any integer dtype (negative values count as their two's
     complement, as numpy's ``astype(np.int64).sum() & 0xFFFFFFFF``)."""
     global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    with build.COUNTER_LOCK:
+        PLAIN_CALLS += 1
     _check(x)
     # The int64 sum is exact mod 2^64 (it wraps), so its low 32 bits are
     # the uint32 sum.
@@ -77,5 +78,6 @@ def device_checksum(x: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mcraw_checksum(x.data_ptr(), x.numel(), elem_bytes, out.data_ptr(), stream)
     build.check(err, "mcraw_checksum")
-    KERNEL_LAUNCHES += 1
+    with build.COUNTER_LOCK:
+        KERNEL_LAUNCHES += 1
     return out

@@ -235,7 +235,8 @@ def develop_rgba_plain(
     are torch's, so kernel and plain version may still differ by one LSB at
     a rounding boundary."""
     global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    with build.COUNTER_LOCK:
+        PLAIN_CALLS += 1
     _check(raw, cfa, demosaic)
     cfa = tuple(int(c) for c in cfa)
     p = [float(v) for v in _params_row(params)[:N_PARAMS]]
@@ -333,5 +334,6 @@ def develop_rgba_device(
             DEMOSAICS.index(demosaic), stream,
         )
     build.check(err, "mcraw_develop")
-    KERNEL_LAUNCHES += 1
+    with build.COUNTER_LOCK:
+        KERNEL_LAUNCHES += 1
     return out

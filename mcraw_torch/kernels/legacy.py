@@ -3,16 +3,20 @@
 The frame's path, as in the JAX package's single-frame device path
 (``pallas_legacy.prepare_legacy_light`` + ``decode_legacy_device_v6``):
 
-1. :func:`stage_legacy` (host, then one H2D): walk the inline 2-byte
-   header chain with the scan ladder of the JAX package's
-   ``unpack.prepare_legacy`` (C++ via :mod:`mcraw_torch.kernels.native`), which
-   writes every block's bits, reference and payload offset straight into
-   a :class:`~mcraw_torch.kernels.staging.Staging`, beside the payload and
-   its zeroed tail, and send them.
+1. :func:`prepare_legacy` (host): walk the inline 2-byte header chain
+   with the scan ladder of the JAX package's ``unpack.prepare_legacy`` (C++
+   via :mod:`mcraw_torch.kernels.native`), which writes every block's bits,
+   reference and payload offset straight into a
+   :class:`~mcraw_torch.kernels.staging.Staging`, beside the payload and
+   its zeroed tail; the upload it returns sends them in one H2D
+   (:func:`stage_legacy` is both).
 2. :func:`decode_legacy_device`: the hand-written CUDA kernel
    (``csrc/unpack_legacy.cu``) unpacks every block's MSB-first bitstream,
    adds its reference and writes the even/odd-interleaved rows of the
    (height, width) uint16 plane.
+
+:func:`unpack_legacy` is step 2 of a staged frame, and
+:func:`decode_legacy` both steps: the Decoder's single-frame path.
 
 :func:`decode_legacy_plain` is the same function in plain torch, driven by
 the byte-field tables. The wrapper takes it only for tensors on the CPU; a
@@ -27,7 +31,7 @@ of its output is exactly what the single-frame path gives for frame f.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -106,9 +110,17 @@ class DeviceLegacyBatch(NamedTuple):
 
 def stage_legacy_batch(staging: Staging, payloads, width: int, height: int
                        ) -> DeviceLegacyBatch:
-    """The batch's inputs laid out in `staging` and sent in one H2D: each
-    payload straight into its 16-byte aligned slot, followed by its zeroed
-    tail; each frame's :func:`scan_chain` straight into its rows."""
+    """:func:`prepare_legacy_batch`, then the batch's inputs sent in one
+    H2D."""
+    prepare_legacy_batch(staging, payloads, width, height)
+    return DeviceLegacyBatch(*staging.upload())
+
+
+def prepare_legacy_batch(staging: Staging, payloads, width: int, height: int) -> None:
+    """The host prep of a batch: its inputs laid out in `staging`, not yet
+    sent: each payload straight into its 16-byte aligned slot, followed by
+    its zeroed tail; each frame's :func:`scan_chain` straight into its
+    rows."""
     payloads = [np.asarray(p, dtype=np.uint8) for p in payloads]
     if not payloads:
         raise ValueError("a batch needs at least one frame")
@@ -124,15 +136,27 @@ def stage_legacy_batch(staging: Staging, payloads, width: int, height: int
         buf[lo + len(p) : lo + size] = 0
     bases[:] = starts
     lengths[:] = [len(p) + TAIL_BYTES for p in payloads]
-    return DeviceLegacyBatch(*staging.upload())
+
+
+def prepare_legacy(staging: Staging, payload, width: int, height: int
+                   ) -> Callable[[], DeviceLegacyFrame]:
+    """The host prep of one frame, the batch of one of
+    :func:`prepare_legacy_batch`; returns its upload: a call that sends the
+    inputs in one H2D and gives them on the device."""
+    prepare_legacy_batch(staging, [payload], width, height)
+    n = len(payload)
+
+    def upload() -> DeviceLegacyFrame:
+        buf, _bases, _lengths, bits, refs, offsets = staging.upload()
+        return DeviceLegacyFrame(buf[: n + TAIL_BYTES], bits[0], refs[0], offsets[0])
+
+    return upload
 
 
 def stage_legacy(staging: Staging, payload, width: int, height: int) -> DeviceLegacyFrame:
-    """One frame's inputs on the device: the batch of one of
-    :func:`stage_legacy_batch`."""
-    b = stage_legacy_batch(staging, [payload], width, height)
-    return DeviceLegacyFrame(b.payload[: len(payload) + TAIL_BYTES], b.bits[0], b.refs[0],
-                             b.offsets[0])
+    """One frame's inputs on the device: :func:`prepare_legacy`, then its
+    upload."""
+    return prepare_legacy(staging, payload, width, height)()
 
 
 def _check_inputs(payload, bits, refs, offsets, nblk: int) -> None:
@@ -191,7 +215,8 @@ def decode_legacy_plain(
     int64, since CPU uint16 tensors support neither ``>>`` nor ``+``, and
     casts at the end."""
     global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    with build.COUNTER_LOCK:
+        PLAIN_CALLS += 1
     _check_inputs(payload, bits, refs, offsets, num_blocks(width, height))
     out = torch.empty((height, width), dtype=torch.uint16, device=payload.device)
     _plain_into(out, payload, bits, refs, offsets,
@@ -235,7 +260,8 @@ def decode_legacy_device(
             out.data_ptr(), height, width, R.legacy_padded_width(width), stream,
         )
     build.check(err, "mcraw_unpack_legacy")
-    KERNEL_LAUNCHES += 1
+    with build.COUNTER_LOCK:
+        KERNEL_LAUNCHES += 1
     return out
 
 
@@ -263,7 +289,8 @@ def decode_legacy_batch_plain(
     lengths[f]] (clamped to the buffer) and row f of bits, refs and
     offsets; stacked into (F, height, width)."""
     global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    with build.COUNTER_LOCK:
+        PLAIN_CALLS += 1
     frames = _check_legacy_batch(payload, bases, lengths, bits, refs, offsets,
                                  num_blocks(width, height))
     out = torch.empty((frames, height, width), dtype=torch.uint16, device=payload.device)
@@ -314,16 +341,22 @@ def decode_legacy_batch_device(
             out.data_ptr(), height, width, R.legacy_padded_width(width), stream,
         )
     build.check(err, "mcraw_unpack_legacy_batch")
-    KERNEL_LAUNCHES += 1
+    with build.COUNTER_LOCK:
+        KERNEL_LAUNCHES += 1
     return out
+
+
+def unpack_legacy(frame: DeviceLegacyFrame, width: int, height: int) -> torch.Tensor:
+    """The launch of one staged frame: (height, width) uint16."""
+    return decode_legacy_device(*frame, height=height, width=width)
 
 
 def decode_legacy(payload: np.ndarray, width: int, height: int, staging: Staging
                   ) -> torch.Tensor:
-    """One legacy payload -> (height, width) uint16 on the staging's
-    device."""
-    dev = stage_legacy(staging, payload, width, height)
-    return decode_legacy_device(*dev, height=height, width=width)
+    """One legacy payload -> (height, width) uint16 on the staging's device:
+    the Decoder's single-frame path, :func:`stage_legacy` then
+    :func:`unpack_legacy`."""
+    return unpack_legacy(stage_legacy(staging, payload, width, height), width, height)
 
 
 def decode_legacy_batch(payloads, width: int, height: int, staging: Staging) -> torch.Tensor:

@@ -161,16 +161,18 @@ _SCAN_POOL = None
 
 def _scan_pool():
     """Shared scan thread pool: create/shutdown per call measured ~11 ms,
-    more than the 4K serial scan itself."""
+    more than the 4K serial scan itself. Made once under the lock: export
+    workers scan from several threads at once."""
     global _SCAN_POOL
-    if _SCAN_POOL is None:
-        from concurrent.futures import ThreadPoolExecutor
+    with _lock:
+        if _SCAN_POOL is None:
+            from concurrent.futures import ThreadPoolExecutor
 
-        _SCAN_POOL = ThreadPoolExecutor(
-            max_workers=min(16, os.cpu_count() or 1),
-            thread_name_prefix="mcraw-scan",
-        )
-    return _SCAN_POOL
+            _SCAN_POOL = ThreadPoolExecutor(
+                max_workers=min(16, os.cpu_count() or 1),
+                thread_name_prefix="mcraw-scan",
+            )
+        return _SCAN_POOL
 
 
 def legacy_scan_parallel(

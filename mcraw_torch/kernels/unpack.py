@@ -3,16 +3,21 @@
 The frame's path, as in the JAX package's single-frame device path
 (``pallas_unpack.prepare_modern_light`` + ``decode_modern_device_v6``):
 
-1. :func:`stage_modern` (host, then one H2D): read and validate the
-   16-byte header, run the two serial metadata-stream scans (C++ via
+1. :func:`prepare_modern` (host): read and validate the 16-byte header,
+   run the two serial metadata-stream scans (C++ via
    :mod:`mcraw_torch.kernels.native`), lay the payload and the streams out
-   in a :class:`~mcraw_torch.kernels.staging.Staging` and send them.
+   in a :class:`~mcraw_torch.kernels.staging.Staging`; the upload it
+   returns sends them in one H2D (:func:`stage_modern` is both).
 2. :func:`block_offsets` (device): clamp each block's bit width to 16, map
    it to a byte length, and take ``16 + exclusive prefix sum`` as an int64
    ``torch.cumsum``.
 3. :func:`decode_modern_device`: the hand-written CUDA kernel
    (``csrc/unpack_modern.cu``) unpacks every block, adds its reference and
    writes Bayer-de-interleaved rows of the (height, width) uint16 plane.
+
+:func:`unpack_modern` is steps 2 and 3 of a staged frame, and
+:func:`decode_modern_frame` the three steps: the Decoder's single-frame
+path.
 
 :func:`decode_modern_plain` is the same function in plain torch. The wrapper
 takes it only for tensors on the CPU; a CUDA tensor goes to the kernel or
@@ -29,7 +34,7 @@ path gives for frame f.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -112,10 +117,19 @@ class DeviceBatch(NamedTuple):
 
 
 def stage_modern_batch(staging: Staging, payloads, width: int, height: int) -> DeviceBatch:
-    """:func:`scan_modern` of each payload, then the batch's inputs laid
-    out in `staging` (each payload straight into its 16-byte aligned slot,
-    followed by a zeroed tail of TAIL_BYTES) and sent in one H2D. Frames
-    whose encoded geometry (tiles_y, tiles_x) differs raise ValueError."""
+    """:func:`prepare_modern_batch`, then the batch's inputs sent in one
+    H2D."""
+    tiles = prepare_modern_batch(staging, payloads, width, height)
+    return DeviceBatch(*staging.upload(), *tiles)
+
+
+def prepare_modern_batch(staging: Staging, payloads, width: int, height: int
+                         ) -> tuple[int, int]:
+    """The host prep of a batch: :func:`scan_modern` of each payload, then
+    the batch's inputs laid out in `staging` (each payload straight into its
+    16-byte aligned slot, followed by a zeroed tail of TAIL_BYTES), not yet
+    sent; the (tiles_y, tiles_x) they share. Frames whose encoded geometry
+    differs raise ValueError."""
     payloads = [np.asarray(p, dtype=np.uint8) for p in payloads]
     if not payloads:
         raise ValueError("a batch needs at least one frame")
@@ -137,14 +151,53 @@ def stage_modern_batch(staging: Staging, payloads, width: int, height: int) -> D
         buf[lo + sc.n : lo + size] = 0
         bits[f], refs[f] = sc.bits, sc.refs
     bases[:], lengths[:] = starts // 4, np.asarray(sizes) // 4
-    return DeviceBatch(*staging.upload(), scans[0].tiles_y, scans[0].tiles_x)
+    return scans[0].tiles_y, scans[0].tiles_x
+
+
+def prepare_modern(staging: Staging, payload, width: int, height: int
+                   ) -> Callable[[], DeviceFrame]:
+    """The host prep of one frame, the batch of one of
+    :func:`prepare_modern_batch`; returns its upload: a call that sends the
+    inputs in one H2D and gives them on the device."""
+    tiles = prepare_modern_batch(staging, [payload], width, height)
+
+    def upload() -> DeviceFrame:
+        words, _bases, _lengths, bits, refs = staging.upload()
+        return DeviceFrame(words, bits[0], refs[0], *tiles)
+
+    return upload
 
 
 def stage_modern(staging: Staging, payload, width: int, height: int) -> DeviceFrame:
-    """One frame's inputs on the device: the batch of one of
-    :func:`stage_modern_batch`."""
-    b = stage_modern_batch(staging, [payload], width, height)
-    return DeviceFrame(b.words, b.bits[0], b.refs[0], b.tiles_y, b.tiles_x)
+    """One frame's inputs on the device: :func:`prepare_modern`, then its
+    upload."""
+    return prepare_modern(staging, payload, width, height)()
+
+
+def unpack_modern(frame: DeviceFrame, width: int, height: int) -> torch.Tensor:
+    """The device prep and the launch of one staged frame: (height, width)
+    uint16."""
+    offsets = block_offsets(frame.bits, modern_tables(frame.words.device))
+    return decode_modern_device(frame.words, frame.bits, frame.refs, offsets,
+                                ty=frame.tiles_y, tx=frame.tiles_x, height=height, width=width)
+
+
+def decode_modern_frame(payload, width: int, height: int, staging: Staging) -> torch.Tensor:
+    """One modern payload -> (height, width) uint16 on the staging's device:
+    the Decoder's single-frame path, :func:`stage_modern` then
+    :func:`unpack_modern`."""
+    return unpack_modern(stage_modern(staging, payload, width, height), width, height)
+
+
+def decode_modern_batch(payloads, width: int, height: int, staging: Staging) -> torch.Tensor:
+    """F modern payloads of one geometry -> (F, height, width) uint16 on
+    the staging's device, in one launch."""
+    dev = stage_modern_batch(staging, payloads, width, height)
+    offsets = block_offsets(dev.bits, modern_tables(staging.device))
+    return decode_modern_batch_device(
+        dev.words, dev.bases, dev.lengths, dev.bits, dev.refs, offsets,
+        ty=dev.tiles_y, tx=dev.tiles_x, height=height, width=width,
+    )
 
 
 def block_offsets(bits: torch.Tensor, tables: ModernTables) -> torch.Tensor:
@@ -237,7 +290,8 @@ def decode_modern_plain(
     int64, since CPU uint16 tensors support neither ``>>`` nor ``+``, and
     casts at the end (int -> uint16 wraps mod 2^16)."""
     global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    with build.COUNTER_LOCK:
+        PLAIN_CALLS += 1
     _check_inputs(words, bits, refs, offsets, ty, tx)
     out = _output(height, width, ty, words.device)
     _plain_into(out, words, bits, refs, offsets, ty=ty, tx=tx)
@@ -287,7 +341,8 @@ def decode_modern_device(
             out.data_ptr(), tx, launch.tiles, launch.rows, width, stream,
         )
     build.check(err, "mcraw_unpack_modern")
-    KERNEL_LAUNCHES += 1
+    with build.COUNTER_LOCK:
+        KERNEL_LAUNCHES += 1
     return out
 
 
@@ -317,7 +372,8 @@ def decode_modern_batch_plain(
     (clamped to the buffer) and row f of bits, refs and offsets; stacked
     into (F, height, width)."""
     global PLAIN_CALLS
-    PLAIN_CALLS += 1
+    with build.COUNTER_LOCK:
+        PLAIN_CALLS += 1
     frames = _check_modern_batch(words, bases, lengths, bits, refs, offsets, ty, tx)
     out = _output(height, width, ty, words.device, frames)
     for f, (lo, hi) in enumerate(frame_spans(bases, lengths, words.numel())):
@@ -372,5 +428,6 @@ def decode_modern_batch_device(
             height * width, tx, launch.tiles, launch.rows, width, stream,
         )
     build.check(err, "mcraw_unpack_modern_batch")
-    KERNEL_LAUNCHES += 1
+    with build.COUNTER_LOCK:
+        KERNEL_LAUNCHES += 1
     return out

@@ -9,6 +9,7 @@
     for imgs, metas in d.decode_batch_iter(chunk_frames=16): ...
     fd = d.make_frame_decoder(); img, meta = fd(ts)  # one staging per geometry
     d.load_audio() / d.audio_chunks() / d.load_audio_stream()
+    d.timer = observe.StageTimer()  # "parse" / "unpack" of single frames
 
 Modern-codec (compressionType 7) frames decode through
 :mod:`mcraw_torch.kernels.unpack` (host scans, upload, device prep, the CUDA
@@ -35,9 +36,7 @@ from .container import COMPRESSION_TYPE, COMPRESSION_TYPE_LEGACY, ContainerReade
 from .errors import DecodeError, IOException, MotionCamException
 from .kernels import legacy as L
 from .kernels import unpack as U
-from .kernels.legacy import decode_legacy as decode_legacy_frame
 from .kernels.staging import SHARE_GEOMETRY, Staging
-from .kernels.tables import modern_tables
 from .metadata import ContainerMetadata, FrameMetadata
 
 AudioChunk = tuple[int, np.ndarray]  # (timestampNs or -1, interleaved int16)
@@ -90,28 +89,10 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
-def decode_modern_frame(
-    payload: np.ndarray, width: int, height: int, staging: Staging
-) -> torch.Tensor:
-    """One modern payload -> (height, width) uint16 on the staging's
-    device."""
-    dev = U.stage_modern(staging, payload, width, height)
-    offsets = U.block_offsets(dev.bits, modern_tables(staging.device))
-    return U.decode_modern_device(
-        dev.words, dev.bits, dev.refs, offsets,
-        ty=dev.tiles_y, tx=dev.tiles_x, height=height, width=width,
-    )
-
-
-def decode_modern_batch(payloads, width: int, height: int, staging: Staging) -> torch.Tensor:
-    """F modern payloads of one geometry -> (F, height, width) uint16 on
-    the staging's device, in one launch."""
-    dev = U.stage_modern_batch(staging, payloads, width, height)
-    offsets = U.block_offsets(dev.bits, modern_tables(staging.device))
-    return U.decode_modern_batch_device(
-        dev.words, dev.bases, dev.lengths, dev.bits, dev.refs, offsets,
-        ty=dev.tiles_y, tx=dev.tiles_x, height=height, width=width,
-    )
+# Per codec (modern?): the host prep of one frame, which returns its upload,
+# and the device prep and launch of the staged frame.
+_SINGLE_FRAME = {True: (U.prepare_modern, U.unpack_modern),
+                 False: (L.prepare_legacy, L.unpack_legacy)}
 
 
 class Decoder:
@@ -122,6 +103,15 @@ class Decoder:
         self._reader = ContainerReader(source)
         self._staging = Staging(self._device)
         self._audio_loader: AudioChunkLoader | None = None
+        # Optional observe.StageTimer; when set, the single-frame paths
+        # attribute their "parse" and "unpack" stages to it (export_clip
+        # attaches one).
+        self.timer = None
+
+    def _stage(self, name: str):
+        if self.timer is None:
+            return contextlib.nullcontext()
+        return self.timer.stage(name)
 
     @property
     def device(self) -> torch.device:
@@ -172,15 +162,24 @@ class Decoder:
     def load_frame_device(self, timestamp: int) -> tuple[torch.Tensor, dict]:
         """Decode one frame; the (H, W) torch.uint16 result stays on the
         decoder's device."""
-        payload, meta, fm, modern = self._checked_frame(timestamp)
-        return self._decode_frame(payload, fm, modern, self._staging), meta
+        return self._decode_frame(timestamp, lambda fm: self._staging)
 
-    def _decode_frame(self, payload, fm: FrameMetadata, modern: bool,
-                      staging: Staging) -> torch.Tensor:
-        """One checked frame through `staging`: (H, W) uint16 on the device."""
-        decode = decode_modern_frame if modern else decode_legacy_frame
-        with _uncompress_error_text(modern):
-            return decode(payload, fm.width, fm.height, staging)
+    def _decode_frame(self, timestamp: int, staging_for) -> tuple[torch.Tensor, dict]:
+        """One frame through the Staging `staging_for(FrameMetadata)` gives:
+        ((H, W) uint16 on the device, frame JSON).
+
+        Stages, when :attr:`timer` is set: "parse" is the container read,
+        the frame JSON, the checks and the host prep into the staging;
+        "unpack" is the H2D, the device prep and the launch. Both are host
+        clocks: on a card "unpack" ends when the launch is queued, not when
+        the kernel has run."""
+        with self._stage("parse"):
+            payload, meta, fm, modern = self._checked_frame(timestamp)
+            prepare, unpack = _SINGLE_FRAME[modern]
+            with _uncompress_error_text(modern):
+                upload = prepare(staging_for(fm), payload, fm.width, fm.height)
+        with self._stage("unpack"), _uncompress_error_text(modern):
+            return unpack(upload(), fm.width, fm.height), meta
 
     def _checked_frame(self, timestamp: int):
         """(payload, frame JSON, FrameMetadata, modern) of one frame, its
@@ -216,7 +215,7 @@ class Decoder:
         if len({(fm.width, fm.height) for _, _, fm, _ in frames}) > 1:
             raise ValueError(SHARE_GEOMETRY)
         _, _, fm, modern = frames[0]
-        decode = decode_modern_batch if modern else L.decode_legacy_batch
+        decode = U.decode_modern_batch if modern else L.decode_legacy_batch
         with _uncompress_error_text(modern):
             imgs = decode([p for p, *_ in frames], fm.width, fm.height, self._staging)
         return imgs, [meta for _, meta, *_ in frames]
@@ -337,7 +336,8 @@ class FrameDecoder:
     device input buffers grow to the key's largest frame. Each call is
     :meth:`Decoder.load_frame_device`'s path through the key's buffers: the
     host prep, one H2D, the device prep and one launch of the codec's
-    kernel. A homogeneous clip has one key."""
+    kernel, its stages attributed to the decoder's :attr:`Decoder.timer`.
+    A homogeneous clip has one key."""
 
     def __init__(self, decoder: Decoder):
         self._d = decoder
@@ -348,8 +348,10 @@ class FrameDecoder:
         return len(self._programs)
 
     def __call__(self, timestamp: int) -> tuple[torch.Tensor, dict]:
-        payload, meta, fm, modern = self._d._checked_frame(timestamp)
+        return self._d._decode_frame(timestamp, self._staging)
+
+    def _staging(self, fm: FrameMetadata) -> Staging:
         key = (fm.compression_type, fm.width, fm.height)
         if key not in self._programs:
             self._programs[key] = Staging(self._d.device)
-        return self._d._decode_frame(payload, fm, modern, self._programs[key]), meta
+        return self._programs[key]

@@ -36,7 +36,7 @@ from mcraw_torch.kernels import staging as S
 from mcraw_torch.kernels import unpack as U
 from mcraw_torch.kernels.staging import Staging
 from mcraw_torch.kernels.tables import modern_tables
-from mcraw_torch.pipeline import decode_modern_batch
+from mcraw_torch.kernels.unpack import decode_modern_batch
 
 CPU = torch.device("cpu")
 
@@ -553,7 +553,7 @@ def test_codecs_equal_mcraw(shape):
     for enc, mine, ref in ((E.encode_modern, mcraw_torch.decode_modern, mcraw.decode_modern),
                            (E.encode_legacy, mcraw_torch.decode_legacy, mcraw.decode_legacy)):
         payload = np.frombuffer(enc(img), np.uint8)
-        got = mine(payload, w, h)
+        got = mine(payload, w, h, device="cpu")
         assert isinstance(got, np.ndarray) and got.dtype == np.uint16
         assert np.array_equal(got, ref(payload, w, h)) and np.array_equal(got, img)
 
@@ -569,9 +569,49 @@ def test_codecs_reject_what_mcraw_rejects(codec, cut):
     with pytest.raises(JX.DecodeError) as want:
         ref(payload, 128, 8)
     with pytest.raises(DecodeError) as got:
-        mine(payload, 128, 8)
+        mine(payload, 128, 8, device="cpu")
     if codec == 7:  # the legacy texts are the native scan's, as in load_frame
         assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("codec", [7, 6])
+def test_codecs_run_on_the_card_by_default(monkeypatch, codec):
+    """Without device=..., the codecs ask for the card: with none they raise
+    the "no CUDA device" MotionCamException (no CPU fallback)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.random.default_rng(4).integers(0, 4096, size=(8, 128), dtype=np.uint16)
+    enc, mine = ((E.encode_modern, mcraw_torch.decode_modern) if codec == 7
+                 else (E.encode_legacy, mcraw_torch.decode_legacy))
+    payload = np.frombuffer(enc(img), np.uint8)
+    with pytest.raises(mcraw_torch.MotionCamException, match="no CUDA device"):
+        mine(payload, 128, 8)
+    assert np.array_equal(mine(payload, 128, 8, device="cpu"), img)
+
+
+def test_codecs_keep_one_staging_per_device(monkeypatch):
+    """The codecs keep one Staging per device, not a new one a call, and
+    calls from several threads at once each get their own frame back."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mcraw_torch import codecs
+
+    made = []
+    monkeypatch.setattr(codecs, "_STAGINGS", {})
+    monkeypatch.setattr(codecs, "Staging", lambda dev: made.append(Staging(dev)) or made[-1])
+    rng = np.random.default_rng(5)
+    imgs = [rng.integers(0, 4096, size=(8 + 4 * (i % 3), 128 + 64 * (i % 2)), dtype=np.uint16)
+            for i in range(12)]
+
+    def run(i):
+        enc, dec = ((E.encode_modern, mcraw_torch.decode_modern) if i % 2
+                    else (E.encode_legacy, mcraw_torch.decode_legacy))
+        h, w = imgs[i].shape
+        return dec(np.frombuffer(enc(imgs[i]), np.uint8), w, h, device="cpu")
+
+    with ThreadPoolExecutor(4) as pool:
+        outs = list(pool.map(run, range(len(imgs))))
+    assert all(np.array_equal(out, img) for out, img in zip(outs, imgs, strict=True))
+    assert len(made) == 1 and codecs._STAGINGS == {CPU: made[0]}
 
 
 def test_exports_equal_mcraw():

@@ -1,10 +1,15 @@
 """python -m mcraw_torch against python -m mcraw --backend numpy: identical
 stdout, byte-identical audio.wav and DNGs, the reference's argv edges, and
-no JAX in a process that only uses mcraw_torch."""
+no JAX in a process that only uses mcraw_torch. The subcommands info,
+verify and encode and decode --pipeline / --verbose / --trace-dir against
+mcraw's: identical JSON, exit codes and files (tolerance 0)."""
 
 import contextlib
 import io
+import json
 import os
+import re
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -160,11 +165,6 @@ def test_cli_no_card_is_a_clean_error(clip, tmp_path, monkeypatch, capsys):
     assert not list(tmp_path.iterdir())
 
 
-def test_cli_unported_subcommand(capsys):
-    assert cli.main(["info", "clip.mcraw"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
 def test_preview_cli_parity(clip, legacy_clip, tmp_path, monkeypatch, demosaic):
     """python -m mcraw_torch preview against mcraw.cli preview (the JAX
@@ -219,6 +219,13 @@ def test_fresh_interpreter_never_imports_jax(clip, legacy_clip, tmp_path):
         "rgba = preview_frame_rgba(d, d.frames[0], demosaic='malvar')\n"
         "assert rgba.shape == (16, 200) and str(rgba.dtype) == 'torch.uint32'\n"
         "import mcraw_torch.cli, mcraw_torch.kernels.checksum\n"
+        "import contextlib, io, tempfile, mcraw_torch.observe\n"
+        "from mcraw_torch.clip import export_clip\n"
+        f"s = export_clip(mcraw_torch.Decoder({str(clip)!r}, device='cpu'), tempfile.mkdtemp())\n"
+        "assert s.frames_done == 3 and s.frames_failed == 0\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        f"    rc = mcraw_torch.cli.main(['verify', {str(legacy_clip)!r}, '--device', 'cpu'])\n"
+        "assert rc == 0\n"
         "print('jax' in sys.modules)\n"
     )
     res = _run(["-c", code], tmp_path)
@@ -301,17 +308,6 @@ def test_batch_does_not_skip_under_resume(clip, tmp_path, monkeypatch, capsys):
     assert capsys.readouterr().out == "Found 3 frames\n"
 
 
-@pytest.mark.parametrize("flag", [["--pipeline"], ["--verbose"], ["--trace-dir", "t"]])
-@pytest.mark.parametrize("sub", [True, False])
-def test_decode_flags_not_yet_ported(clip, tmp_path, monkeypatch, capsys, flag, sub):
-    monkeypatch.chdir(tmp_path)
-    argv = (["decode"] if sub else []) + [str(clip), *flag]
-    assert cli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and flag[0] in err
-    assert not list(tmp_path.iterdir())
-
-
 def test_decode_subcommand_parses_strictly(clip, capsys):
     """`decode` takes no unknown arguments (an argparse error, exit 2, as
     mcraw's); `<file> ...` ignores them."""
@@ -330,3 +326,254 @@ def test_decode_subcommand_missing_file_parity(tmp_path, capsys):
     b = capsys.readouterr()
     assert rc_a == rc_b == -1
     assert a.out == b.out == "" and a.err == b.err and a.err.startswith("Error: Failed to open")
+
+
+# -- info, verify, encode ----------------------------------------------------------
+
+
+def _frames_clip(rng, frames, audio=True, container=None) -> bytes:
+    """A clip of (codec, width, height, payload or None) frames: None encodes
+    a 12-bit image of that geometry with mcraw's encoder."""
+    writer = E.ContainerWriter(example_container_metadata() if container is None
+                               else container)
+    for i, (codec, w, h, payload) in enumerate(frames):
+        if payload is None:
+            img = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
+            payload = E.encode_modern(img) if codec == 7 else E.encode_legacy(img)
+        writer.add_frame(1 + i, payload, example_frame_metadata(w, h, codec))
+    if audio:
+        writer.add_audio(np.zeros(32, np.int16), 500)
+    return writer.finish()
+
+
+def _modern_bits_offset_past_end(rng) -> bytes:
+    img = rng.integers(0, 1024, size=(8, 64), dtype=np.uint16)
+    payload = bytearray(E.encode_modern(img))
+    ew, eh, bo, ro = struct.unpack("<IIII", payload[:16])
+    payload[:16] = struct.pack("<IIII", ew, eh, len(payload) + 9, ro)
+    return bytes(payload)
+
+
+def _legacy_exact_length(rng) -> bytes:
+    from mcraw.kernels import tables as JT
+
+    leg = E.encode_legacy(rng.integers(0, 1024, size=(8, 64), dtype=np.uint16))
+    return leg[: 2 + int(JT.LEGACY_BLOCK_LENGTH[min(leg[0] >> 4, 16)])]
+
+
+def _skipped_audio(rng) -> bytes:
+    writer = E.ContainerWriter(example_container_metadata())
+    img = rng.integers(0, 1024, size=(8, 64), dtype=np.uint16)
+    writer.add_frame(1, E.encode_modern(img), example_frame_metadata(64, 8))
+    writer.add_audio(np.zeros(32, np.int16), 500)
+    writer._audio_offsets.insert(0, (-128, 0))  # the reference-skip class
+    return writer.finish()
+
+
+# The clips of tests/test_clip_export.py's verify tests, and mixed ones.
+VERIFY_CLIPS = {
+    "ok": lambda rng: _frames_clip(rng, [(7, 64, 8, None)] * 2),
+    "corrupt": lambda rng: _frames_clip(rng, [(7, 64, 8, None), (7, 64, 8, b"\x00" * 8),
+                                              (7, 64, 8, None)]),
+    "quick_structural": lambda rng: _frames_clip(rng, [
+        (7, 64, 8, _modern_bits_offset_past_end(rng)),
+        (6, 64, 8, E.encode_legacy(rng.integers(0, 1024, size=(8, 64), dtype=np.uint16))[:3])]),
+    "skipped_audio": _skipped_audio,
+    "legacy_exact_length": lambda rng: _frames_clip(rng, [(6, 64, 8, _legacy_exact_length(rng))]),
+    "mixed": lambda rng: _frames_clip(rng, [(7, 192, 16, None), (6, 200, 16, None),
+                                            (7, 128, 8, None), (6, 96, 12, None)]),
+    "legacy_corrupt": lambda rng: _frames_clip(rng, [(6, 96, 8, None), (6, 96, 8, b"\x10" * 8)]),
+    "bad_codec": lambda rng: _frames_clip(rng, [(7, 64, 8, None), (5, 64, 8, b"\x00" * 64)]),
+}
+INFO_CLIPS = {
+    "modern": lambda rng: _frames_clip(rng, [(7, 192, 16, None)] * 3),
+    "legacy": lambda rng: _frames_clip(rng, [(6, 200, 16, None)] * 2),
+    "mixed": VERIFY_CLIPS["mixed"],
+    "frameless": lambda rng: _frames_clip(rng, []),
+    "non_object_json": lambda rng: _frames_clip(rng, [(7, 64, 8, None)], container=b"[1, 2]"),
+    "nan_json": lambda rng: _frames_clip(rng, [(7, 64, 8, None)], container=json.dumps(
+        example_container_metadata()).replace("1023.0", "NaN").encode()),
+    "missing": None,
+}
+
+
+def _clip_file(tmp_path, makers, name) -> str:
+    p = tmp_path / f"{name}.mcraw"
+    if makers[name] is not None:
+        p.write_bytes(makers[name](np.random.default_rng(sorted(makers).index(name))))
+    return str(p)
+
+
+def _both(mine: list[str], ref: list[str], tmp_path, monkeypatch, capsys):
+    """Run cli.main(mine) and ref_cli.main(ref) in-process, each in its own
+    working directory: ((rc, out, err) of each)."""
+    got = _in_process(cli.main, mine, tmp_path / "mine", monkeypatch, capsys)
+    want = _in_process(ref_cli.main, ref, tmp_path / "ref", monkeypatch, capsys)
+    return (got[0], got[1].out, got[1].err), (want[0], want[1].out, want[1].err)
+
+
+@pytest.mark.parametrize("name", sorted(INFO_CLIPS))
+def test_info_parity(tmp_path, monkeypatch, capsys, name):
+    """info: the same JSON (or the same Error line), the same exit code."""
+    src = _clip_file(tmp_path, INFO_CLIPS, name)
+    got, want = _both(["info", src], ["info", src], tmp_path, monkeypatch, capsys)
+    assert got == want
+    if name == "non_object_json":
+        assert json.loads(got[1])["audio_sample_rate"] is None
+    if name in ("nan_json", "missing"):
+        assert got[0] == -1 and got[2].startswith("Error: ")
+
+
+@pytest.mark.parametrize("quick", [False, True])
+@pytest.mark.parametrize("name", sorted(VERIFY_CLIPS) + ["missing"])
+def test_verify_parity(tmp_path, monkeypatch, capsys, name, quick):
+    """verify [--quick] on the CPU against mcraw's verify --backend numpy:
+    the same JSON report and exit code."""
+    src = _clip_file(tmp_path, VERIFY_CLIPS | {"missing": None}, name)
+    mode = ["--quick"] if quick else []
+    got, want = _both(["verify", src, "--device", "cpu", *mode],
+                      ["verify", src, "--backend", "numpy", *mode], tmp_path, monkeypatch, capsys)
+    assert got == want
+    report = json.loads(got[1])
+    assert got[0] == (0 if report["ok"] else 1)
+    # --quick reads only the first legacy header, which legacy_corrupt keeps.
+    assert report["ok"] == (name in ("ok", "mixed", "skipped_audio")
+                            or (quick and name == "legacy_corrupt"))
+
+
+def test_verify_no_card_is_a_clean_error(clip, monkeypatch, capsys):
+    """A full verify resolves the device before it opens the clip: no card
+    is the command's error (exit -1), not a container_error. --quick reads
+    only the container and needs no card."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["verify", str(clip)]) == -1
+    out = capsys.readouterr()
+    assert out.out == "" and out.err.startswith("Error: ") and "no CUDA device" in out.err
+    assert cli.main(["verify", str(clip), "--quick"]) == 0
+    assert json.loads(capsys.readouterr().out)["ok"]
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("codec, width", [(7, 192), (6, 200)])
+def test_encode_parity(tmp_path, monkeypatch, capsys, codec, width, seed):
+    """encode writes the same bytes and stdout as mcraw's encode."""
+    argv = ["encode", "out.mcraw", "--codec", str(codec), "--frames", "2", "--width",
+            str(width), "--height", "16", "--seed", str(seed)]
+    got, want = _both(argv, argv, tmp_path, monkeypatch, capsys)
+    assert got == want == (0, "Wrote out.mcraw\n", "")
+    blob = (tmp_path / "mine" / "out.mcraw").read_bytes()
+    assert blob == (tmp_path / "ref" / "out.mcraw").read_bytes()
+    d = Decoder(blob, device="cpu")
+    assert len(d.frames) == 2 and d.load_frame(d.frames[1])[0].shape == (16, width)
+
+
+# -- decode --pipeline, --verbose, --trace-dir ----------------------------------------
+
+
+def _assert_pipeline_stdout(out: str, ref: str, frames: int):
+    """The same Found line, a clean Writing line per written frame, the same
+    written paths as a multiset (the writer threads finish in no fixed
+    order, and mcraw's print a line and its newline apart, so its lines may
+    run together), then the Exported line."""
+    a, b = out.splitlines(), ref.splitlines()
+    assert a[0] == b[0] and a[0].startswith("Found ") and len(a) == frames + 2
+    assert all(re.fullmatch(r"Writing \S+\.dng", ln) for ln in a[1:-1])
+    written = [re.findall(r"Writing (\S+?\.dng)", text) for text in (out, ref)]
+    assert sorted(written[0]) == sorted(written[1]) and len(written[0]) == frames
+    assert a[-1].startswith(f"Exported {frames} frames in ") and a[-1].endswith(" fps)")
+
+
+@pytest.mark.parametrize("extra, frames", [([], None), (["-n", "2"], 2),
+                                           (["--batch", "--batch-frames", "0"], None)])
+@pytest.mark.parametrize("which", ["modern", "legacy", "mixed", "corrupt"])
+def test_decode_pipeline_parity(clip, legacy_clip, tmp_path, monkeypatch, capsys, which,
+                                extra, frames):
+    """decode --pipeline against mcraw's with --backend numpy, in-process:
+    exit code 0, stdout as _assert_pipeline_stdout, the same stderr (a
+    failed frame's Error line), byte-identical audio.wav and DNGs. The
+    pipeline comes before the --batch-frames check, as in the reference."""
+    if which in ("modern", "legacy"):
+        src = str(clip if which == "modern" else legacy_clip)
+    else:
+        src = _clip_file(tmp_path, VERIFY_CLIPS, which)
+    n_all = len(Decoder(src, device="cpu").frames)
+    got, want = _both(["decode", src, "--pipeline", "--device", "cpu", *extra],
+                      ["decode", src, "--pipeline", "--backend", "numpy", *extra],
+                      tmp_path, monkeypatch, capsys)
+    assert got[0] == want[0] == 0
+    failed = 1 if which == "corrupt" else 0
+    _assert_pipeline_stdout(got[1], want[1], (frames or n_all) - failed)
+    assert got[2] == want[2]
+    if failed:
+        assert got[2] == "Error: frame 2: Failed to uncompress frame\n"
+    _assert_same_outputs(tmp_path / "mine", tmp_path / "ref", (frames or n_all) - failed)
+
+
+def test_decode_pipeline_resume_and_entry_point(clip, tmp_path):
+    """python -m mcraw_torch <clip> --pipeline --resume, the reference's
+    argv shape: a DNG that exists is skipped, as by mcraw's."""
+    outs = {}
+    for name, cmd in (("mine", ["-m", "mcraw_torch", str(clip), "--pipeline", "--resume",
+                                "--device", "cpu"]),
+                      ("ref", ["-m", "mcraw", str(clip), "--pipeline", "--resume",
+                               "--backend", "numpy"])):
+        cwd = tmp_path / name
+        cwd.mkdir()
+        (cwd / "frame_000001.dng").write_bytes(b"stale")
+        outs[name] = _run(cmd, cwd)
+    got, want = outs["mine"], outs["ref"]
+    assert got.returncode == want.returncode == 0, got.stderr + want.stderr
+    _assert_pipeline_stdout(got.stdout, want.stdout, 2)
+    assert "Writing frame_000001.dng" not in got.stdout
+    _assert_same_outputs(tmp_path / "mine", tmp_path / "ref", 3)
+    assert (tmp_path / "mine" / "frame_000001.dng").read_bytes() == b"stale"
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_decode_verbose(clip, tmp_path, pipeline):
+    """--verbose: JSON-line events on stderr; with --pipeline a
+    stage_timing event with parse, unpack and emit, and the stage timing
+    and throughput lines, as mcraw's; without it, nothing (as mcraw's)."""
+    flags = ["--pipeline"] if pipeline else []
+    res = _run(["-m", "mcraw_torch", "decode", str(clip), "--verbose", "--device", "cpu",
+                *flags], tmp_path)
+    assert res.returncode == 0, res.stderr
+    if not pipeline:
+        assert res.stderr == ""
+        return
+    events = {e["event"]: e for e in map(json.loads, res.stderr.splitlines()[:3])}
+    assert set(events) == {"export_clip_start", "stage_timing", "export_clip_done"}
+    assert events["export_clip_start"]["backend"] == "cpu"
+    timing = events["stage_timing"]
+    assert {"parse", "unpack", "emit"} <= set(timing) and timing["emit"]["count"] == 3
+    lines = res.stderr.splitlines()[3:]
+    assert lines[0].startswith("stage timing: {") and lines[1].startswith("throughput: {")
+    assert len(lines) == 2
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_decode_trace_dir(clip, tmp_path, monkeypatch, capsys, pipeline):
+    """--trace-dir D: a torch.profiler Chrome trace of the decode in D, the
+    outputs as without it."""
+    monkeypatch.chdir(tmp_path)
+    flags = ["--pipeline"] if pipeline else []
+    assert cli.main(["decode", str(clip), "--device", "cpu", "--trace-dir", "t", *flags]) == 0
+    traces = list((tmp_path / "t").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    assert len(list(tmp_path.glob("frame_*.dng"))) == 3
+    assert capsys.readouterr().out.splitlines()[0] == "Found 3 frames"
+
+
+def test_decode_trace_dir_no_card_is_a_clean_error(clip, tmp_path, monkeypatch, capsys):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main([str(clip), "--trace-dir", "t"]) == -1
+    err = capsys.readouterr().err
+    assert err.startswith("Error: ") and "no CUDA device" in err
+    assert not list(tmp_path.iterdir())

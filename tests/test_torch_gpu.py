@@ -461,3 +461,100 @@ def test_batch_surface_on_card(cuda):
     assert fd.num_programs == 3
     for (ts, rgba) in P.preview_clip(d, batch_frames=4):
         assert torch.equal(rgba.to(torch.int64), P.preview_frame_rgba(d, ts).to(torch.int64))
+
+
+# -- the export, verify, the trace and the host codecs on the card ---------------------
+
+
+def _export_clip_blob(name: str, corrupt_at=None):
+    """Clips of the export tests, written with the port's encoder: modern,
+    legacy, and both codecs at two geometries; frame `corrupt_at` gets an
+    8-byte zero payload."""
+    specs = {"modern": [(7, 64, 2048)] * 4, "legacy": [(6, 24, 4032)] * 3,
+             "mixed": [(7, 16, 256), (6, 16, 256), (7, 64, 2048), (6, 24, 4032)]}[name]
+    rng = np.random.default_rng(len(name))
+    writer = E.ContainerWriter(example_container_metadata())
+    for i, (ct, h, w) in enumerate(specs):
+        img = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
+        payload = E.encode_modern(img) if ct == 7 else E.encode_legacy(img)
+        if i == corrupt_at:
+            payload = b"\x00" * 8
+        writer.add_frame(100 + i, payload, example_frame_metadata(w, h, ct))
+        writer.add_audio(rng.integers(-99, 99, size=64).astype(np.int16), i * 1000)
+    return writer.finish(), [ct for ct, _, _ in specs]
+
+
+@pytest.mark.parametrize("name", ["modern", "legacy", "mixed"])
+def test_export_clip_on_card_equals_cpu(cuda, tmp_path, name):
+    """export_clip on the card writes the CPU export's bytes, with one
+    unpack launch of each frame's codec per frame and no plain call."""
+    from mcraw_torch.clip import export_clip
+
+    blob, codecs = _export_clip_blob(name)
+    counts = (U.KERNEL_LAUNCHES, L.KERNEL_LAUNCHES, U.PLAIN_CALLS, L.PLAIN_CALLS)
+    stats = export_clip(Decoder(blob, device="cuda"), str(tmp_path / "cuda"))
+    assert (U.KERNEL_LAUNCHES, L.KERNEL_LAUNCHES, U.PLAIN_CALLS, L.PLAIN_CALLS) == (
+        counts[0] + codecs.count(7), counts[1] + codecs.count(6), counts[2], counts[3])
+    export_clip(Decoder(blob, device="cpu"), str(tmp_path / "cpu"))
+    assert stats.frames_done == len(codecs) and {"parse", "unpack", "emit"} <= set(
+        stats.stage_timing)
+    for i in range(len(codecs)):
+        name = f"frame_{i:06d}.dng"
+        assert (tmp_path / "cuda" / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes()
+
+
+@pytest.mark.parametrize("name", ["modern", "legacy", "mixed"])
+def test_verify_on_card_equals_cpu(cuda, tmp_path, capsys, name):
+    """A full verify on the card reports what it reports on the CPU, for a
+    clip with a corrupt frame."""
+    import json
+
+    from mcraw_torch import cli
+
+    blob, _ = _export_clip_blob(name, corrupt_at=1)
+    path = tmp_path / "clip.mcraw"
+    path.write_bytes(blob)
+    runs = []
+    for device in ("cuda", "cpu"):
+        rc = cli.main(["verify", str(path), "--device", device])
+        runs.append((rc, capsys.readouterr().out))
+    assert runs[0] == runs[1] and runs[0][0] == 1
+    assert [f["timestamp"] for f in json.loads(runs[0][1])["frames_failed"]] == [101]
+
+
+def test_device_trace_records_the_unpack_kernel(cuda, tmp_path):
+    """device_trace on the card: the Chrome trace holds each codec's unpack
+    kernel as a device kernel event once per exported frame (CUPTI sees the
+    kernels of the ctypes-bound library)."""
+    import json
+
+    from mcraw_torch.clip import export_clip
+    from mcraw_torch.observe import device_trace
+
+    blob, codecs = _export_clip_blob("mixed")
+    with device_trace(str(tmp_path / "t"), cuda):
+        export_clip(Decoder(blob, device="cuda"), str(tmp_path / "out"))
+        torch.cuda.synchronize()
+    (trace,) = (tmp_path / "t").glob("*.pt.trace.json")
+    kernels = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert sum("unpack_modern_kernel" in k for k in kernels) == codecs.count(7)
+    assert sum("unpack_legacy_kernel" in k for k in kernels) == codecs.count(6)
+
+
+@pytest.mark.parametrize("codec", [7, 6])
+def test_host_codecs_on_card_equal_cpu(cuda, codec):
+    """mcraw_torch.decode_modern / decode_legacy run on the card by default
+    (one launch) and equal device="cpu"."""
+    import mcraw_torch
+
+    img = np.random.default_rng(codec).integers(0, 1 << 16, size=(24, 4032), dtype=np.uint16)
+    enc, dec, mod = ((E.encode_modern, mcraw_torch.decode_modern, U) if codec == 7
+                     else (E.encode_legacy, mcraw_torch.decode_legacy, L))
+    payload = np.frombuffer(enc(img), np.uint8)
+    launches = mod.KERNEL_LAUNCHES
+    got = dec(payload, 4032, 24)
+    assert mod.KERNEL_LAUNCHES == launches + 1
+    assert isinstance(got, np.ndarray) and got.dtype == np.uint16
+    assert np.array_equal(got, dec(payload, 4032, 24, device="cpu"))
+    assert np.array_equal(got, img)

@@ -3,7 +3,8 @@ and its copies of mcraw's NumPy-only modules equal their originals.
 
 - A fresh interpreter that refuses every import of ``mcraw``, ``mcraw.*``
   and ``jax`` imports every module of the port, writes a small clip with the
-  port's own encoder, decodes it and develops it on the CPU.
+  port's own encoder, decodes it, develops it, exports it under a trace
+  and verifies it on the CPU.
 - No file of the port and not ``chip_smoke.py`` holds an ``import mcraw``
   or ``from mcraw`` statement (read from the syntax tree).
 - Each copy against its original, with mcraw as the reference side: the
@@ -108,19 +109,31 @@ with mcraw_torch.Decoder(str(path), device="cpu") as d:
     clip = list(P.preview_clip(d, None, 2))
     assert [ts for ts, _ in clip] == d.frames
     payload, meta = d._reader.frame_payload(d.frames[0])
-    assert np.array_equal(mcraw_torch.decode_modern(payload, 192, 12), imgs[0])
+    assert np.array_equal(mcraw_torch.decode_modern(payload, 192, 12, device="cpu"), imgs[0])
     payload, meta = d._reader.frame_payload(d.frames[1])
-    assert np.array_equal(mcraw_torch.decode_legacy(payload, 200, 12), imgs[1])
+    assert np.array_equal(mcraw_torch.decode_legacy(payload, 200, 12, device="cpu"), imgs[1])
     stream = [c for c in d.load_audio_stream()]
 from mcraw_torch import cli
 rc = cli.main(["decode", str(path), "--batch", "--batch-frames", "2", "--device", "cpu",
                "--output-dir", str(path.parent / "out")])
 assert rc == 0 and len(list((path.parent / "out").glob("frame_*.dng"))) == 3
+# The export, its observability and the rest of the CLI.
+from mcraw_torch.clip import export_clip
+from mcraw_torch.observe import device_trace
+with mcraw_torch.Decoder(str(path), device="cpu") as d, device_trace(str(path.parent / "t")):
+    stats = export_clip(d, str(path.parent / "export"), prefetch=2, writers=2)
+same = all((path.parent / "export" / f"frame_{i:06d}.dng").read_bytes()
+           == (path.parent / "out" / f"frame_{i:06d}.dng").read_bytes() for i in range(3))
+traces = len(list((path.parent / "t").glob("*.pt.trace.json")))
+verify = [cli.main(["verify", str(path), *mode]) for mode in (["--device", "cpu"], ["--quick"])]
+info = cli.main(["info", str(path)])
 leaked = sorted(m for m in sys.modules
                 if m in ("mcraw", "jax") or m.startswith(("mcraw.", "jax.")))
 print(json.dumps({"modules": len(modules), "frames": len(imgs), "f64_err": max(errs),
                   "audio_chunks": len(audio), "stream_chunks": len(stream), "runs": runs,
-                  "programs": fd.num_programs, "leaked": leaked}))
+                  "programs": fd.num_programs, "exported": stats.frames_done,
+                  "stages": sorted(stats.stage_timing), "same_dngs": same, "traces": traces,
+                  "verify": verify, "info": info, "leaked": leaked}))
 """
 
 
@@ -137,6 +150,9 @@ def test_runs_with_mcraw_and_jax_refused(tmp_path):
     assert out["frames"] == 3 and out["audio_chunks"] == out["stream_chunks"] == 3
     assert out["runs"] == [[1, 12, 192], [1, 12, 200], [1, 12, 130]]
     assert out["programs"] == 3
+    assert out["exported"] == 3 and out["same_dngs"] and out["traces"] == 1
+    assert out["stages"] == ["emit", "parse", "unpack"]
+    assert out["verify"] == [0, 0] and out["info"] == 0
     assert out["f64_err"] <= 1
     assert out["leaked"] == []
 

@@ -23,7 +23,7 @@ from mcraw_torch.errors import DecodeError
 from mcraw_torch.kernels import unpack as U
 from mcraw_torch.kernels.staging import Staging
 from mcraw_torch.kernels.tables import modern_tables
-from mcraw_torch.pipeline import decode_modern_frame
+from mcraw_torch.kernels.unpack import decode_modern_frame
 
 
 def random_inputs(rng, ty, tx):
