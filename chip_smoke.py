@@ -68,6 +68,29 @@ failure exits non-zero and prints no result:
      a small clip with an 8-byte corrupt payload between two good frames:
      one frame failed, with the error text of ``python -m mcraw decode
      --pipeline --backend numpy``, the good frames byte-identical to its.
+   - mesh (``mcraw_torch.parallel``): M = (cuda:0,) * 4, four shards on
+     the one card, each with its own staging and stream. With the counters
+     set to 0 before each path and read after: ``decode_batch(mesh=M)`` and
+     ``decode_batch(mesh=default_mesh())`` on the modern clip's frames
+     repeated to 8 and the legacy clip's 4096x3072 frames (one unpack
+     launch a shard, shard d on its device; a batch of 3 on M raises the
+     "not divisible" ValueError); ``decode_batch_iter(chunk_frames=6,
+     mesh=M)`` over 11 frames (chunks of 8 and 3, the 3 on the decoder's
+     device); ``load_frame_sharded(ts, M)`` on every frame of both clips
+     (one launch a band); ``parallel.decode_clips`` of the modern clip and
+     a second one (seed 16), four frames each; and the dry run: the develop
+     clip's 4K frames repeated to 8 in one batched decode over M, one
+     batched develop launch a shard, a cross-shard mean of the RGB, each
+     RGBA within 1 LSB of the f64 model. Every frame equals its source and
+     its device checksum the host's; no plain call.
+   - two processes (``mcraw_torch.distributed``): two copies of this
+     script (``--worker``) in a gloo process group on localhost, both on
+     cuda:0: ``decode_batch_global_mesh`` of the modern clip's frames
+     repeated to 8 (a DTensor over a cuda DeviceMesh, four frames and one
+     launch a rank, each frame's device checksum the host's, and an
+     all-reduce of the ranks' checksums equal to the host's); then
+     ``export_clip_distributed`` of the clip's 5 frames, every DNG
+     byte-identical to the single-process ``export_clip``'s.
 5. CLI: per decode clip, ``python -m mcraw_torch clip -n 5``, ``... decode
    clip -n 5`` and ``... decode clip -n 5 --batch --batch-frames 2``
    against ``python -m mcraw clip -n 5 --backend numpy``, the four at
@@ -101,6 +124,10 @@ failure exits non-zero and prints no result:
    stage_timing split and the count of cold Stagings; then one export
    under ``mcraw_torch.observe.device_trace``: the device busy share (the
    union of kernel, memcpy and memset intervals over the export's wall).
+   On M: ``load_frame_sharded`` against ``load_frame_device`` per 4K
+   frame of each codec, ``decode_batch(mesh=M)`` against ``decode_batch()``
+   per frame (modern, F = 8), and the CUDA-event time of the four band
+   launches against one single-frame launch (their outputs held equal).
 
 The line before last is ``{"kernels": [...]}``: one entry per TPU kernel
 of the repo (eight; the routed ones carry the numbers of the CUDA kernel
@@ -135,6 +162,10 @@ H, W = 3072, 4096
 N_TIMED = 20
 L2_FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2
 SPIN_CYCLES = 200_000  # ~0.11 ms at the H100's 1.755 GHz boost clock
+# The spin before a timed call of several launches (~2.3 ms): each launch
+# takes the host tens of microseconds to enqueue, so a short spin would
+# time the host's launch rate, not the card.
+MULTI_SPIN_CYCLES = 4_000_000
 # H100 SXM data sheet, at the 700 W limit: HBM3 rate, float32 outside the
 # tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -172,7 +203,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 import mcraw_torch  # noqa: E402
+from mcraw_torch import distributed as DIST  # noqa: E402
 from mcraw_torch import encode as E  # noqa: E402  (the fixture writer)
+from mcraw_torch import parallel as PAR  # noqa: E402
 from mcraw_torch import preview as P  # noqa: E402
 from mcraw_torch.clip import export_clip  # noqa: E402
 from mcraw_torch.color import interpolated_matrices  # noqa: E402
@@ -1017,6 +1050,332 @@ def phase_export_corrupt(clip: Path, work: Path) -> dict:
     return launches
 
 
+# -- the mesh phase (after phase 4) ------------------------------------------------
+
+MESH_N = 4  # entries of the repeated mesh: four shards on the one card
+
+
+def card_mesh() -> PAR.Mesh:
+    """(cuda:0,) * MESH_N: four shards, each with its own staging and stream,
+    on one card (the port's counterpart of JAX's virtual devices)."""
+    return PAR.Mesh((DEV,) * MESH_N)
+
+
+def check_frames(what: str, frames, srcs) -> None:
+    """Each (H, W) uint16 frame on the card equals its source, and its
+    device checksum the host's."""
+    check(len(frames) == len(srcs), f"{what}: {len(frames)} frames for {len(srcs)} sources")
+    sums = [C.device_checksum(f) for f in frames]
+    for i, (f, cs, src) in enumerate(zip(frames, sums, srcs)):
+        check(f.device.type == "cuda" and f.dtype == torch.uint16 and f.shape == src.shape,
+              f"{what} frame {i}: {f.device} {f.dtype} {tuple(f.shape)}")
+        check(np.array_equal(f.cpu().numpy(), src), f"{what} frame {i} != source")
+        check(int(cs.item()) == host_checksum(src), f"{what} frame {i}: checksum")
+
+
+def check_sharded(what: str, s, mesh: PAR.Mesh, rows: list[int]) -> None:
+    """A Sharded of the mesh: shard d on mesh.devices[d] with rows[d] rows."""
+    check(isinstance(s, PAR.Sharded) and s.devices == mesh.devices,
+          f"{what}: {type(s).__name__} on {getattr(s, 'devices', None)}")
+    check([x.device for x in s.shards] == list(mesh.devices)
+          and [x.shape[0] for x in s.shards] == rows,
+          f"{what}: shards {[(str(x.device), tuple(x.shape)) for x in s.shards]}")
+
+
+def mesh_path(what: str, kernel: str, fn, want_unpack: int, checksums: int) -> tuple:
+    """Run fn() with the counters set to 0 just before and read just after;
+    fails unless `kernel` launched `want_unpack` times, the checksum
+    `checksums` times, nothing else, and no plain version ran. (fn's result,
+    the launch counts)."""
+    reset_counters()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, plain = counts()
+    want = {k: 0 for k in COUNTED} | {kernel: want_unpack, "checksum": checksums}
+    check(launches == want, f"{what}: launch counts {launches}, expected {want}")
+    check(not any(plain.values()), f"{what}: plain calls {plain}")
+    return out, launches, secs
+
+
+def phase_mesh_batch(name: str, clip: Path, imgs, idx: list[int], kernel: str,
+                     mesh: PAR.Mesh, mesh_name: str) -> dict:
+    """Decoder.decode_batch(mesh=mesh) over the clip's frames `idx`: one
+    unpack launch of the clip's codec per shard, no plain call, shard d on
+    mesh.devices[d], every frame equal to its source and its device
+    checksum the host's; a batch of 3 raises the "not divisible"
+    ValueError where the mesh has more than one entry."""
+    srcs = [imgs[i] for i in idx]
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        ts = [d.frames[i] for i in idx]
+
+        def run():
+            got, metas = d.decode_batch(ts, mesh=mesh)
+            check_frames(f"{name} decode_batch mesh={mesh_name}",
+                         [f for s in got.shards for f in s], srcs)
+            return got
+
+        got, launches, secs = mesh_path(f"{name} decode_batch mesh={mesh_name}", kernel, run,
+                                        mesh.size, len(idx))
+        check_sharded(f"{name} decode_batch mesh={mesh_name}", got, mesh,
+                      [len(idx) // mesh.size] * mesh.size)
+        uneven = None
+        if mesh.size > 1:
+            try:
+                d.decode_batch(ts[:3], mesh=mesh)
+            except ValueError as e:
+                uneven = str(e)
+            check(uneven == f"batch of 3 not divisible by {mesh.size} devices",
+                  f"{name}: a batch of 3 on {mesh_name} gave {uneven!r}")
+    emit("mesh", clip=name, path=f"decode_batch mesh={mesh_name}", mesh=[str(x) for x in
+         mesh.devices], frames=len(idx), shards=[list(s.shape) for s in got.shards],
+         seconds=secs, launches=launches, plain_calls=0, exact=True, uneven_error=uneven)
+    return launches
+
+
+def phase_mesh_iter(name: str, clip: Path, imgs, mesh: PAR.Mesh) -> dict:
+    """decode_batch_iter(chunk_frames=6, mesh) over the modern clip's frames
+    repeated to 11: chunks of 8 (sharded, one launch a shard) and 3 (the
+    decoder's own device, one launch)."""
+    idx = [i % len(imgs) for i in range(11)]
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        ts = [d.frames[i] for i in idx]
+
+        def run():
+            chunks = list(d.decode_batch_iter(ts, chunk_frames=6, mesh=mesh))
+            check([c.shape[0] for c, _ in chunks] == [8, 3],
+                  f"{name} decode_batch_iter: chunks {[c.shape for c, _ in chunks]}")
+            check_sharded(f"{name} decode_batch_iter chunk 0", chunks[0][0], mesh, [2] * 4)
+            check(isinstance(chunks[1][0], torch.Tensor) and chunks[1][0].device == d.device,
+                  f"{name} decode_batch_iter: the tail is not on the decoder's device")
+            frames = [f for s in chunks[0][0].shards for f in s] + list(chunks[1][0])
+            check_frames(f"{name} decode_batch_iter mesh", frames, [imgs[i] for i in idx])
+            return chunks
+
+        _, launches, secs = mesh_path(f"{name} decode_batch_iter mesh", "unpack_modern", run,
+                                      mesh.size + 1, len(idx))
+    emit("mesh", clip=name, path="decode_batch_iter chunk_frames=6 mesh=M", frames=len(idx),
+         chunks=[8, 3], seconds=secs, launches=launches, plain_calls=0, exact=True)
+    return launches
+
+
+def phase_mesh_sharded(name: str, clip: Path, imgs, kernel: str, mesh: PAR.Mesh) -> dict:
+    """load_frame_sharded(ts, mesh) on every frame of the clip: one band
+    launch per mesh entry, shard d the rows of band d on its device, the
+    frame equal to its source."""
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        def run():
+            rows = []
+            for ts, src in zip(d.frames, imgs):
+                got, meta = d.load_frame_sharded(ts, mesh)
+                h = src.shape[0]
+                units = PAR.band_rows(-(-h // 4) if kernel == "unpack_modern" else h, mesh.size)
+                unit = 4 if kernel == "unpack_modern" else 1
+                want_rows = [min(hi * unit, h) - lo * unit for lo, hi in units]
+                check_sharded(f"{name} load_frame_sharded {ts}", got, mesh, want_rows)
+                whole = got.to(DEV)
+                check_frames(f"{name} load_frame_sharded {ts}", [whole], [src])
+                rows.append(want_rows)
+            return rows
+
+        rows, launches, secs = mesh_path(f"{name} load_frame_sharded", kernel, run,
+                                         mesh.size * len(imgs), len(imgs))
+    emit("mesh", clip=name, path="load_frame_sharded mesh=M", frames=len(imgs),
+         band_rows=rows, shapes=[list(s.shape) for s in imgs], seconds=secs,
+         launches=launches, plain_calls=0, exact=True)
+    return launches
+
+
+def make_second_clip(path: Path) -> list:
+    """A second modern clip for decode_clips: four 4096x3072 12-bit frames
+    in the bench's recipe, another seed."""
+    rng = np.random.default_rng(16)
+    writer = E.ContainerWriter(example_container_metadata())
+    imgs = [twelve_bit(rng, 20 + k) for k in range(4)]
+    for i, img in enumerate(imgs):
+        writer.add_frame(5000 + 33 * i, E.encode_modern(img), example_frame_metadata(W, H, 7))
+    path.write_bytes(writer.finish())
+    return imgs
+
+
+def phase_mesh_clips(clips: list, mesh: PAR.Mesh) -> dict:
+    """parallel.decode_clips of two modern clips' first four frames each
+    over the mesh: one launch a shard, (2, 4, H, W) gathered on the mesh's
+    first device, clip c frame f equal to its source."""
+    decoders = [mcraw_torch.Decoder(str(p), device="cuda") for p, _ in clips]
+    try:
+        def run():
+            out, metas = PAR.decode_clips(decoders, mesh=mesh, frames_per_clip=4)
+            check(out.shape == (2, 4, H, W) and out.device == mesh.devices[0],
+                  f"decode_clips: {tuple(out.shape)} on {out.device}")
+            check_frames("decode_clips", [out[c, f] for c in range(2) for f in range(4)],
+                         [imgs[f] for _, imgs in clips for f in range(4)])
+            return metas
+
+        _, launches, secs = mesh_path("decode_clips", "unpack_modern", run, mesh.size, 8)
+    finally:
+        for dec in decoders:
+            dec.close()
+    emit("mesh", path="parallel.decode_clips mesh=M", clips=[p.name for p, _ in clips],
+         frames_per_clip=4, seconds=secs, launches=launches, plain_calls=0, exact=True)
+    return launches
+
+
+def phase_mesh_dryrun(clip: Path, model: DevelopModel, mesh: PAR.Mesh) -> dict:
+    """The dry run (after __graft_entry__._dryrun_multichip_impl): the
+    develop clip's three 4K modern frames repeated to 8, one batched decode
+    over the mesh, then on each shard one batched develop launch of its
+    (2, H, W) frames, then a cross-shard mean of the RGB. Each RGBA within
+    1 LSB of the f64 model of its frame; one unpack and one develop launch
+    a shard; the mean within 1 of the models' mean."""
+    idx = [i % 3 for i in range(2 * mesh.size)]
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        cm = ContainerMetadata(d.container_metadata)
+        ts = [d.frames[i] for i in idx]
+        fm = FrameMetadata(d._reader.frame_payload(ts[0])[1])
+        fwd, _, _ = interpolated_matrices(cm, fm.as_shot_neutral)
+        args = (cm.black_level, np.float32(cm.white_level), fm.as_shot_neutral,
+                fwd.astype(np.float32))
+        reset_counters()
+        t0 = time.perf_counter()
+        imgs, _ = d.decode_batch(ts, mesh=mesh)
+        rgbas = [P.develop_rgba(s, *args, cfa=tuple(cm.cfa_pattern)) for s in imgs.shards]
+        sums = [P.rgba_to_rgb(r).to(torch.float64).sum().to(DEV) for r in rgbas]
+        mean = float(torch.stack(sums).sum().item()) / (len(idx) * H * W * 3)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, plain = counts()
+    want = {k: 0 for k in COUNTED} | {"unpack_modern": mesh.size, "develop": mesh.size}
+    check(launches == want and not any(plain.values()),
+          f"dry run: launches {launches} (expected {want}), plain {plain}")
+    check([r.device for r in rgbas] == list(mesh.devices), "dry run: develop off its shard")
+    errs = []
+    frames = [f for r in rgbas for f in r]
+    for i, rgba in zip(idx, frames):
+        err, ndiff = channel_diff(rgba_channels(rgba, f"dry run frame {i}").cpu(),
+                                  model(i, "bilinear"))
+        check(err <= 1, f"dry run frame {i}: {err} from the f64 model")
+        errs.append(err)
+    model_mean = float(np.mean([model(i, "bilinear").to(torch.float64).mean().item()
+                                for i in idx]))
+    check(abs(mean - model_mean) <= 1.0, f"dry run mean {mean} vs the models' {model_mean}")
+    emit("mesh", clip=clip.name, path="dry run: decode_batch + develop per shard + mean",
+         frames=len(idx), seconds=secs, launches=launches, plain_calls=0, f64_err=errs,
+         rgb_mean=mean, f64_rgb_mean=model_mean)
+    return launches
+
+
+# -- the two-process phase -----------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_two_process(clip: Path, imgs, work: Path) -> dict:
+    """Two copies of this script in worker mode join a gloo process group on
+    localhost, both on cuda:0: decode_batch_global_mesh over the modern
+    clip's frames repeated to 8 (four frames a rank, one launch each, the
+    cross-rank sum of device checksums equal to the host's), then
+    export_clip_distributed of the clip's 5 frames; together the ranks
+    write frame_000000..000004.dng, each byte-identical to the
+    single-process export_clip's. A worker that fails fails the phase."""
+    idx = [i % len(imgs) for i in range(8)]
+    spec = work / "two_process.json"
+    spec.write_text(json.dumps({"idx": idx, "sums": [host_checksum(imgs[i]) for i in idx]}))
+    out = work / "two_process_dng"
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+                               str(port), str(rank), str(clip), str(out), str(spec)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    results = []
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"worker {rank} exited {p.returncode}:\n{text[-3000:]}")
+        lines = [ln for ln in text.splitlines() if ln.startswith('{"worker"')]
+        check(len(lines) == 1, f"worker {rank}: no result line:\n{text[-3000:]}")
+        results.append(json.loads(lines[0]))
+    ref = work / "two_process_ref"
+    with mcraw_torch.Decoder(str(clip), device="cuda") as d:
+        stats = export_clip(d, str(ref), prefetch=4, writers=4)
+    check(stats.frames_done == len(imgs), f"single-process export: {stats.errors}")
+    names = sorted(p.name for p in out.iterdir())
+    check(names == [f"frame_{i:06d}.dng" for i in range(len(imgs))],
+          f"two-process export wrote {names}")
+    for n in names:
+        check(filecmp.cmp(out / n, ref / n, shallow=False), f"two-process export: {n} differs")
+    shutil.rmtree(out)
+    shutil.rmtree(ref)
+    launches = {k: sum(r["launches"][k] for r in results) for k in COUNTED}
+    emit("two_process", clip=clip.name, backend="gloo", device=str(DEV), seconds=secs,
+         ranks=results, launches=launches, identical=True)
+    return launches
+
+
+def worker(port: str, rank: int, clip: str, outdir: str, spec: str) -> int:
+    """One rank of the two-process phase; prints one {"worker": ...} line."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    want = json.loads(Path(spec).read_text())
+    torch.cuda.set_device(DEV)
+    DIST.initialize(f"tcp://localhost:{port}", 2, rank, backend="gloo")
+    mesh = DeviceMesh("cuda", [0, 1])
+    with mcraw_torch.Decoder(clip, device="cuda") as d:
+        ts = [d.frames[i] for i in want["idx"]]
+        reset_counters()
+        imgs, metas = DIST.decode_batch_global_mesh(d, ts, mesh)
+        local = imgs.to_local()
+        sums = [C.device_checksum(f) for f in local]
+        torch.cuda.synchronize()
+        decode_launches, plain = counts()
+        check(local.device == DEV and local.shape == (4, H, W) and imgs.shape == (8, H, W),
+              f"rank {rank}: local {local.device} {tuple(local.shape)}, global {imgs.shape}")
+        mine = [int(s.item()) for s in sums]
+        check(mine == want["sums"][4 * rank : 4 * rank + 4], f"rank {rank}: checksums {mine}")
+        check(decode_launches == {k: 0 for k in COUNTED} | {"unpack_modern": 1, "checksum": 4}
+              and not any(plain.values()), f"rank {rank}: launches {decode_launches} {plain}")
+        # The cross-rank reduction: an all-reduce of the ranks' checksums, an
+        # int64 scalar on the CPU over gloo.
+        total = torch.tensor(sum(mine), dtype=torch.int64)
+        dist.all_reduce(total)
+        check(int(total) & 0xFFFFFFFF == sum(want["sums"]) & 0xFFFFFFFF,
+              f"rank {rank}: cross-rank checksum {int(total)}")
+        reset_counters()
+        stats = DIST.export_clip_distributed(d, outdir, prefetch=2, writers=2)
+        torch.cuda.synchronize()
+        export_launches, plain = counts()
+        mine_ts, first = DIST.frame_shard(d.frames)
+        check(stats.frames_done == len(mine_ts) and stats.frames_failed == 0,
+              f"rank {rank}: export {stats.frames_done} done, {stats.errors}")
+        check(export_launches == {k: 0 for k in COUNTED} | {"unpack_modern": len(mine_ts)}
+              and not any(plain.values()), f"rank {rank}: export launches {export_launches}")
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps({"worker": rank, "frames": len(local), "dtensor": list(imgs.shape),
+                      "placement": str(imgs.placements[0]), "first_index": first,
+                      "exported": stats.frames_done, "cross_rank_checksum": int(total),
+                      "launches": {k: decode_launches[k] + export_launches[k]
+                                   for k in COUNTED}}), flush=True)
+    return 0
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 
@@ -1212,17 +1571,17 @@ def phase_cli_preview(clip: Path, work: Path, model: DevelopModel) -> None:
 # -- phase 6 -------------------------------------------------------------------
 
 
-def time_cuda(fn, n: int = N_TIMED) -> float:
+def time_cuda(fn, n: int = N_TIMED, spin: int = SPIN_CYCLES) -> float:
     """Median ms of `fn` over n runs by CUDA events, L2 flushed before each.
-    A spin of ~0.1 ms on the card after the flush keeps it busy while the
-    host enqueues `fn`, so the events time the card's work and not the
-    host's launch path."""
+    A spin of `spin` cycles on the card after the flush (~0.1 ms by
+    default) keeps it busy while the host enqueues `fn`, so the events time
+    the card's work and not the host's launch path."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
     fn()
     times = []
     for _ in range(n):
         flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1441,8 +1800,9 @@ def phase_times_batch(clip: Path, legacy_clip: Path, card: str) -> dict:
                 batched, single = L.decode_legacy_batch_device, L.decode_legacy_device
             frames = [(batch[0][lo : lo + m], *(a[f] for a in batch[3:]))
                       for f, (lo, m) in enumerate(zip(batch[1].tolist(), batch[2].tolist()))]
-            batch_ms = time_cuda(lambda: batched(*batch, **kw))
-            singles_ms = time_cuda(lambda: [single(*f, **kw) for f in frames])
+            batch_ms = time_cuda(lambda: batched(*batch, **kw), spin=MULTI_SPIN_CYCLES)
+            singles_ms = time_cuda(lambda: [single(*f, **kw) for f in frames],
+                                   spin=MULTI_SPIN_CYCLES)
             moved = (sum(len(p) for p in payloads) + 2 * n * H * W
                      + batch[3].numel() * (batch[3].element_size() + 2 + 8))
             emit("times_kernels", card=card, frame=f"{codec} {n} x {W}x{H} 12-bit",
@@ -1616,6 +1976,74 @@ def phase_times_export(clips: dict, card: str, work: Path) -> None:
         shutil.rmtree(work / "busy_trace")
 
 
+def band_calls(codec: str, payload: np.ndarray, n: int):
+    """A 4K frame's inputs staged on the card once: (one single-frame
+    launch, [n band launches]) as calls, the bands those of
+    parallel.decode_frame_sharded, on one stream."""
+    if codec == "modern":
+        dv = U.stage_modern(Staging(DEV), payload, W, H)
+        args = (dv.words, dv.bits, dv.refs, U.block_offsets(dv.bits, modern_tables(DEV)))
+        kw = dict(ty=dv.tiles_y, tx=dv.tiles_x, height=H, width=W)
+        return (lambda: U.decode_modern_device(*args, **kw),
+                [lambda lo=lo, hi=hi: PAR.modern_band(*args, lo, hi, **kw)
+                 for lo, hi in PAR.band_rows(-(-H // 4), n)])
+    dv = L.stage_legacy(Staging(DEV), payload, W, H)
+    return (lambda: L.decode_legacy_device(*dv, height=H, width=W),
+            [lambda lo=lo, hi=hi: PAR.legacy_band(*dv, lo, hi, width=W)
+             for lo, hi in PAR.band_rows(H, n)])
+
+
+def phase_times_mesh(clip: Path, legacy_clip: Path, card: str) -> dict:
+    """Printed, not asserted, on the repeated mesh M (four shards on one
+    card): per 4K frame of each codec, load_frame_sharded against
+    load_frame_device (host clock, synchronized, median of 5); for the
+    modern clip's frames repeated to 8, decode_batch(mesh=M) against
+    decode_batch() per frame (median of 3); and CUDA-event medians of the
+    four band launches against one single-frame launch on the same staged
+    inputs (their outputs held equal)."""
+    clock = time.perf_counter
+    mesh = card_mesh()
+    t = {}
+
+    def wall(fn, turns: int) -> float:
+        times = []
+        for _ in range(turns):
+            torch.cuda.synchronize()
+            t0 = clock()
+            fn()
+            torch.cuda.synchronize()
+            times.append((clock() - t0) * 1e3)
+        return statistics.median(times)
+
+    for codec, path in (("modern", clip), ("legacy", legacy_clip)):
+        with mcraw_torch.Decoder(str(path), device="cuda") as d:
+            ts = d.frames[0]
+            d.load_frame_sharded(ts, mesh)  # the mesh's stagings laid out once
+            lat = {"load_frame_sharded_ms": wall(lambda: d.load_frame_sharded(ts, mesh), 5),
+                   "load_frame_device_ms": wall(lambda: d.load_frame_device(ts), 5)}
+            emit("times_mesh", card=card, codec=codec, frame=f"{W}x{H}", mesh=f"{DEV} x {MESH_N}",
+                 n=5, clock="host, synchronized", **lat)
+            single, bands = band_calls(codec, np.asarray(d._reader.frame_payload(ts)[0]), MESH_N)
+            whole = torch.cat([b() for b in bands])
+            check(torch.equal(whole.to(torch.int32), single().to(torch.int32)),
+                  f"{codec}: {MESH_N} bands != one single-frame launch")
+            k = {"single_ms": time_cuda(single, spin=MULTI_SPIN_CYCLES),
+                 "bands_ms": time_cuda(lambda: [b() for b in bands], spin=MULTI_SPIN_CYCLES)}
+            emit("times_kernels", card=card, frame=f"{codec} {W}x{H} 12-bit", n=N_TIMED,
+                 bands=MESH_N, ratio=k["bands_ms"] / k["single_ms"], **k)
+            t[f"{codec}_bands"] = k["bands_ms"]
+            if codec == "modern":
+                ts8 = [d.frames[i % len(d.frames)] for i in range(8)]
+                d.decode_batch(ts8, mesh=mesh)
+                d.decode_batch(ts8)
+                per = {"decode_batch_mesh_ms": wall(lambda: d.decode_batch(ts8, mesh=mesh), 3) / 8,
+                       "decode_batch_ms": wall(lambda: d.decode_batch(ts8), 3) / 8}
+                emit("times_mesh", card=card, codec=codec, frame=f"{W}x{H}", frames=8,
+                     mesh=f"{DEV} x {MESH_N}", n=3, clock="host, synchronized",
+                     per_frame=True, **per)
+    return t
+
+
 # Every TPU kernel of the repo (each function that reaches pl.pallas_call)
 # and the CUDA kernel that computes it: (name, TPU kernel, CUDA kernel).
 TPU_KERNELS = (
@@ -1660,15 +2088,17 @@ def kernels_line(t: dict, errs: dict, paths: list) -> list:
         if kernel == "develop":
             rows[-1]["malvar_ms"] = t["develop_malvar_ms"]
             rows[-1]["malvar_plain_ms"] = t["develop_malvar_plain_ms"]
-        batch = {"unpack_modern": "modern_batch", "unpack_legacy": "legacy_batch"}.get(kernel)
-        if batch:
-            n, batch_ms, singles_ms, batch_bound_ms = t[batch]
+        codec = {"unpack_modern": "modern", "unpack_legacy": "legacy"}.get(kernel)
+        if codec:
+            n, batch_ms, singles_ms, batch_bound_ms = t[f"{codec}_batch"]
             rows[-1].update(batch_frames=n, batch_ms=batch_ms, single_calls_ms=singles_ms,
-                            batch_bound_ms=batch_bound_ms)
+                            batch_bound_ms=batch_bound_ms, bands=MESH_N,
+                            bands_ms=t[f"{codec}_bands"])
     return rows
 
 
 def main() -> None:
+    started = time.perf_counter()
     card = phase_device()
     phase_build()
     rng = np.random.default_rng(2024)
@@ -1709,17 +2139,36 @@ def main() -> None:
         corrupt = work / "corrupt.mcraw"
         make_corrupt_clip(corrupt)
         paths.append(phase_export_corrupt(corrupt, work))
+        # The mesh phase: the repeated mesh M and every visible card.
+        t0 = time.perf_counter()
+        mesh = card_mesh()
+        for m, m_name in ((mesh, "M"), (PAR.default_mesh(), "default_mesh()")):
+            paths += [phase_mesh_batch(clip.name, clip, imgs, [i % 5 for i in range(8)],
+                                       "unpack_modern", m, m_name),
+                      phase_mesh_batch(legacy.name, legacy, limgs, [0, 1, 2, 4],
+                                       "unpack_legacy", m, m_name)]
+        paths.append(phase_mesh_iter(clip.name, clip, imgs, mesh))
+        paths += [phase_mesh_sharded(clip.name, clip, imgs, "unpack_modern", mesh),
+                  phase_mesh_sharded(legacy.name, legacy, limgs, "unpack_legacy", mesh)]
+        second = work / "clip2.mcraw"
+        paths.append(phase_mesh_clips([(clip, imgs), (second, make_second_clip(second))], mesh))
+        paths.append(phase_mesh_dryrun(develop, model, mesh))
+        t1 = time.perf_counter()
+        paths.append(phase_two_process(clip, imgs, work))
+        emit("timing", mesh_phase_s=t1 - t0, two_process_phase_s=time.perf_counter() - t1)
         phase_cli(clip, work)
         phase_cli(legacy, work)
         phase_cli_export({clip: 7, legacy: 6}, corrupt, work)
         phase_cli_preview(develop, work, model)
         emit("f64_model", calls=len(model._cache), seconds=model.seconds)
         t = (phase_times(payloads[0], card) | phase_times_legacy(lpayloads[0], card)
-             | phase_times_develop(develop, card) | phase_times_batch(clip, legacy, card))
+             | phase_times_develop(develop, card) | phase_times_batch(clip, legacy, card)
+             | phase_times_mesh(clip, legacy, card))
         phase_times_export((clip, legacy), card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
+    emit("timing", total_s=time.perf_counter() - started)
     kernels = kernels_line(t, errs, paths)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1729,4 +2178,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker(sys.argv[2], int(sys.argv[3]), *sys.argv[4:7]))
     main()

@@ -69,12 +69,17 @@ class Staging:
         self._used = total
         return arrays
 
-    def upload(self) -> list[torch.Tensor]:
+    def upload(self, source: "Staging | None" = None) -> list[torch.Tensor]:
         """One H2D of the arrays of the last :meth:`host` call; each on the
-        device, with its shape and dtype."""
-        self._dev[: self._used].copy_(self._host[: self._used])
+        device, with its shape and dtype. With `source`, the arrays that
+        `source` laid out go into this staging's device buffer: one host
+        prep sent to several devices (a frame replicated over a mesh)."""
+        src = self if source is None else source
+        if self._dev.numel() < src._used:
+            self._dev = torch.empty(src._used, dtype=torch.uint8, device=self.device)
+        self._dev[: src._used].copy_(src._host[: src._used])
         return [self._dev[lo : lo + a.nbytes].view(torch.from_numpy(a.reshape(-1)[:0]).dtype)
-                .view(a.shape) for lo, a in self._parts]
+                .view(a.shape) for lo, a in src._parts]
 
 
 def check_batch_inputs(data, bases, lengths, tensors, nblk: int) -> int:

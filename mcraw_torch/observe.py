@@ -89,21 +89,26 @@ class Throughput:
 
 
 @contextlib.contextmanager
-def device_trace(trace_dir: str | None, device: torch.device | str = "cpu"):
+def device_trace(trace_dir: str | None, device: torch.device | str = "cuda"):
     """torch.profiler trace context (no-op when `trace_dir` is falsy).
 
     Records the CPU activity, and the CUDA activity (kernels, copies) when
-    `device` is a CUDA device, and writes one Chrome trace,
-    ``<host>_<pid>.<n>.pt.trace.json``, into `trace_dir` on exit. A
-    profiler that fails to start or to write raises."""
+    `device` is a CUDA device (the default: the card, as
+    ``mcraw.observe.device_trace`` records the device; without a card it
+    raises, as ``resolve_device`` does), and writes one Chrome trace,
+    ``<host>_<pid>.<n>.pt.trace.json``, into `trace_dir` on exit. Pass
+    ``device="cpu"`` for the CPU activity alone. A profiler that fails to
+    start or to write raises."""
     if not trace_dir:
         yield
         return
     from torch.profiler import (ProfilerActivity, profile, supported_activities,
                                 tensorboard_trace_handler)
 
+    from .pipeline import resolve_device
+
     activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
+    if resolve_device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     missing = set(activities) - set(supported_activities())
     if missing:

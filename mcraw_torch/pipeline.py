@@ -8,6 +8,9 @@
     imgs, metas = d.decode_batch(timestamps)  # (F, H, W), one launch
     for imgs, metas in d.decode_batch_iter(chunk_frames=16): ...
     fd = d.make_frame_decoder(); img, meta = fd(ts)  # one staging per geometry
+    mesh = parallel.Mesh(("cuda:0",) * 4)  # or parallel.default_mesh()
+    imgs, metas = d.decode_batch(timestamps, mesh=mesh)  # a frame-Sharded batch
+    img, meta = d.load_frame_sharded(ts, mesh)  # one frame in row bands
     d.load_audio() / d.audio_chunks() / d.load_audio_stream()
     d.timer = observe.StageTimer()  # "parse" / "unpack" of single frames
 
@@ -102,6 +105,7 @@ class Decoder:
         self._device = resolve_device(device)
         self._reader = ContainerReader(source)
         self._staging = Staging(self._device)
+        self._mesh_stagings: dict[tuple, object] = {}  # parallel.MeshStaging per key
         self._audio_loader: AudioChunkLoader | None = None
         # Optional observe.StageTimer; when set, the single-frame paths
         # attribute their "parse" and "unpack" stages to it (export_clip
@@ -195,16 +199,20 @@ class Decoder:
 
     # -- batched decode ----------------------------------------------------------
 
-    def decode_batch(self, timestamps: list[int] | None = None):
+    def decode_batch(self, timestamps: list[int] | None = None, mesh=None):
         """Decode frames of one codec and one geometry in one launch of the
         codec's kernel: ((F, H, W) uint16 on the decoder's device, [frame
-        JSON, ...]). Mixed codecs raise IOException("mixed codecs in one
-        batch"), mixed (width, height) or encoded geometry a ValueError, a
-        bad frame what load_frame_device raises for it, and no frames an
-        IndexError (as mcraw.Decoder.decode_batch on the CPU). The
-        decoder's staging buffers keep the size of the largest batch it
-        has decoded; for long clips use :meth:`decode_batch_iter`, which
-        bounds that, and the output, to one chunk."""
+        JSON, ...]). With a :class:`~mcraw_torch.parallel.Mesh` of n
+        entries, the batch is frame data-parallel: shard d decodes frames
+        [d*F/n, (d+1)*F/n) in one launch on its device, and the images come
+        as a :class:`~mcraw_torch.parallel.Sharded`; F not a multiple of n
+        raises ValueError. Mixed codecs raise IOException("mixed codecs in
+        one batch"), mixed (width, height) or encoded geometry a
+        ValueError, a bad frame what load_frame_device raises for it, and
+        no frames an IndexError (as mcraw.Decoder.decode_batch on the CPU).
+        The staging buffers keep the size of the largest batch decoded;
+        for long clips use :meth:`decode_batch_iter`, which bounds that,
+        and the output, to one chunk."""
         if timestamps is None:
             timestamps = self.frames
         if not timestamps:
@@ -215,10 +223,44 @@ class Decoder:
         if len({(fm.width, fm.height) for _, _, fm, _ in frames}) > 1:
             raise ValueError(SHARE_GEOMETRY)
         _, _, fm, modern = frames[0]
-        decode = U.decode_modern_batch if modern else L.decode_legacy_batch
         with _uncompress_error_text(modern):
-            imgs = decode([p for p, *_ in frames], fm.width, fm.height, self._staging)
+            imgs = self._decode_payloads([p for p, *_ in frames], fm, modern, mesh)
         return imgs, [meta for _, meta, *_ in frames]
+
+    def _decode_payloads(self, payloads, fm: FrameMetadata, modern: bool, mesh):
+        """A checked batch of one codec and geometry through
+        parallel.decode_frames_batched: on the decoder's staging, or on the
+        mesh's stagings kept for (mesh, codec, geometry)."""
+        from .parallel import decode_frames_batched
+
+        return decode_frames_batched(payloads, fm.width, fm.height, modern, mesh,
+                                     staging=self._staging,
+                                     shards=self._mesh_staging(mesh, modern, fm))
+
+    def _mesh_staging(self, mesh, modern: bool, fm: FrameMetadata):
+        """The MeshStaging kept for (mesh, codec, geometry); None without a
+        mesh."""
+        if mesh is None:
+            return None
+        from .parallel import MeshStaging
+
+        key = (mesh, modern, fm.width, fm.height)
+        if key not in self._mesh_stagings:
+            self._mesh_stagings[key] = MeshStaging(mesh)
+        return self._mesh_stagings[key]
+
+    def load_frame_sharded(self, timestamp: int, mesh) -> tuple:
+        """Decode one frame split across the mesh's entries, each decoding
+        one band of its rows (parallel.decode_frame_sharded): ((H, W)
+        row-:class:`~mcraw_torch.parallel.Sharded` uint16, frame JSON),
+        with load_frame_device's codec and geometry checks and errors."""
+        from .parallel import decode_frame_sharded
+
+        payload, meta, fm, modern = self._checked_frame(timestamp)
+        with _uncompress_error_text(modern):
+            img = decode_frame_sharded(payload, fm.width, fm.height, modern, mesh,
+                                       shards=self._mesh_staging(mesh, modern, fm))
+        return img, meta
 
     def _homogeneous_runs(self, timestamps: list[int]) -> list[list[int]]:
         """Split a timestamp list at (codec, width, height) boundaries:
@@ -237,19 +279,25 @@ class Decoder:
         return runs
 
     def decode_batch_iter(
-        self, timestamps: list[int] | None = None, chunk_frames: int = 16
-    ) -> Iterator[tuple[torch.Tensor, list[dict]]]:
+        self, timestamps: list[int] | None = None, chunk_frames: int = 16, mesh=None
+    ) -> Iterator[tuple]:
         """Constant-memory batched decode: yields ((C, H, W) uint16 on the
         device, [frame JSON, ...]) per homogeneous run of up to
         `chunk_frames` frames, in stream order; a clip that switches codec
-        or resolution mid-stream splits into one launch per run."""
+        or resolution mid-stream splits into one launch per run. With a
+        mesh, chunk_frames rounds up to a multiple of its size and each run
+        is a :meth:`decode_batch` on it; a run that does not divide over
+        the mesh decodes unsharded on the decoder's own device."""
         if timestamps is None:
             timestamps = self.frames
         if chunk_frames <= 0:
             raise ValueError("chunk_frames must be positive")
+        if mesh is not None:
+            chunk_frames += (-chunk_frames) % mesh.size
         for lo in range(0, len(timestamps), chunk_frames):
             for run in self._homogeneous_runs(timestamps[lo : lo + chunk_frames]):
-                yield self.decode_batch(run)
+                sharded = mesh is not None and len(run) % mesh.size == 0
+                yield self.decode_batch(run, mesh=mesh if sharded else None)
 
     def make_frame_decoder(self) -> "FrameDecoder":
         """Persistent single-frame decode loop (the latency path): see

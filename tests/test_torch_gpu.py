@@ -558,3 +558,88 @@ def test_host_codecs_on_card_equal_cpu(cuda, codec):
     assert isinstance(got, np.ndarray) and got.dtype == np.uint16
     assert np.array_equal(got, dec(payload, 4032, 24, device="cpu"))
     assert np.array_equal(got, img)
+
+
+# -- the mesh surface on the card (mcraw_torch.parallel) ---------------------------
+
+
+def _mesh_clip(codec: int, n: int, h: int, w: int, seed: int):
+    rng = np.random.default_rng(seed)
+    writer = E.ContainerWriter(example_container_metadata())
+    imgs = []
+    for i in range(n):
+        img = rng.integers(0, 1 << 16, size=(h, w), dtype=np.uint16)
+        imgs.append(img)
+        payload = E.encode_modern(img) if codec == 7 else E.encode_legacy(img)
+        writer.add_frame(100 + i, payload, example_frame_metadata(w, h, codec))
+    return writer.finish(), imgs
+
+
+def _card_mesh(cuda, n: int):
+    from mcraw_torch import parallel as PAR
+
+    return PAR.Mesh((torch.device("cuda", 0),) * n)
+
+
+@pytest.mark.parametrize("codec", [7, 6])
+def test_decode_batch_on_a_card_mesh(cuda, codec):
+    """Four shards on one card: one unpack launch a shard on its own
+    stream and staging, no plain call, each shard on its device, the whole
+    batch equal to the CPU decode and the sources."""
+    from mcraw_torch import parallel as PAR
+
+    blob, imgs = _mesh_clip(codec, 8, 24, 4032, codec)
+    mod = U if codec == 7 else L
+    d = Decoder(blob, device="cuda")
+    counts = (mod.KERNEL_LAUNCHES, mod.PLAIN_CALLS)
+    got, _ = d.decode_batch(mesh=_card_mesh(cuda, 4))
+    assert (mod.KERNEL_LAUNCHES, mod.PLAIN_CALLS) == (counts[0] + 4, counts[1])
+    assert isinstance(got, PAR.Sharded) and got.shape == (8, 24, 4032)
+    assert all(s.device.type == "cuda" and s.shape == (2, 24, 4032) for s in got.shards)
+    assert np.array_equal(got.numpy(), np.stack(imgs))
+    assert np.array_equal(got.to(cuda).cpu().numpy(), np.stack(imgs))
+    with pytest.raises(ValueError, match="not divisible"):
+        d.decode_batch(d.frames[:3], mesh=_card_mesh(cuda, 4))
+
+
+@pytest.mark.parametrize("codec, h, n", [(7, 3072, 4), (7, 26, 3), (6, 3072, 4), (6, 13, 4)])
+def test_frame_sharded_on_a_card_mesh(cuda, codec, h, n):
+    """One frame in n row bands on one card: one launch a band, exact."""
+    blob, (img,) = _mesh_clip(codec, 1, h, 4096 if h > 100 else 250, 10 + h)
+    mod = U if codec == 7 else L
+    d = Decoder(blob, device="cuda")
+    counts = (mod.KERNEL_LAUNCHES, mod.PLAIN_CALLS)
+    got, _ = d.load_frame_sharded(100, _card_mesh(cuda, n))
+    assert (mod.KERNEL_LAUNCHES, mod.PLAIN_CALLS) == (counts[0] + n, counts[1])
+    assert np.array_equal(got.numpy(), img)
+    assert np.array_equal(got.numpy(), d.load_frame(100)[0])
+
+
+def test_frame_sharded_short_encoded_height_on_a_card(cuda):
+    rng = np.random.default_rng(12)
+    img = rng.integers(0, 4096, size=(64, 512), dtype=np.uint16)
+    writer = E.ContainerWriter(example_container_metadata())
+    writer.add_frame(1, E.encode_modern(img[:20]), example_frame_metadata(512, 64))
+    d = Decoder(writer.finish(), device="cuda")
+    got, _ = d.load_frame_sharded(1, _card_mesh(cuda, 4))
+    want = np.zeros_like(img)
+    want[:20] = img[:20]
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), d.load_frame(1)[0])
+
+
+def test_decode_batch_iter_and_clips_on_a_card_mesh(cuda):
+    from mcraw_torch import parallel as PAR
+
+    blob, imgs = _mesh_clip(7, 11, 16, 256, 13)
+    d = Decoder(blob, device="cuda")
+    chunks = list(d.decode_batch_iter(chunk_frames=6, mesh=_card_mesh(cuda, 8)))
+    assert [c[0].shape[0] for c in chunks] == [8, 3]
+    assert isinstance(chunks[0][0], PAR.Sharded) and chunks[1][0].device == d.device
+    flat = np.concatenate([chunks[0][0].numpy(), chunks[1][0].cpu().numpy()])
+    assert np.array_equal(flat, np.stack(imgs))
+    clips = [_mesh_clip(7, 4, 16, 256, 20 + c) for c in range(4)]
+    got, _ = PAR.decode_clips([Decoder(b, device="cuda") for b, _ in clips],
+                              mesh=_card_mesh(cuda, 4))
+    assert got.shape == (4, 4, 16, 256) and got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), np.stack([np.stack(i) for _, i in clips]))

@@ -1,7 +1,8 @@
 """mcraw_torch.observe against mcraw.observe: the same events, fields and
 summaries; the stage timer's lock under threads; device_trace on
-torch.profiler (a no-op without a directory, a Chrome trace with one, and
-an error, not a silent skip, where the profiler cannot record)."""
+torch.profiler (a no-op without a directory, a Chrome trace with one, the
+card by default, and an error, not a silent skip, where the profiler
+cannot record or there is no card)."""
 
 import json
 import logging
@@ -103,11 +104,27 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
 def test_device_trace_raises_where_it_cannot_record(tmp_path, monkeypatch):
     from torch.profiler import ProfilerActivity
 
+    # A card that the profiler cannot trace: the CUDA activity is missing.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.profiler, "supported_activities",
                         lambda: {ProfilerActivity.CPU})
     with pytest.raises(RuntimeError, match="cannot record"):
-        with PO.device_trace(str(tmp_path / "t"), "cuda"):
+        with PO.device_trace(str(tmp_path / "t"), "cuda:0"):
             pass
     with pytest.raises(RuntimeError):
         with PO.device_trace("/proc/no/such/dir", "cpu"):
             torch.ones(2).sum()
+
+
+@pytest.mark.parametrize("args", [(), ("cuda",)])
+def test_device_trace_records_the_card_by_default(tmp_path, monkeypatch, args):
+    """As mcraw.observe.device_trace(trace_dir) records the device, the
+    port's records the card unless asked for the CPU: with no card it
+    raises the "no CUDA device" error and writes no CPU-only trace."""
+    from mcraw_torch import MotionCamException
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MotionCamException, match="no CUDA device"):
+        with PO.device_trace(str(tmp_path / "t"), *args):
+            torch.ones(2).sum()
+    assert not (tmp_path / "t").exists()

@@ -3,8 +3,9 @@ and its copies of mcraw's NumPy-only modules equal their originals.
 
 - A fresh interpreter that refuses every import of ``mcraw``, ``mcraw.*``
   and ``jax`` imports every module of the port, writes a small clip with the
-  port's own encoder, decodes it, develops it, exports it under a trace
-  and verifies it on the CPU.
+  port's own encoder, decodes it (also split over a mesh of repeated CPU
+  entries), develops it, exports it under a trace, verifies it and splits
+  a clip between processes with ``distributed.frame_shard``, on the CPU.
 - No file of the port and not ``chip_smoke.py`` holds an ``import mcraw``
   or ``from mcraw`` statement (read from the syntax tree).
 - Each copy against its original, with mcraw as the reference side: the
@@ -120,8 +121,18 @@ assert rc == 0 and len(list((path.parent / "out").glob("frame_*.dng"))) == 3
 # The export, its observability and the rest of the CLI.
 from mcraw_torch.clip import export_clip
 from mcraw_torch.observe import device_trace
-with mcraw_torch.Decoder(str(path), device="cpu") as d, device_trace(str(path.parent / "t")):
+with mcraw_torch.Decoder(str(path), device="cpu") as d, device_trace(str(path.parent / "t"),
+                                                                     "cpu"):
     stats = export_clip(d, str(path.parent / "export"), prefetch=2, writers=2)
+# The mesh surface and the multi-process split.
+from mcraw_torch import distributed, parallel
+with mcraw_torch.Decoder(str(path), device="cpu") as d:
+    mesh = parallel.Mesh(("cpu",) * 3)
+    sharded = [np.array_equal(d.load_frame_sharded(ts, mesh)[0].numpy(), img)
+               for ts, img in zip(d.frames, imgs)]
+    batch, _ = d.decode_batch(d.frames[:1], mesh=parallel.Mesh(("cpu",)))
+    sharded.append(np.array_equal(batch.numpy()[0], imgs[0]))
+shard = distributed.frame_shard(list(range(5)), 1, 2)
 same = all((path.parent / "export" / f"frame_{i:06d}.dng").read_bytes()
            == (path.parent / "out" / f"frame_{i:06d}.dng").read_bytes() for i in range(3))
 traces = len(list((path.parent / "t").glob("*.pt.trace.json")))
@@ -133,7 +144,8 @@ print(json.dumps({"modules": len(modules), "frames": len(imgs), "f64_err": max(e
                   "audio_chunks": len(audio), "stream_chunks": len(stream), "runs": runs,
                   "programs": fd.num_programs, "exported": stats.frames_done,
                   "stages": sorted(stats.stage_timing), "same_dngs": same, "traces": traces,
-                  "verify": verify, "info": info, "leaked": leaked}))
+                  "verify": verify, "info": info, "sharded": sharded, "frame_shard": shard,
+                  "leaked": leaked}))
 """
 
 
@@ -153,6 +165,7 @@ def test_runs_with_mcraw_and_jax_refused(tmp_path):
     assert out["exported"] == 3 and out["same_dngs"] and out["traces"] == 1
     assert out["stages"] == ["emit", "parse", "unpack"]
     assert out["verify"] == [0, 0] and out["info"] == 0
+    assert out["sharded"] == [True] * 4 and out["frame_shard"] == [[2, 3, 4], 2]
     assert out["f64_err"] <= 1
     assert out["leaked"] == []
 
