@@ -91,6 +91,15 @@ failure exits non-zero and prints no result:
      all-reduce of the ranks' checksums equal to the host's); then
      ``export_clip_distributed`` of the clip's 5 frames, every DNG
      byte-identical to the single-process ``export_clip``'s.
+   - soak (``mcraw_torch.soak``, seed 2026): the codec, mutation and
+     malformed legs for 60 s each and the container and json CLI legs for
+     30 s each, every leg in a child process, all at once. Every decode
+     path of every iteration gives the plain CPU path's outcome (and the
+     source where the payload is format-legal), each result's device
+     checksum the host's sum; the CLI legs match ``python -m mcraw ...
+     --backend numpy`` byte for byte. One line a leg; a failure, a crash,
+     a decode path without an unpack launch or a plain call on the card
+     fails the phase. The launches are the legs' own counts, summed.
 5. CLI: per decode clip, ``python -m mcraw_torch clip -n 5``, ``... decode
    clip -n 5`` and ``... decode clip -n 5 --batch --batch-frames 2``
    against ``python -m mcraw clip -n 5 --backend numpy``, the four at
@@ -1376,6 +1385,64 @@ def worker(port: str, rank: int, clip: str, outdir: str, spec: str) -> int:
     return 0
 
 
+# -- the soak phase (after the two-process phase) ------------------------------------
+
+SOAK_SEED = 2026
+SOAK_RUNS = {"decode": ("codec,mutation,malformed", 60), "cli": ("cli", 30)}
+
+
+def phase_soak(work: Path) -> dict:
+    """``python -m mcraw_torch.soak`` on the card at a fixed seed: the
+    codec, mutation and malformed legs for 60 s each and the two CLI legs
+    for 30 s each, the five at once (a child process a leg). One line a
+    leg; a failure or a crash fails the phase, and so does a decode path
+    of a decode leg with no unpack launch, or a plain call on the card.
+    The legs count their launches in their own processes; their sums are
+    this phase's."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "mcraw_torch.soak", "--device", "cuda", "--seed",
+         str(SOAK_SEED), "--legs", legs, "--seconds", str(secs),
+         "--failures", str(work / "soak_failures")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (legs, secs) in SOAK_RUNS.items()}
+    t0 = time.perf_counter()
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=600)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rows = []
+    for name, p in procs.items():
+        out, err = outs[name]
+        failed = [ln for ln in err.splitlines() if ln.startswith('{"failure"')]
+        check(p.returncode == 0 and not failed,
+              f"soak {name} exited {p.returncode}:\n" + "\n".join(failed[:10]) + err[-3000:])
+        rows += [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith('{"leg"')]
+    legs = {r["leg"]: r for r in rows}
+    check(sorted(legs) == ["codec", "container", "json", "malformed", "mutation"],
+          f"soak legs {sorted(legs)}")
+    launches = dict.fromkeys(COUNTED, 0)
+    for leg, r in legs.items():
+        check(r["iterations"] > 0 and r["failures"] == 0 and r["crashes"] == 0,
+              f"soak {leg}: {r}")
+        for k, n in r["launches"].items():
+            launches[k] += n
+        if "paths" in r:
+            check(not any(r["plain_calls"].values()), f"soak {leg}: plain calls {r}")
+            quiet = [p for p, c in r["paths"].items() if not c.get("unpack_launches")]
+            check(not quiet, f"soak {leg}: no unpack launch on {quiet}")
+        emit("soak", **{k: v for k, v in r.items() if k != "device"})
+    check(launches["unpack_modern"] > 0 and launches["unpack_legacy"] > 0,
+          f"soak launches {launches}")
+    emit("soak", seed=SOAK_SEED, seconds=time.perf_counter() - t0, launches=launches)
+    return launches
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 
@@ -2155,7 +2222,10 @@ def main() -> None:
         paths.append(phase_mesh_dryrun(develop, model, mesh))
         t1 = time.perf_counter()
         paths.append(phase_two_process(clip, imgs, work))
-        emit("timing", mesh_phase_s=t1 - t0, two_process_phase_s=time.perf_counter() - t1)
+        t2 = time.perf_counter()
+        paths.append(phase_soak(work))
+        emit("timing", mesh_phase_s=t1 - t0, two_process_phase_s=t2 - t1,
+             soak_phase_s=time.perf_counter() - t2)
         phase_cli(clip, work)
         phase_cli(legacy, work)
         phase_cli_export({clip: 7, legacy: 6}, corrupt, work)

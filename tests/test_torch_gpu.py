@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from mcraw_torch import Decoder
+from mcraw_torch import Decoder, codecs
 from mcraw_torch import encode as E
 from mcraw_torch import preview as P
+from mcraw_torch import soak as S
 from mcraw_torch.kernels import checksum as C
 from mcraw_torch.kernels import develop as D
 from mcraw_torch.kernels import legacy as L
@@ -643,3 +644,113 @@ def test_decode_batch_iter_and_clips_on_a_card_mesh(cuda):
                               mesh=_card_mesh(cuda, 4))
     assert got.shape == (4, 4, 16, 256) and got.device.type == "cuda"
     assert np.array_equal(got.cpu().numpy(), np.stack([np.stack(i) for _, i in clips]))
+
+
+# -- the soak's fixed-seed cases on the card (mcraw_torch.soak) ------------------------
+
+
+@pytest.mark.parametrize("leg", S.DECODE_LEGS)
+@pytest.mark.parametrize("seed", [3, 4])
+def test_soak_leg_on_card(cuda, leg, seed, tmp_path):
+    """Twin of tests/test_torch_soak.py::test_leg_equals_numpy_ref: six
+    iterations of the leg on the card, every decode path held to the plain
+    CPU path and to the source, each result's device checksum to its host
+    sum; the codecs' kernels launched and no plain version ran."""
+    row = S.run_leg(leg, seed, "cuda", float("inf"), 6, tmp_path)
+    assert row["iterations"] == 6 and row["failures"] == 0, row
+    assert not any(row["plain_calls"].values()), row
+    assert row["launches"]["unpack_modern"] and row["launches"]["unpack_legacy"], row
+    # A malformed case may fail a batch path outright; the good frames after
+    # it always decode on the single-frame paths.
+    paths = ("codecs", "load_frame_device") if leg == "malformed" else S.PATHS
+    assert all(row["paths"][p]["unpack_launches"] for p in paths), row["paths"]
+    assert not list(tmp_path.glob("FAIL_*"))
+
+
+def test_soak_injected_wrong_decoder_on_card(cuda, tmp_path):
+    row = S.run_leg("codec", 3, "cuda", float("inf"), 1, tmp_path, inject="wrong")
+    assert row["failures"] >= 2
+    assert {p.name.split("_t")[0] for p in tmp_path.glob("FAIL_*.npz")} == {
+        "FAIL_codec_s3_i1_load_frame_device"}
+
+
+def _noncanonical_frames(seed):
+    """A 16 x 192 full-range frame encoded by the mutation leg's coders
+    (the twin of tests/test_torch_soak.py::_noncanonical)."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 1 << 16, size=(16, 192), dtype=np.uint16)
+    modern = E.encode_modern(
+        img, coder=S.make_coder(rng, cap_bits=16, cap_ref=0xFFFF, wrap_ok=True),
+        meta_coder=S.make_coder(rng, cap_bits=15, cap_ref=0x0FFF, wrap_ok=True),
+        meta_tail=rng.integers(0, 1 << 16, size=17, dtype=np.uint16),
+        gaps=(rng.bytes(11), rng.bytes(5)))
+    legacy = E.encode_legacy(img, coder=S.make_coder(rng, cap_bits=15, cap_ref=0x0FFF,
+                                                     wrap_ok=True))
+    return img, {7: modern, 6: legacy}
+
+
+@pytest.mark.parametrize("codec", [7, 6])
+def test_noncanonical_on_card(cuda, codec):
+    """Twin of tests/test_torch_soak.py::test_noncanonical_through_pallas_
+    equals_port: the codec function and the Decoder on the card give the
+    source exactly."""
+    img, payloads = _noncanonical_frames(21)
+    h, w = img.shape
+    decode = codecs.decode_modern if codec == 7 else codecs.decode_legacy
+    data = np.frombuffer(payloads[codec], np.uint8)
+    assert np.array_equal(decode(data, w, h, device=cuda), img)
+    writer = E.ContainerWriter(example_container_metadata())
+    writer.add_frame(1, payloads[codec], example_frame_metadata(w, h, codec))
+    d = Decoder(writer.finish(), device=cuda)
+    assert np.array_equal(d.load_frame_device(1)[0].cpu().numpy(), img)
+
+
+@pytest.mark.parametrize("codec, kind", [(7, k) for k in S.MODERN_MALFORMED]
+                         + [(6, k) for k in S.LEGACY_MALFORMED])
+def test_malformed_kind_on_card(cuda, codec, kind):
+    """Each malformed mutation of the soak on the card: the codec function
+    and the Decoder give the plain CPU path's outcome (the same array, or
+    the same exception; no launch before an error), and a known-good frame
+    then decodes exactly on the same Decoder."""
+    rng = np.random.default_rng(31)
+    img = rng.integers(0, 4096, size=(16, 192), dtype=np.uint16)
+    enc = E.encode_modern if codec == 7 else E.encode_legacy
+    base = S.Frame(codec, enc(img), 192, 16, img)
+    ew, eh = S.encoded_geometry(base) if codec == 7 else (0, 0)
+    for _ in range(500):
+        bad = S.malform(rng, base, ew, eh)
+        if bad.what == kind:
+            break
+    assert bad.what == kind
+    plain = S.Leg._plain(bad)
+    mod = U if codec == 7 else L
+    decode = codecs.decode_modern if codec == 7 else codecs.decode_legacy
+    before = mod.KERNEL_LAUNCHES
+    got = S.caught(lambda: decode(bad.data, 192, 16, device=cuda))
+    assert S.Outcome(None if got[1] else (got[0],), got[1]).same(plain)
+    # A launch exactly when the frame decodes and has rows to write (an
+    # encodedHeight of 0 writes none).
+    assert (mod.KERNEL_LAUNCHES > before) == (plain.error is None and S.rows_written(bad) > 0)
+    writer = E.ContainerWriter(example_container_metadata())
+    writer.add_frame(1, bad.payload, example_frame_metadata(192, 16, codec))
+    writer.add_frame(2, base.payload, example_frame_metadata(192, 16, codec))
+    d = Decoder(writer.finish(), device=cuda)
+    plain_calls = mod.PLAIN_CALLS
+    got = S.caught(lambda: d.load_frame_device(1)[0].cpu().numpy())
+    assert S.Outcome(None if got[1] else (got[0],), got[1]).same(S.decoder_expect(bad, plain))
+    assert np.array_equal(d.load_frame_device(2)[0].cpu().numpy(), img)
+    assert mod.PLAIN_CALLS == plain_calls
+
+
+@pytest.mark.parametrize("leg, seed", [("container", 2), ("json", 3)])
+def test_soak_cli_leg_on_card(cuda, leg, seed, tmp_path):
+    """Twin of tests/test_torch_soak_cli.py::test_cli_leg_reports_no_
+    difference: the port's CLI on the card against ``python -m mcraw
+    --backend numpy`` (which needs no JAX), byte for byte."""
+    from mcraw_torch import soak_cli as SC
+
+    runner = SC.CliLeg(leg, seed, "cuda", tmp_path / "failures")
+    for _ in range(3):
+        runner.step()
+    row = runner.summary(0.0)
+    assert row["failures"] == 0 and row["commands"] == {cmd: 3 for cmd in SC.COMMANDS}
