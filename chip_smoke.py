@@ -100,6 +100,13 @@ failure exits non-zero and prints no result:
      --backend numpy`` byte for byte. One line a leg; a failure, a crash,
      a decode path without an unpack launch or a plain call on the card
      fails the phase. The launches are the legs' own counts, summed.
+   - bench (``python -m mcraw_torch.bench --quick``, a child process): the
+     legs of ``bench.py`` at their full sizes, 2 distinct frames a leg,
+     each gated by its checksum. Exit 0, every key of ``bench.py``'s line
+     (``bench.py:956-989``), every leg a positive number, no gate failure,
+     no error, every kernel launched and no plain call; the bench's line
+     is printed as ``{"phase": "bench", ...}``. The launches are the
+     bench's own counts.
 5. CLI: per decode clip, ``python -m mcraw_torch clip -n 5``, ``... decode
    clip -n 5`` and ``... decode clip -n 5 --batch --batch-frames 2``
    against ``python -m mcraw clip -n 5 --backend numpy``, the four at
@@ -212,6 +219,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 import mcraw_torch  # noqa: E402
+from mcraw_torch import bench as BENCH  # noqa: E402
 from mcraw_torch import distributed as DIST  # noqa: E402
 from mcraw_torch import encode as E  # noqa: E402  (the fixture writer)
 from mcraw_torch import parallel as PAR  # noqa: E402
@@ -235,7 +243,7 @@ from mcraw_torch.metadata import (  # noqa: E402
     example_container_metadata,
     example_frame_metadata,
 )
-from mcraw_torch.observe import device_trace  # noqa: E402
+from mcraw_torch.observe import busy_us, device_events, device_trace  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -1443,6 +1451,34 @@ def phase_soak(work: Path) -> dict:
     return launches
 
 
+# -- the bench phase (after the soak phase) ------------------------------------------
+
+
+def phase_bench() -> dict:
+    """``python -m mcraw_torch.bench --quick`` on the card: exit 0, every
+    key of bench.py's line, every leg a positive number, no gate failure,
+    no error, each of the four kernels launched and no plain call. The
+    bench counts its launches in its own process; they are this phase's."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "mcraw_torch.bench", "--quick"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=900)
+    lines = res.stdout.splitlines()
+    check(res.returncode == 0 and len(lines) == 1,
+          f"bench exited {res.returncode}:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    line = json.loads(lines[0])
+    missing = [k for k in BENCH.KEYS if k not in line]
+    check(not missing, f"bench line lacks {missing}")
+    null = [k for k in BENCH.KEYS[1:] if k != "unit"
+            and not (isinstance(line[k], float) and line[k] > 0)]
+    check(not null, f"bench legs without a number: {null}")
+    check(line["gate_failures"] == [] and line["errors"] == [],
+          f"bench: {line['gate_failures']} {line['errors']}")
+    check(not any(line["plain_calls"].values()), f"bench plain calls {line['plain_calls']}")
+    check(all(line["launches"][k] > 0 for k in COUNTED), f"bench launches {line['launches']}")
+    emit("bench", phase_s=time.perf_counter() - t0, **line)
+    return line["launches"]
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 
@@ -1945,19 +1981,14 @@ def device_busy(trace_dir: Path, wall_s: float) -> dict:
     the sum of each kind's durations."""
     traces = list(trace_dir.glob("*.pt.trace.json"))
     check(len(traces) == 1, f"{trace_dir}: traces {traces}")
-    device = [e for e in json.loads(traces[0].read_text())["traceEvents"]
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    device = device_events(json.loads(traces[0].read_text())["traceEvents"])
     sums = Counter()
     for e in device:
         sums[e["cat"] + "_ms"] += e["dur"] / 1e3
     check(sums["kernel_ms"] > 0, f"{trace_dir}: no device kernel in the trace")
-    busy_us, end = 0.0, float("-inf")
-    for lo, hi in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-    return {"busy_ms": busy_us / 1e3, "wall_ms": wall_s * 1e3,
-            "busy_share": busy_us / 1e6 / wall_s, **sums}
+    busy = busy_us(device)
+    return {"busy_ms": busy / 1e3, "wall_ms": wall_s * 1e3,
+            "busy_share": busy / 1e6 / wall_s, **sums}
 
 
 # Frames of the timed exports: 8 frames are in flight (prefetch + writers),
@@ -2224,8 +2255,10 @@ def main() -> None:
         paths.append(phase_two_process(clip, imgs, work))
         t2 = time.perf_counter()
         paths.append(phase_soak(work))
+        t3 = time.perf_counter()
+        paths.append(phase_bench())
         emit("timing", mesh_phase_s=t1 - t0, two_process_phase_s=t2 - t1,
-             soak_phase_s=time.perf_counter() - t2)
+             soak_phase_s=t3 - t2, bench_phase_s=time.perf_counter() - t3)
         phase_cli(clip, work)
         phase_cli(legacy, work)
         phase_cli_export({clip: 7, legacy: 6}, corrupt, work)

@@ -5,7 +5,8 @@ unpack / emit costs, a frames-per-second counter and structured JSON-line
 log records, with the same event names, fields and summaries, on the
 ``mcraw_torch`` logger; and :func:`device_trace`, a ``torch.profiler``
 trace context (the CPU activity, plus the card's kernels and copies on a
-CUDA device) written as a Chrome trace.
+CUDA device) written as a Chrome trace, and :func:`device_events` /
+:func:`busy_us` to read the card's activity back from one.
 """
 
 from __future__ import annotations
@@ -118,3 +119,22 @@ def device_trace(trace_dir: str | None, device: torch.device | str = "cuda"):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(str(trace_dir))):
         yield
+
+
+# The device's activity in a Chrome trace of torch.profiler.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_events(events: list[dict]) -> list[dict]:
+    """The kernel, memcpy and memset events of a Chrome trace's events."""
+    return [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
+
+
+def busy_us(device: list[dict]) -> float:
+    """The union of the events' intervals, in the trace's microseconds."""
+    total, end = 0.0, float("-inf")
+    for lo, hi in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total

@@ -754,3 +754,35 @@ def test_soak_cli_leg_on_card(cuda, leg, seed, tmp_path):
         runner.step()
     row = runner.summary(0.0)
     assert row["failures"] == 0 and row["commands"] == {cmd: 3 for cmd in SC.COMMANDS}
+
+
+def test_bench_quick_on_card(cuda):
+    """``python -m mcraw_torch.bench --quick`` on the card at the full
+    sizes: exit 0, every leg of bench.py's line a positive number, no gate
+    failure, no error, each leg's kernels launched and no plain call."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from mcraw_torch import bench as B
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-m", "mcraw_torch.bench", "--quick"], cwd=root,
+                         capture_output=True, text=True, timeout=1200)
+    assert res.returncode == 0, res.stderr[-3000:]
+    line = json.loads(res.stdout.splitlines()[-1])
+    assert line["gate_failures"] == [] and line["errors"] == []
+    for key in B.KEYS[1:]:
+        if key != "unit":
+            assert isinstance(line[key], float) and line[key] > 0, (key, line[key])
+    assert torch.cuda.get_device_name(0) in line["metric"]
+    assert not any(line["plain_calls"].values())
+    kernels = {"value": "unpack_modern", "legacy_fps_4k": "unpack_legacy",
+               "decode_develop_fps": "develop", "decode_develop_legacy_fps": "unpack_legacy"}
+    for leg, kernel in kernels.items():
+        assert line["legs"][leg]["launches"][kernel] > 0, leg
+        assert line["legs"][leg]["launches"]["checksum"] > 0, leg
+        trace = line["legs"][leg]["trace"]
+        assert any(kernel in name for name in trace["device_ms_per_frame"]), (leg, trace)
+        assert 0 < trace["busy_share"] <= 1
