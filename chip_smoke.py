@@ -31,6 +31,17 @@ failure exits non-zero and prints no result:
    12-bit, 12-bit, 16-bit), synthetic batches at widths 4000 and 4090
    (modern), 4000 and 33 (legacy), a short encodedHeight, and a frame whose
    offsets are shuffled and point past its own end between two plain ones.
+   The digest of every kernel output of this phase is kept.
+   checked: the checked build of the kernels (``-DMCRAW_CHECKED``, built
+   beside the default one from phase 2 on): in a child process
+   (``--checked-child``), every input of phase 3 (the same seeds and
+   payloads) and ``mcraw_torch.bounds``' clean cases through the checked
+   library, with no fault and each output bit-equal to the default
+   library's; every negative case of ``mcraw_torch.bounds`` (a buffer's
+   checked extent understated) fires on its buffer and kind, for each
+   kernel and each kind of access it makes; a batch frame whose offsets
+   point past its own end reads nothing outside its window, and windows
+   cut short count their cross-frame reads. One line ``{"checked": ...}``.
 4. main paths, each with the launch counters set to 0 just before it and
    read just after:
    - decode, one per codec: a 4096x3072 modern clip (three 12-bit frames,
@@ -92,8 +103,9 @@ failure exits non-zero and prints no result:
      ``export_clip_distributed`` of the clip's 5 frames, every DNG
      byte-identical to the single-process ``export_clip``'s.
    - soak (``mcraw_torch.soak``, seed 2026): the codec, mutation and
-     malformed legs for 60 s each and the container and json CLI legs for
-     30 s each, every leg in a child process, all at once. Every decode
+     malformed legs for 60 s each on the checked build (``--checked``: no
+     fault) and the container and json CLI legs for 30 s each, every leg in
+     a child process, all at once. Every decode
      path of every iteration gives the plain CPU path's outcome (and the
      source where the payload is format-legal), each result's device
      checksum the host's sum; the CLI legs match ``python -m mcraw ...
@@ -220,6 +232,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 import mcraw_torch  # noqa: E402
 from mcraw_torch import bench as BENCH  # noqa: E402
+from mcraw_torch import bounds as BOUNDS  # noqa: E402
 from mcraw_torch import distributed as DIST  # noqa: E402
 from mcraw_torch import encode as E  # noqa: E402  (the fixture writer)
 from mcraw_torch import parallel as PAR  # noqa: E402
@@ -278,7 +291,23 @@ def phase_device() -> str:
 # -- phase 2 -------------------------------------------------------------------
 
 
+# The checked build (-DMCRAW_CHECKED) runs beside the default build and the
+# kernels phases; the checked phase waits for it.
+CHECKED_BUILD: dict = {}
+
+
+def _checked_build() -> None:
+    t0 = time.perf_counter()
+    try:
+        CHECKED_BUILD["path"] = build.build(checked=True)
+    except RuntimeError as e:  # raised again by the checked phase
+        CHECKED_BUILD["error"] = e
+    CHECKED_BUILD["seconds"] = time.perf_counter() - t0
+
+
 def phase_build() -> None:
+    CHECKED_BUILD["thread"] = threading.Thread(target=_checked_build)
+    CHECKED_BUILD["thread"].start()
     t0 = time.perf_counter()
     build.lib()
     secs = time.perf_counter() - t0
@@ -674,6 +703,109 @@ def phase_kernels_develop(rng) -> int:
         emit("kernels", kernel="develop", case="batched", shape=list(x.shape),
              demosaic=demosaic, equals_single_calls=True)
     return err
+
+
+# -- the checked phase ------------------------------------------------------------
+
+# The launch wrappers whose outputs the checked phase holds bit-equal.
+RECORDED = ((U, "decode_modern_device"), (U, "decode_modern_batch_device"),
+            (L, "decode_legacy_device"), (L, "decode_legacy_batch_device"),
+            (D, "develop_rgba_device"), (C, "device_checksum"))
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, the digest of every launch wrapper's output, in
+    call order."""
+    digests = []
+    saved = [(mod, name, getattr(mod, name)) for mod, name in RECORDED]
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            digests.append(f"{name} {BOUNDS.digest(out)}")
+            return out
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield digests
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def checked_child(work: str) -> int:
+    """``chip_smoke.py --checked-child WORK``: the kernels phases' inputs
+    (the same seeds, the decode clips' payloads saved in WORK) and
+    ``mcraw_torch.bounds``' clean cases on the checked build, then its
+    negative cases and batch windows; one JSON line."""
+    path = build.use_checked()
+    z = np.load(Path(work) / "checked_payloads.npz")
+    payloads, lpayloads = ([z[f"{k}{i}"] for i in range(n)] for k, n in
+                           (("m", int(z["modern"])), ("l", int(z["legacy"]))))
+    with contextlib.redirect_stdout(sys.stderr):  # the phases' own lines
+        with recording() as digests:
+            phase_kernels(np.random.default_rng(2024))
+        with recording() as batch_digests:
+            phase_kernels_batch(np.random.default_rng(2025), payloads, lpayloads)
+    bounds_clean = {name: BOUNDS.digest(fn()) for name, _, fn in BOUNDS.clean_cases(DEV)}
+    clean = BOUNDS.counts()
+    negative, fired, problems = BOUNDS.negative(DEV)
+    windows, more = BOUNDS.windows(DEV)
+    print(json.dumps({"library": path.name, "digests": digests + batch_digests,
+                      "bounds_clean": bounds_clean, **clean, "fired": fired,
+                      "negative": negative, "windows": windows,
+                      "problems": problems + more}), flush=True)
+    return 0
+
+
+def phase_checked(work: Path, digests: list, payloads, lpayloads) -> dict:
+    """The checked build (every global load and store, cp.async and shared
+    index of the four kernels held to its buffer's extent) in a child
+    process: every input of the kernels phases and mcraw_torch.bounds'
+    clean cases with no fault, each output bit-equal to the default
+    library's here; every negative case fires on its buffer and kind; a
+    batch frame past its own end reads nothing outside its window, and cut
+    windows count their cross-frame reads."""
+    t0 = time.perf_counter()
+    CHECKED_BUILD["thread"].join()
+    if "error" in CHECKED_BUILD:
+        raise CHECKED_BUILD["error"]
+    np.savez(work / "checked_payloads.npz", modern=len(payloads), legacy=len(lpayloads),
+             **{f"m{i}": p for i, p in enumerate(payloads)},
+             **{f"l{i}": p for i, p in enumerate(lpayloads)})
+    want_bounds = {name: BOUNDS.digest(fn()) for name, _, fn in BOUNDS.clean_cases(DEV)}
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--checked-child",
+                           str(work)], cwd=ROOT, capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t1
+    check(proc.returncode == 0 and proc.stdout.strip(),
+          f"checked child exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = res["digests"]
+    check(len(got) == len(digests), f"checked: {len(got)} outputs, default {len(digests)}")
+    differ = [(i, a, b) for i, (a, b) in enumerate(zip(got, digests)) if a != b]
+    check(not differ, f"checked outputs differ from the default library's: {differ[:5]}")
+    check(res["bounds_clean"] == want_bounds,
+          f"checked bounds cases differ: {res['bounds_clean']} vs {want_bounds}")
+    faults = sum(res["faults"].values())
+    check(faults == 0, f"checked: faults on clean inputs {res['faults']}")
+    check(not res["problems"], f"checked: {res['problems']}")
+    kinds = {}
+    for kernel, kind, _, _ in BOUNDS.NEGATIVE:
+        kinds.setdefault(kernel, []).append(kind)
+    check(res["fired"] == kinds, f"checked: fired {res['fired']}, want {kinds}")
+    check(all(res["launches"].get(k, 0) > 0 for k in build.KERNELS),
+          f"checked launches {res['launches']}")
+    line = {"library": res["library"], "launches": res["launches"], "faults": faults,
+            "fired": res["fired"], "cross_frame_reads": res["cross_frame_reads"],
+            "outputs_bit_equal": len(got) + len(want_bounds), "windows": res["windows"],
+            "build_s": CHECKED_BUILD["seconds"], "child_s": child_s,
+            "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"checked": line}), flush=True)
+    return line
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -1396,12 +1528,15 @@ def worker(port: str, rank: int, clip: str, outdir: str, spec: str) -> int:
 # -- the soak phase (after the two-process phase) ------------------------------------
 
 SOAK_SEED = 2026
-SOAK_RUNS = {"decode": ("codec,mutation,malformed", 60), "cli": ("cli", 30)}
+# (legs, seconds, flags): the decode legs on the checked build.
+SOAK_RUNS = {"decode": ("codec,mutation,malformed", 60, ["--checked"]),
+             "cli": ("cli", 30, [])}
 
 
 def phase_soak(work: Path) -> dict:
     """``python -m mcraw_torch.soak`` on the card at a fixed seed: the
-    codec, mutation and malformed legs for 60 s each and the two CLI legs
+    codec, mutation and malformed legs for 60 s each on the checked build
+    (each leg's line names it; no fault) and the two CLI legs
     for 30 s each, the five at once (a child process a leg). One line a
     leg; a failure or a crash fails the phase, and so does a decode path
     of a decode leg with no unpack launch, or a plain call on the card.
@@ -1410,9 +1545,9 @@ def phase_soak(work: Path) -> dict:
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", "mcraw_torch.soak", "--device", "cuda", "--seed",
          str(SOAK_SEED), "--legs", legs, "--seconds", str(secs),
-         "--failures", str(work / "soak_failures")],
+         "--failures", str(work / "soak_failures"), *flags],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name, (legs, secs) in SOAK_RUNS.items()}
+        for name, (legs, secs, flags) in SOAK_RUNS.items()}
     t0 = time.perf_counter()
     outs = {}
     try:
@@ -1441,6 +1576,11 @@ def phase_soak(work: Path) -> dict:
         for k, n in r["launches"].items():
             launches[k] += n
         if "paths" in r:
+            ran = r["checked"]["launches"]
+            check(r["library"].startswith("libmcraw_torch_checked_")
+                  and not any(r["checked"]["faults"].values())
+                  and ran.get("unpack_modern", 0) + ran.get("unpack_legacy", 0) > 0,
+                  f"soak {leg}: not on the checked build, or faults: {r}")
             check(not any(r["plain_calls"].values()), f"soak {leg}: plain calls {r}")
             quiet = [p for p, c in r["paths"].items() if not c.get("unpack_launches")]
             check(not quiet, f"soak {leg}: no unpack launch on {quiet}")
@@ -2200,7 +2340,8 @@ def main() -> None:
     card = phase_device()
     phase_build()
     rng = np.random.default_rng(2024)
-    errs = phase_kernels(rng)
+    with recording() as digests:
+        errs = phase_kernels(rng)
     work = Path(tempfile.mkdtemp(prefix="mcraw_torch_smoke_"))
     try:
         clip = work / "clip.mcraw"
@@ -2214,9 +2355,11 @@ def main() -> None:
              bytes=legacy.stat().st_size, encode_s=time.perf_counter() - t0,
              payload_bytes=[len(p) for p in lpayloads],
              scans=legacy_scans(limgs, lpayloads), native=native.have_native())
-        for name, err in phase_kernels_batch(np.random.default_rng(2025), payloads,
-                                             lpayloads).items():
+        with recording() as batch_digests:
+            batch_errs = phase_kernels_batch(np.random.default_rng(2025), payloads, lpayloads)
+        for name, err in batch_errs.items():
             errs[name] = max(errs[name], err)
+        phase_checked(work, digests + batch_digests, payloads, lpayloads)
         develop = work / "develop.mcraw"
         t0 = time.perf_counter()
         dimgs, dcm = make_develop_clip(develop)
@@ -2283,4 +2426,6 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         sys.exit(worker(sys.argv[2], int(sys.argv[3]), *sys.argv[4:7]))
+    if sys.argv[1:2] == ["--checked-child"]:
+        sys.exit(checked_child(sys.argv[2]))
     main()

@@ -1,0 +1,311 @@
+"""The checked build of the four CUDA kernels, driven on the card.
+
+    python -m mcraw_torch.bounds [--device cuda]
+
+In one process (the checked build cannot share a process with the default
+one, ``kernels/build.py::use_checked``):
+
+- clean launches of every entry point (:func:`clean_cases`): each must
+  raise no fault, and its output's digest is printed so that a caller can
+  hold it against the default library's on the same inputs;
+- :data:`NEGATIVE`: for each kernel and each kind of access it makes
+  (global load, ``cp.async``, store, shared index; develop's host reads of
+  its parameters), a clean launch with one buffer's checked extent
+  understated (``build.understate``), which must fault on that buffer and
+  count a fault of that kind;
+- :data:`WINDOWS`: a batch of each codec with one frame's offsets shuffled
+  and pointed past its own end, which must read nothing outside its own
+  window, and the same batch with every frame's checked window cut short
+  by some bytes, whose reads there must be counted as cross-frame reads
+  and not faulted.
+
+One JSON line on stdout; exit 1 if a clean launch faulted, a negative case
+did not fire on its buffer and kind, or a window count is off. Every input
+is made from a fixed seed, so another process makes the same ones.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+from typing import Callable
+
+import numpy as np
+import torch
+
+from . import encode as E
+from .kernels import build
+from .kernels import checksum as C
+from .kernels import develop as D
+from .kernels import legacy as L
+from .kernels import tables as T
+from .kernels import unpack as U
+from .kernels.staging import Staging
+from .kernels.tables import modern_tables
+from .metadata import CFA_PATTERNS
+
+SEED = 2027
+MODERN = (64, 1024)  # 16 x 16 tiles: 8 full runs of the unpack kernel
+LEGACY = (24, 1000)  # 768 pairs: 24 full runs, runs that cross rows
+DEVELOP = (37, 251)  # odd: border tiles, masked stores, unpaired loads
+DEVELOP_PARAMS = (np.array([64, 60, 70, 64], np.float32), 4095.0,
+                  np.array([0.61, 1.0, 0.72], np.float32),
+                  np.array([[0.86, 0.08, 0.02], [0.04, 0.91, 0.05],
+                            [0.01, 0.06, 0.76]], np.float32))
+BGGR = tuple(CFA_PATTERNS["bggr"])
+
+# (kernel, kind, buffer, bytes off its checked extent): each fires on a
+# clean launch of :func:`_inputs`' frame of that kernel. None: the cut
+# :func:`_inputs` computes from the frame (the modern words end where the
+# last block's 16-byte chunk starts: past the block data come the metadata
+# streams and the tail, which the kernel never reads; develop's params keep
+# 64 bytes, below the 17 floats its entry reads). The checksum's out, cut
+# to 3 bytes, fails both its host memset and its kernel's atomic add.
+NEGATIVE = (
+    ("unpack_modern", "load", "bits", 2),
+    ("unpack_modern", "cp.async", "words", None),
+    ("unpack_modern", "store", "out", 2),
+    ("unpack_modern", "shared", "s_desc", 16),
+    ("unpack_legacy", "load", "bits", 4),
+    ("unpack_legacy", "cp.async", "payload", 64),
+    ("unpack_legacy", "store", "out", 2),
+    ("unpack_legacy", "shared", "s_off", 8),
+    ("develop", "load", "raw", 2),
+    ("develop", "store", "out", 4),
+    ("develop", "shared", "s_q", 8),
+    ("develop", "host", "params", None),
+    ("checksum", "load", "x", 2),
+    ("checksum", "store", "out", 5),
+    ("checksum", "shared", "s_warp", 4),
+)
+# kernel -> bytes off every batch frame's checked window.
+WINDOWS = {"unpack_modern": 512, "unpack_legacy": 64}
+
+
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's dtype, shape and bytes."""
+    a = t.detach().cpu().contiguous()
+    h = hashlib.sha256(f"{a.dtype} {tuple(a.shape)}".encode())
+    h.update(a.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _image(rng, h: int, w: int) -> np.ndarray:
+    return rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
+
+
+def _encoded(encode, rng, h: int, w: int) -> np.ndarray:
+    return np.frombuffer(encode(_image(rng, h, w)), np.uint8)
+
+
+def _modern_synthetic(rng, ty: int, tx: int, dev, past_end: bool):
+    """Random bits 0..16 and payload bytes; `past_end`: the offsets
+    shuffled and the last three pointed at and past the end of the words."""
+    nblk = 4 * ty * tx
+    bits = rng.integers(0, 17, size=nblk, dtype=np.uint16)
+    refs = rng.integers(0, 1 << 16, size=nblk, dtype=np.uint16)
+    size = 16 + int(T.MODERN_BLOCK_LENGTH[bits].sum()) + U.TAIL_BYTES
+    size += (-size) % 16
+    payload = rng.integers(0, 256, size=size, dtype=np.uint8)
+    w, b, r = (torch.from_numpy(a).to(dev) for a in (payload.view("<i4"), bits, refs))
+    offs = U.block_offsets(b, modern_tables(dev))
+    if past_end:
+        offs = offs[torch.from_numpy(rng.permutation(nblk)).to(dev)].contiguous()
+        offs[-3:] = torch.tensor([size - 4, size, size + 64], device=dev)
+    return w, b, r, offs
+
+
+def _legacy_synthetic(rng, h: int, w: int, dev, past_end: bool):
+    """A synthetic header chain over random bytes; `past_end`: the offsets
+    shuffled and the last nine from 4 bytes before to 4 past the end."""
+    nblk = L.num_blocks(w, h)
+    bits = rng.integers(0, 17, size=nblk).astype(np.int32)
+    refs = rng.integers(0, 1 << 16, size=nblk).astype(np.uint16)
+    step = 2 + T.LEGACY_BLOCK_LENGTH[bits].astype(np.int64)
+    offsets = np.cumsum(step) - step + 2
+    payload = rng.integers(0, 256, size=int(step.sum()) + 1 + L.TAIL_BYTES, dtype=np.uint8)
+    if past_end:
+        offsets = offsets[rng.permutation(nblk)]
+        offsets[-9:] = len(payload) + np.arange(-4, 5)
+    return [torch.from_numpy(a).to(dev) for a in (payload, bits, refs, offsets)]
+
+
+def _slots(frames: list, elem: int, dev):
+    """The frames' payloads (torch, `elem` bytes an element) one after
+    another, each slot padded to 16 bytes: (buffer, bases, lengths) in
+    elements, each length the frame's own."""
+    parts, bases, lengths, at = [], [], [], 0
+    for p in frames:
+        a = p.cpu().numpy().view(np.uint8)
+        pad = np.zeros((-a.size) % 16, np.uint8)
+        parts += [a, pad]
+        bases.append(at // elem)
+        lengths.append(a.size // elem)
+        at += a.size + pad.size
+    buf = np.concatenate(parts).view(frames[0].cpu().numpy().dtype)
+    put = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)  # noqa: E731
+    return torch.from_numpy(buf).to(dev), put(bases), put(lengths)
+
+
+def _modern_batch(rng, dev, past_end: bool):
+    ty, tx = MODERN[0] // 4, MODERN[1] // 64
+    frames = [_modern_synthetic(rng, ty, tx, dev, past_end and f == 1) for f in range(3)]
+    words, bases, lengths = _slots([f[0] for f in frames], 4, dev)
+    rest = [torch.stack([f[k] for f in frames]) for k in (1, 2, 3)]
+    return lambda: U.decode_modern_batch_device(
+        words, bases, lengths, *rest, ty=ty, tx=tx, height=MODERN[0], width=MODERN[1])
+
+
+def _legacy_batch(rng, dev, past_end: bool):
+    h, w = LEGACY
+    frames = [_legacy_synthetic(rng, h, w, dev, past_end and f == 1) for f in range(3)]
+    payload, bases, lengths = _slots([f[0] for f in frames], 1, dev)
+    rest = [torch.stack([f[k] for f in frames]) for k in (1, 2, 3)]
+    return lambda: L.decode_legacy_batch_device(
+        payload, bases, lengths, *rest, height=h, width=w)
+
+
+def _inputs(dev) -> tuple[dict, dict]:
+    """kernel -> a call that launches it once on a clean frame (the
+    negative cases' inputs), and (kernel, buffer) -> the bytes to cut where
+    NEGATIVE leaves them to the frame."""
+    rng = np.random.default_rng([SEED, 1])
+    mh, mw = MODERN
+    modern = U.stage_modern(Staging(dev), _encoded(E.encode_modern, rng, mh, mw), mw, mh)
+    lh, lw = LEGACY
+    legacy = L.stage_legacy(Staging(dev), _encoded(E.encode_legacy, rng, lh, lw), lw, lh)
+    raw = torch.from_numpy(_image(rng, *DEVELOP)).to(dev)
+    params = D.pack_develop_params(*DEVELOP_PARAMS)
+    x = torch.from_numpy(_image(rng, 256, 256)).to(dev)
+    last = int(U.block_offsets(modern.bits, modern_tables(dev))[-1])
+    cuts = {("unpack_modern", "words"): 4 * modern.words.numel() - last // 16 * 16,
+            ("develop", "params"): params.nbytes - 64}
+    return {
+        "unpack_modern": lambda: U.unpack_modern(modern, mw, mh),
+        "unpack_legacy": lambda: L.unpack_legacy(legacy, lw, lh),
+        "develop": lambda: D.develop_rgba_device(raw, params, cfa=BGGR),
+        "checksum": lambda: C.device_checksum(x),
+    }, cuts
+
+
+def clean_cases(dev) -> list[tuple[str, str, Callable[[], torch.Tensor]]]:
+    """(name, kernel, call) for every entry point on clean inputs, each at
+    the edges its kernel handles: unaligned and odd sizes, batches with a
+    frame whose offsets point past its own end."""
+    rng = np.random.default_rng(SEED)
+    cases = [(f"negative-case input: {k}", k, fn) for k, fn in _inputs(dev)[0].items()]
+    mh, mw = MODERN
+    payloads = [_encoded(E.encode_modern, rng, mh, mw) for _ in range(3)]
+    cases.append(("modern batch, 3 encoded frames", "unpack_modern",
+                  lambda: U.decode_modern_batch(payloads, mw, mh, Staging(dev))))
+    for past_end in (False, True):
+        cases.append((f"modern batch, synthetic{', past its end' * past_end}",
+                      "unpack_modern", _modern_batch(rng, dev, past_end)))
+    lh, lw = LEGACY
+    lpayloads = [_encoded(E.encode_legacy, rng, lh, lw) for _ in range(3)]
+    cases.append(("legacy batch, 3 encoded frames", "unpack_legacy",
+                  lambda: L.decode_legacy_batch(lpayloads, lw, lh, Staging(dev))))
+    for past_end in (False, True):
+        cases.append((f"legacy batch, synthetic{', past its end' * past_end}",
+                      "unpack_legacy", _legacy_batch(rng, dev, past_end)))
+    single = _legacy_synthetic(rng, *LEGACY, dev, True)
+    cases.append(("legacy frame, past its end", "unpack_legacy",
+                  lambda: L.decode_legacy_device(*single, height=lh, width=lw)))
+    params = D.pack_develop_params(*DEVELOP_PARAMS)
+    frames = torch.from_numpy(_image(rng, 3 * 5, 250).reshape(3, 5, 250)).to(dev)
+    for demosaic in D.DEMOSAICS:
+        cases.append((f"develop (3, 5, 250) {demosaic}", "develop",
+                      lambda m=demosaic: D.develop_rgba_device(frames, params, cfa=BGGR,
+                                                               demosaic=m)))
+    words = torch.from_numpy(rng.integers(0, 1 << 16, size=4099, dtype=np.uint16)).to(dev)
+    for start, n in ((1, 17), (3, 4096), (0, 4099)):
+        cases.append((f"checksum uint16[{start}:{start + n}]", "checksum",
+                      lambda s=start, k=n: C.device_checksum(words[s : s + k])))
+    return cases
+
+
+def negative(dev) -> tuple[list, dict, list]:
+    """The :data:`NEGATIVE` cases on the checked build: one row each, the
+    kinds that fired by kernel, and what did not fire on its buffer and
+    kind."""
+    rows, fired, problems = [], {}, []
+    inputs, cuts = _inputs(dev)
+    for kernel, kind, buf, cut in NEGATIVE:
+        cut = cuts[kernel, buf] if cut is None else cut
+        row = {"kernel": kernel, "kind": kind, "buffer": buf, "bytes_cut": cut, "fired": False}
+        try:
+            with build.understate(kernel, **{buf: cut}):
+                inputs[kernel]()
+        except build.CheckedFault as e:
+            row.update(fired=e.counts[kind] > 0 and e.buffer == buf, named=e.buffer,
+                       counts=e.counts, text=str(e))
+        rows.append(row)
+        if row["fired"]:
+            fired.setdefault(kernel, []).append(kind)
+        else:
+            problems.append(f"{kernel} {kind} on {buf}: did not fire ({row})")
+    return rows, fired, problems
+
+
+def windows(dev) -> tuple[dict, list]:
+    """The :data:`WINDOWS` batches on the checked build: by kernel, the
+    cross-frame reads of the batch with a frame past its own end (0) and
+    of the batch with every window cut short (more than 0); and what is
+    off."""
+    out, problems = {}, []
+    for kernel, cut in WINDOWS.items():
+        batch = _modern_batch if kernel == "unpack_modern" else _legacy_batch
+        rng = np.random.default_rng([SEED, 2])
+        before = build.CHECKED["cross_frame_reads"][kernel]
+        batch(rng, dev, True)()
+        past_end = build.CHECKED["cross_frame_reads"][kernel] - before
+        with build.understate(kernel, window=cut):
+            batch(rng, dev, False)()
+        trimmed = build.CHECKED["cross_frame_reads"][kernel] - before - past_end
+        out[kernel] = {"past_end_cross_frame_reads": past_end, "window_cut": cut,
+                       "cut_cross_frame_reads": trimmed}
+        if past_end != 0 or trimmed <= 0:
+            problems.append(f"{kernel} windows: {out[kernel]}")
+    return out, problems
+
+
+def counts() -> dict:
+    """The checked launches, faults and cross-frame reads by kernel so far."""
+    return {k: dict(build.CHECKED[k]) for k in ("launches", "faults", "cross_frame_reads")}
+
+
+def run(dev) -> dict:
+    """Everything of this module's docstring in this process, on the
+    checked build: its result, and `problems` (empty when all holds)."""
+    path = build.use_checked()
+    problems = []
+    clean = {}
+    for name, _kernel, fn in clean_cases(dev):
+        try:
+            clean[name] = digest(fn())
+        except build.CheckedFault as e:
+            problems.append(f"{name}: {e}")
+    result = {"library": path.name, "clean": clean, **counts()}
+    if any(result["faults"].values()):
+        problems.append(f"clean launches faulted: {result['faults']}")
+    result["negative"], result["fired"], more = negative(dev)
+    result["windows"], most = windows(dev)
+    return {**result, "problems": problems + more + most}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m mcraw_torch.bounds")
+    ap.add_argument("--device", default="cuda", help="a CUDA device (the default: cuda)")
+    args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    if dev.type != "cuda":
+        ap.error("the checked build runs on a card: --device must be a CUDA device")
+    result = run(dev)
+    print(json.dumps(result), flush=True)
+    return 1 if result["problems"] else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

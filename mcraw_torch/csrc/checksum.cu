@@ -34,7 +34,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
+
 namespace {
+
+// The buffers of the checked build (kernels/build.py BUFFERS), in order:
+// the entry's global buffers, then the kernel's shared array.
+enum Buffer : int { kBufX, kBufOut, kBufSWarp };
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
@@ -59,7 +65,8 @@ __device__ __forceinline__ uint32_t fold<uint32_t>(uint4 v) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     checksum_kernel(const T* __restrict__ x, int64_t n, int64_t head, int64_t nvec,
-                    unsigned int* __restrict__ out) {
+                    unsigned int* __restrict__ out MCRAW_CK_KERNEL_PARAM) {
+  MCRAW_CK_KERNEL_INIT
   __shared__ unsigned int s_warp[kThreads / 32];
   const uint4* __restrict__ body = reinterpret_cast<const uint4*>(x + head);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -70,36 +77,42 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int64_t j = i + u * stride;
-      v[u] = j < nvec ? __ldg(body + j) : make_uint4(0u, 0u, 0u, 0u);
+      v[u] = j < nvec ? MCRAW_LDG(kBufX, body, j) : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) acc += fold<T>(v[u]);
   }
   if (blockIdx.x == 0) {
     const int64_t tail = head + nvec * static_cast<int64_t>(16 / sizeof(T));
-    if (threadIdx.x < head) acc += static_cast<uint32_t>(x[threadIdx.x]);
-    if (threadIdx.x < n - tail) acc += static_cast<uint32_t>(x[tail + threadIdx.x]);
+    if (threadIdx.x < head) acc += static_cast<uint32_t>(MCRAW_LD(kBufX, x, threadIdx.x));
+    if (threadIdx.x < n - tail) {
+      acc += static_cast<uint32_t>(MCRAW_LD(kBufX, x, tail + threadIdx.x));
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (lane == 0) s_warp[warp] = acc;
+  if (lane == 0) MCRAW_SST(kBufSWarp, s_warp, s_warp, warp, acc);
   __syncthreads();
   if (warp == 0) {
-    acc = lane < kThreads / 32 ? s_warp[lane] : 0u;
+    acc = lane < kThreads / 32 ? MCRAW_SLD(kBufSWarp, s_warp, s_warp, lane) : 0u;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (lane == 0) atomicAdd(out, acc);
+    if (lane == 0) MCRAW_ATOMIC_ADD(kBufOut, out, acc);
   }
 }
 
 template <typename T>
-int launch(const void* x, int64_t n, unsigned int* out, cudaStream_t stream) {
+int launch(const void* x, int64_t n, unsigned int* out,
+           cudaStream_t stream MCRAW_CK_ENTRY_PARAM) {
   constexpr int64_t per_vec = 16 / sizeof(T);
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
   if (addr % sizeof(T) != 0) return static_cast<int>(cudaErrorMisalignedAddress);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int64_t), stream);
+  cudaError_t err = cudaSuccess;
+  MCRAW_CK_HOST_IF(mcraw_check::kChecksum, mcraw_check::kEntryChecksum, kBufOut, kStore,
+                   static_cast<int64_t>(sizeof(int64_t)))
+  err = cudaMemsetAsync(out, 0, sizeof(int64_t), stream);
   if (err != cudaSuccess || n <= 0) return static_cast<int>(err);
   int64_t head = static_cast<int64_t>((16 - (addr & 15)) & 15) / sizeof(T);
   head = head < n ? head : n;
@@ -111,8 +124,9 @@ int launch(const void* x, int64_t n, unsigned int* out, cudaStream_t stream) {
   const int64_t want = (nvec + kThreads * kLoads - 1) / (kThreads * kLoads);
   const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * kBlocksPerSm;
   const int grid = static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
-  checksum_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), n, head,
-                                                     nvec, out);
+  checksum_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), n, head, nvec,
+      out MCRAW_CK_LAUNCH(mcraw_check::kChecksum, mcraw_check::kEntryChecksum));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -124,9 +138,9 @@ int launch(const void* x, int64_t n, unsigned int* out, cudaStream_t stream) {
 // cudaErrorInvalidValue for another element size, or
 // cudaErrorMisalignedAddress for a start that is not element-aligned.
 extern "C" int mcraw_checksum(const void* x, int64_t n, int32_t elem_bytes,
-                              unsigned int* out, void* stream) {
+                              unsigned int* out, void* stream MCRAW_CK_ENTRY_PARAM) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem_bytes == 2) return launch<uint16_t>(x, n, out, s);
-  if (elem_bytes == 4) return launch<uint32_t>(x, n, out, s);
+  if (elem_bytes == 2) return launch<uint16_t>(x, n, out, s MCRAW_CK_ENTRY);
+  if (elem_bytes == 4) return launch<uint32_t>(x, n, out, s MCRAW_CK_ENTRY);
   return static_cast<int>(cudaErrorInvalidValue);
 }

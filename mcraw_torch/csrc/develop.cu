@@ -74,7 +74,14 @@
 
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
+
 namespace {
+
+// The buffers of the checked build (kernels/build.py BUFFERS), in order:
+// the entry's buffers (params and cfa in host memory), then the kernel's
+// shared arrays.
+enum Buffer : int { kBufRaw, kBufOut, kBufQuantizer, kBufParams, kBufCfa, kBufSTile, kBufSQ };
 
 constexpr int kTileW = 64;                 // output pixels per block, across
 constexpr int kTileH = 32;                 // and down
@@ -93,6 +100,8 @@ constexpr int kBucketBase = (0x39000000 >> 16) - 1;  // 2^-13
 constexpr int kQuantizer = (0x3F800000 >> 16) - kBucketBase + 1;
 
 static_assert(kRowW % 4 == 0, "rows must stay 16-byte aligned");
+constexpr int64_t kTileBytes = sizeof(float) * kRows * kRowW;
+constexpr int64_t kQuantizerBytes = sizeof(uint2) * kQuantizer;
 
 struct DevelopParams {
   float black[4];      // per 2x2 site
@@ -246,14 +255,14 @@ __device__ __forceinline__ void malvar(const float (&w)[6][8], float (&rgb)[3]) 
 // lin's exponent and top 7 mantissa bits (an arithmetic shift: -0.0 is
 // negative and lands in bucket 0). No float-to-int conversion, which
 // issues at 1/8 of the float rate.
-__device__ __forceinline__ uint32_t quantize(float lin, const uint2* q) {
+__device__ __forceinline__ uint32_t quantize(float lin, const uint2* q MCRAW_CK_PARAM) {
   const int k = max(__float_as_int(lin) >> 16, kBucketBase) - kBucketBase;
-  const uint2 e = q[k];
+  const uint2 e = MCRAW_SLDN(kBufSQ, q, kQuantizerBytes, q, k);
   return e.y + (__uint_as_float(e.x) <= lin ? 1u : 0u);
 }
 
 __device__ __forceinline__ uint32_t emit(const DevelopParams& p, const float (&rgb)[3],
-                                         const uint2* q) {
+                                         const uint2* q MCRAW_CK_PARAM) {
   uint32_t packed = 0xFF000000u;
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
@@ -261,7 +270,7 @@ __device__ __forceinline__ uint32_t emit(const DevelopParams& p, const float (&r
                           mul(p.m[3 * r + 2], rgb[2]));
     // clip to [0, 1], NaN to 0 (fmaxf returns the number): the quantizer's
     // index stays inside its table.
-    packed |= quantize(fminf(fmaxf(lin, 0.f), 1.f), q) << (8 * r);
+    packed |= quantize(fminf(fmaxf(lin, 0.f), 1.f), q MCRAW_CK) << (8 * r);
   }
   return packed;
 }
@@ -269,33 +278,34 @@ __device__ __forceinline__ uint32_t emit(const DevelopParams& p, const float (&r
 template <class P, bool kMalvar, bool kEdge, int OY, int OX>
 __device__ __forceinline__ uint32_t pixel(const DevelopParams& p, const float (&w)[6][8],
                                           int y, int x, int height, int width,
-                                          const uint2* q) {
+                                          const uint2* q MCRAW_CK_PARAM) {
   float rgb[3];
   if constexpr (kMalvar) {
     malvar<P, OY, OX>(w, rgb);
   } else {
     bilinear<P, kEdge, OY, OX>(p, w, y + OY, x + OX, height, width, rgb);
   }
-  return emit(p, rgb, q);
+  return emit(p, rgb, q MCRAW_CK);
 }
 
 template <class P, bool kMalvar, bool kEdge, int OY>
 __device__ __forceinline__ void store_row(const DevelopParams& p, const float (&w)[6][8],
                                           uint32_t* __restrict__ frame_out, int y, int x,
-                                          int height, int width, const uint2* q) {
+                                          int height, int width,
+                                          const uint2* q MCRAW_CK_PARAM) {
   if (y + OY >= height) return;
-  const uint32_t v0 = pixel<P, kMalvar, kEdge, OY, 0>(p, w, y, x, height, width, q);
-  const uint32_t v1 = pixel<P, kMalvar, kEdge, OY, 1>(p, w, y, x, height, width, q);
-  const uint32_t v2 = pixel<P, kMalvar, kEdge, OY, 2>(p, w, y, x, height, width, q);
-  const uint32_t v3 = pixel<P, kMalvar, kEdge, OY, 3>(p, w, y, x, height, width, q);
+  const uint32_t v0 = pixel<P, kMalvar, kEdge, OY, 0>(p, w, y, x, height, width, q MCRAW_CK);
+  const uint32_t v1 = pixel<P, kMalvar, kEdge, OY, 1>(p, w, y, x, height, width, q MCRAW_CK);
+  const uint32_t v2 = pixel<P, kMalvar, kEdge, OY, 2>(p, w, y, x, height, width, q MCRAW_CK);
+  const uint32_t v3 = pixel<P, kMalvar, kEdge, OY, 3>(p, w, y, x, height, width, q MCRAW_CK);
   uint32_t* o = frame_out + static_cast<int64_t>(y + OY) * width + x;
   if ((width & 3) == 0 && x + 3 < width) {
-    *reinterpret_cast<uint4*>(o) = make_uint4(v0, v1, v2, v3);
+    MCRAW_ST(kBufOut, reinterpret_cast<uint4*>(o), 0, make_uint4(v0, v1, v2, v3));
   } else {
-    if (x < width) o[0] = v0;
-    if (x + 1 < width) o[1] = v1;
-    if (x + 2 < width) o[2] = v2;
-    if (x + 3 < width) o[3] = v3;
+    if (x < width) MCRAW_ST(kBufOut, o, 0, v0);
+    if (x + 1 < width) MCRAW_ST(kBufOut, o, 1, v1);
+    if (x + 2 < width) MCRAW_ST(kBufOut, o, 2, v2);
+    if (x + 3 < width) MCRAW_ST(kBufOut, o, 3, v3);
   }
 }
 
@@ -317,7 +327,7 @@ __device__ __forceinline__ void load_tile(const uint16_t* __restrict__ fr, int y
                                           int height, int width, bool paired,
                                           const int (&sy)[kQuadSteps],
                                           const int (&sx)[kQuadSteps],
-                                          uint2 (&raw)[kQuadSteps]) {
+                                          uint2 (&raw)[kQuadSteps] MCRAW_CK_PARAM) {
 #pragma unroll
   for (int k = 0; k < kQuadSteps; ++k) {
     const int gy = y0 - kHalo + sy[k];
@@ -326,18 +336,18 @@ __device__ __forceinline__ void load_tile(const uint16_t* __restrict__ fr, int y
     const uint16_t* row = fr + static_cast<int64_t>(gy) * width;
     if (kInterior) {
       if (sy[k] < kRows) {
-        v[0] = __ldg(reinterpret_cast<const uint32_t*>(row + gx));
-        v[1] = __ldg(reinterpret_cast<const uint32_t*>(row + gx + 2));
+        v[0] = MCRAW_LDG(kBufRaw, reinterpret_cast<const uint32_t*>(row + gx), 0);
+        v[1] = MCRAW_LDG(kBufRaw, reinterpret_cast<const uint32_t*>(row + gx + 2), 0);
       }
     } else if (sy[k] < kRows && static_cast<unsigned>(gy) < static_cast<unsigned>(height)) {
       if (paired && gx >= 0 && gx + 3 < width) {
-        v[0] = __ldg(reinterpret_cast<const uint32_t*>(row + gx));
-        v[1] = __ldg(reinterpret_cast<const uint32_t*>(row + gx + 2));
+        v[0] = MCRAW_LDG(kBufRaw, reinterpret_cast<const uint32_t*>(row + gx), 0);
+        v[1] = MCRAW_LDG(kBufRaw, reinterpret_cast<const uint32_t*>(row + gx + 2), 0);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           if (static_cast<unsigned>(gx + e) < static_cast<unsigned>(width)) {
-            v[e >> 1] |= static_cast<uint32_t>(__ldg(row + gx + e)) << (16 * (e & 1));
+            v[e >> 1] |= static_cast<uint32_t>(MCRAW_LDG(kBufRaw, row + gx, e)) << (16 * (e & 1));
           }
         }
       }
@@ -360,7 +370,7 @@ __device__ __forceinline__ void stage_tile(const DevelopParams& p, int y0, int x
                                            int width, const int (&sy)[kQuadSteps],
                                            const int (&sx)[kQuadSteps],
                                            const uint2 (&raw)[kQuadSteps],
-                                           float (*tile)[kRowW]) {
+                                           float (*tile)[kRowW] MCRAW_CK_PARAM) {
 #pragma unroll
   for (int k = 0; k < kQuadSteps; ++k) {
     if (sy[k] >= kRows) break;
@@ -384,7 +394,8 @@ __device__ __forceinline__ void stage_tile(const DevelopParams& p, int y0, int x
       v[e] = in ? clip01(mul(sub(u, odd ? b1 : b0), odd ? s1 : s0)) : 0.f;
       if constexpr (kMalvar) v[e] = mul(v[e], odd ? g1 : g0);
     }
-    *reinterpret_cast<float4*>(&tile[sy[k]][sx[k]]) = make_float4(v[0], v[1], v[2], v[3]);
+    MCRAW_SSTN(kBufSTile, tile, kTileBytes, reinterpret_cast<float4*>(&tile[sy[k]][sx[k]]), 0,
+               make_float4(v[0], v[1], v[2], v[3]));
   }
 }
 
@@ -396,12 +407,16 @@ template <class P, bool kMalvar>
 __global__ void __launch_bounds__(kThreads, 3)
     develop_kernel(const uint16_t* __restrict__ raw, uint32_t* __restrict__ out, int height,
                    int width, int tiles_x, int tiles_y, int tiles,
-                   const uint2* __restrict__ quantizer, const __grid_constant__ DevelopParams p) {
+                   const uint2* __restrict__ quantizer,
+                   const __grid_constant__ DevelopParams p MCRAW_CK_KERNEL_PARAM) {
+  MCRAW_CK_KERNEL_INIT
   __shared__ __align__(16) float s_tile[kRows][kRowW];
   __shared__ uint2 s_q[kQuantizer];
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < kQuantizer; i += kThreads) s_q[i] = quantizer[i];
+  for (int i = tid; i < kQuantizer; i += kThreads) {
+    MCRAW_SST(kBufSQ, s_q, s_q, i, MCRAW_LD(kBufQuantizer, quantizer, i));
+  }
   const bool paired = (width & 1) == 0 && (reinterpret_cast<uintptr_t>(raw) & 3) == 0;
   const int64_t plane = static_cast<int64_t>(height) * width;
   int sy[kQuadSteps], sx[kQuadSteps];  // the thread's staged places, per step
@@ -444,9 +459,9 @@ __global__ void __launch_bounds__(kThreads, 3)
   auto load = [&](const TileAt& t, uint2 (&dst)[kQuadSteps]) {
     const uint16_t* fr = raw + static_cast<int64_t>(t.f) * plane;
     if (t.interior) {
-      load_tile<true>(fr, t.y0, t.x0, height, width, paired, sy, sx, dst);
+      load_tile<true>(fr, t.y0, t.x0, height, width, paired, sy, sx, dst MCRAW_CK);
     } else {
-      load_tile<false>(fr, t.y0, t.x0, height, width, paired, sy, sx, dst);
+      load_tile<false>(fr, t.y0, t.x0, height, width, paired, sy, sx, dst MCRAW_CK);
     }
   };
 
@@ -455,9 +470,9 @@ __global__ void __launch_bounds__(kThreads, 3)
   load(t, cur);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     if (t.interior) {
-      stage_tile<kMalvar, true>(p, t.y0, t.x0, height, width, sy, sx, cur, s_tile);
+      stage_tile<kMalvar, true>(p, t.y0, t.x0, height, width, sy, sx, cur, s_tile MCRAW_CK);
     } else {
-      stage_tile<kMalvar, false>(p, t.y0, t.x0, height, width, sy, sx, cur, s_tile);
+      stage_tile<kMalvar, false>(p, t.y0, t.x0, height, width, sy, sx, cur, s_tile MCRAW_CK);
     }
     __syncthreads();
     const int y0 = t.y0, x0 = t.x0, frame = t.f;
@@ -475,18 +490,20 @@ __global__ void __launch_bounds__(kThreads, 3)
       float w[6][8];
 #pragma unroll
       for (int r = 0; r < 6; ++r) {
-        const float4 lo = *reinterpret_cast<const float4*>(&s_tile[2 * qy + r][4 * qx]);
-        const float4 hi = *reinterpret_cast<const float4*>(&s_tile[2 * qy + r][4 * qx + 4]);
+        const float4* lo4 = reinterpret_cast<const float4*>(&s_tile[2 * qy + r][4 * qx]);
+        const float4* hi4 = reinterpret_cast<const float4*>(&s_tile[2 * qy + r][4 * qx + 4]);
+        const float4 lo = MCRAW_SLD(kBufSTile, s_tile, lo4, 0);
+        const float4 hi = MCRAW_SLD(kBufSTile, s_tile, hi4, 0);
         w[r][0] = lo.x; w[r][1] = lo.y; w[r][2] = lo.z; w[r][3] = lo.w;
         w[r][4] = hi.x; w[r][5] = hi.y; w[r][6] = hi.z; w[r][7] = hi.w;
       }
       uint32_t* __restrict__ fo = out + static_cast<int64_t>(frame) * plane;
       if (kMalvar || (x > 0 && x + 4 < width && y > 0 && y + 2 < height)) {
-        store_row<P, kMalvar, false, 0>(p, w, fo, y, x, height, width, s_q);
-        store_row<P, kMalvar, false, 1>(p, w, fo, y, x, height, width, s_q);
+        store_row<P, kMalvar, false, 0>(p, w, fo, y, x, height, width, s_q MCRAW_CK);
+        store_row<P, kMalvar, false, 1>(p, w, fo, y, x, height, width, s_q MCRAW_CK);
       } else {
-        store_row<P, kMalvar, true, 0>(p, w, fo, y, x, height, width, s_q);
-        store_row<P, kMalvar, true, 1>(p, w, fo, y, x, height, width, s_q);
+        store_row<P, kMalvar, true, 0>(p, w, fo, y, x, height, width, s_q MCRAW_CK);
+        store_row<P, kMalvar, true, 1>(p, w, fo, y, x, height, width, s_q MCRAW_CK);
       }
     }
     __syncthreads();  // the tile is restaged next
@@ -496,7 +513,7 @@ __global__ void __launch_bounds__(kThreads, 3)
 template <class P, bool kMalvar>
 cudaError_t launch_one(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x,
                        int tiles_y, int tiles, const uint2* quantizer,
-                       const DevelopParams& p, cudaStream_t s) {
+                       const DevelopParams& p, cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -504,17 +521,20 @@ cudaError_t launch_one(const uint16_t* raw, uint32_t* out, int h, int w, int til
                                                 0);
   const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);  // tiles < 2^31
-  develop_kernel<P, kMalvar><<<grid, kThreads, 0, s>>>(raw, out, h, w, tiles_x, tiles_y,
-                                                       tiles, quantizer, p);
+  develop_kernel<P, kMalvar><<<grid, kThreads, 0, s>>>(
+      raw, out, h, w, tiles_x, tiles_y, tiles, quantizer,
+      p MCRAW_CK_LAUNCH(mcraw_check::kDevelop, mcraw_check::kEntryDevelop));
   return cudaGetLastError();
 }
 
 template <class P>
 cudaError_t launch(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x, int tiles_y,
                    int tiles, const uint2* quantizer, const DevelopParams& p, bool malvar,
-                   cudaStream_t s) {
-  return malvar ? launch_one<P, true>(raw, out, h, w, tiles_x, tiles_y, tiles, quantizer, p, s)
-                : launch_one<P, false>(raw, out, h, w, tiles_x, tiles_y, tiles, quantizer, p, s);
+                   cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
+  return malvar ? launch_one<P, true>(raw, out, h, w, tiles_x, tiles_y, tiles, quantizer, p,
+                                      s MCRAW_CK_ENTRY)
+                : launch_one<P, false>(raw, out, h, w, tiles_x, tiles_y, tiles, quantizer, p,
+                                       s MCRAW_CK_ENTRY);
 }
 
 }  // namespace
@@ -531,13 +551,17 @@ cudaError_t launch(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x
 extern "C" int mcraw_develop(const uint16_t* raw, uint32_t* out, int64_t frames,
                              int64_t height, int64_t width, const float* params,
                              const int32_t* cfa, const uint2* quantizer, int32_t malvar,
-                             void* stream) {
+                             void* stream MCRAW_CK_ENTRY_PARAM) {
   if (frames <= 0 || height <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   const int64_t gx = (width + kTileW - 1) / kTileW;
   const int64_t gy = (height + kTileH - 1) / kTileH;
   if (height * width > (int64_t{1} << 31) || gx * gy * frames > 0x7FFFFFFF) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  MCRAW_CK_HOST(mcraw_check::kDevelop, mcraw_check::kEntryDevelop, kBufParams, kHost,
+                static_cast<int64_t>(17 * sizeof(float)))
+  MCRAW_CK_HOST(mcraw_check::kDevelop, mcraw_check::kEntryDevelop, kBufCfa, kHost,
+                static_cast<int64_t>(4 * sizeof(int32_t)))
   DevelopParams p;
   const float white = params[4];
   for (int k = 0; k < 4; ++k) {
@@ -559,16 +583,20 @@ extern "C" int mcraw_develop(const uint16_t* raw, uint32_t* out, int64_t frames,
   cudaError_t err = cudaErrorInvalidValue;
   switch (((cfa[0] * 3 + cfa[1]) * 3 + cfa[2]) * 3 + cfa[3]) {
     case ((0 * 3 + 1) * 3 + 1) * 3 + 2:  // rggb
-      err = launch<Cfa<0, 1, 1, 2>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m, s);
+      err = launch<Cfa<0, 1, 1, 2>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m,
+                                    s MCRAW_CK_ENTRY);
       break;
     case ((2 * 3 + 1) * 3 + 1) * 3 + 0:  // bggr
-      err = launch<Cfa<2, 1, 1, 0>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m, s);
+      err = launch<Cfa<2, 1, 1, 0>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m,
+                                    s MCRAW_CK_ENTRY);
       break;
     case ((1 * 3 + 0) * 3 + 2) * 3 + 1:  // grbg
-      err = launch<Cfa<1, 0, 2, 1>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m, s);
+      err = launch<Cfa<1, 0, 2, 1>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m,
+                                    s MCRAW_CK_ENTRY);
       break;
     case ((1 * 3 + 2) * 3 + 0) * 3 + 1:  // gbrg
-      err = launch<Cfa<1, 2, 0, 1>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m, s);
+      err = launch<Cfa<1, 2, 0, 1>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m,
+                                    s MCRAW_CK_ENTRY);
       break;
     default:
       break;

@@ -63,7 +63,16 @@
 
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
+
 namespace {
+
+// The buffers of the checked build (kernels/build.py BUFFERS), in order:
+// the entry's global buffers, then the kernel's shared arrays.
+enum Buffer : int {
+  kBufPayload, kBufBits, kBufRefs, kBufOffsets, kBufOut, kBufBases, kBufLengths,
+  kBufSSpan, kBufSOff, kBufSCls, kBufSRef,
+};
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -92,18 +101,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 __device__ __forceinline__ uint32_t byte_at(const uint8_t* __restrict__ p, int64_t n,
-                                            int64_t i) {
-  return (i >= 0 && i < n) ? static_cast<uint32_t>(p[i]) : 0u;
+                                            int64_t i MCRAW_CK_PARAM) {
+  return (i >= 0 && i < n) ? static_cast<uint32_t>(MCRAW_LD(kBufPayload, p, i)) : 0u;
 }
 
 // The 8-byte big-endian window at byte s of the staged span: words
 // s/4 .. s/4 + 2, bytes picked in reverse order by two permutes.
-__device__ __forceinline__ uint64_t staged_window(const uint32_t* span, int s) {
+__device__ __forceinline__ uint64_t staged_window(const uint32_t* span, int s MCRAW_CK_PARAM) {
   const int i = s >> 2;
   // __byte_perm(x, y, sel): result byte k is byte (sel >> 4k) & 7 of y:x.
   // Bytes a + 3, a + 2, a + 1, a (a = s % 4) give the big-endian word.
   const unsigned be = 0x0123u + 0x1111u * static_cast<unsigned>(s & 3);
-  const uint32_t w0 = span[i], w1 = span[i + 1], w2 = span[i + 2];
+  const uint32_t w0 = MCRAW_SLDN(kBufSSpan, span, kSpanBytes, span, i);
+  const uint32_t w1 = MCRAW_SLDN(kBufSSpan, span, kSpanBytes, span, i + 1);
+  const uint32_t w2 = MCRAW_SLDN(kBufSSpan, span, kSpanBytes, span, i + 2);
   const uint32_t hi = __byte_perm(w0, w1, be);
   const uint32_t lo = __byte_perm(w1, w2, be);
   return static_cast<uint64_t>(hi) << 32 | lo;
@@ -112,10 +123,10 @@ __device__ __forceinline__ uint64_t staged_window(const uint32_t* span, int s) {
 // The same window read byte by byte from device memory, 0 outside
 // [0, n_bytes).
 __device__ __forceinline__ uint64_t bounded_window(const uint8_t* __restrict__ payload,
-                                                   int64_t n_bytes, int64_t s) {
+                                                   int64_t n_bytes, int64_t s MCRAW_CK_PARAM) {
   uint64_t w = 0;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) w = w << 8 | byte_at(payload, n_bytes, s + k);
+  for (int k = 0; k < 8; ++k) w = w << 8 | byte_at(payload, n_bytes, s + k MCRAW_CK);
   return w;
 }
 
@@ -140,11 +151,13 @@ __global__ void __launch_bounds__(kThreads) unpack_legacy_kernel(
     const uint16_t* __restrict__ refs, const int64_t* __restrict__ offsets,
     uint16_t* __restrict__ out, int64_t pairs, int64_t pairs_per_row, int64_t width,
     const int64_t* __restrict__ bases, const int64_t* __restrict__ lengths, int64_t nblk,
-    int64_t frame_elems) {
+    int64_t frame_elems MCRAW_CK_KERNEL_PARAM) {
+  MCRAW_CK_KERNEL_INIT
   if constexpr (kBatch) {
     const int64_t f = blockIdx.y;
-    int64_t base = bases[f];
-    int64_t len = lengths[f];
+    int64_t base = MCRAW_LD(kBufBases, bases, f);
+    int64_t len = MCRAW_LD(kBufLengths, lengths, f);
+    MCRAW_CK_WINDOW(kBufPayload, payload, base, len, 1)
     base = base < 0 ? 0 : (base > n_bytes ? n_bytes : base);
     len = len < 0 ? 0 : (len > n_bytes - base ? n_bytes - base : len);
     payload += base;
@@ -166,8 +179,8 @@ __global__ void __launch_bounds__(kThreads) unpack_legacy_kernel(
 
   // The span from the run's first and last offsets, copied while the
   // metadata loads; whether the run may read it is decided after both.
-  const int64_t lo = offsets[b0];
-  const int64_t last = offsets[b0 + nb - 1];
+  const int64_t lo = MCRAW_LD(kBufOffsets, offsets, b0);
+  const int64_t last = MCRAW_LD(kBufOffsets, offsets, b0 + nb - 1);
   const int64_t lo16 = lo & ~int64_t{15};
   const int64_t hi16 = ((last < n_bytes ? last : n_bytes) + kWindowReach + 15) & ~int64_t{15};
   const bool span_ok = lo >= 0 && last >= lo && last <= n_bytes && hi16 - lo16 <= kSpanBytes;
@@ -177,27 +190,28 @@ __global__ void __launch_bounds__(kThreads) unpack_legacy_kernel(
     for (int i = tid; i < chunks; i += kThreads) {
       const int64_t g = lo16 + 16 * static_cast<int64_t>(i);  // byte in the payload
       if (aligned && g + 16 <= n_bytes) {
-        cp_async16(s_span + 4 * i, payload + g);
+        MCRAW_CP_ASYNC16(kBufSSpan, s_span, s_span + 4 * i, kBufPayload, payload + g);
       } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int64_t j = g + 4 * k;
-          s_span[4 * i + k] = byte_at(payload, n_bytes, j) |
-                              byte_at(payload, n_bytes, j + 1) << 8 |
-                              byte_at(payload, n_bytes, j + 2) << 16 |
-                              byte_at(payload, n_bytes, j + 3) << 24;
+          MCRAW_SST(kBufSSpan, s_span, s_span, 4 * i + k,
+                    byte_at(payload, n_bytes, j MCRAW_CK) |
+                        byte_at(payload, n_bytes, j + 1 MCRAW_CK) << 8 |
+                        byte_at(payload, n_bytes, j + 2 MCRAW_CK) << 16 |
+                        byte_at(payload, n_bytes, j + 3 MCRAW_CK) << 24);
         }
       }
     }
   }
   bool ok = span_ok;
   if (tid < nb) {
-    const int bb = bits[b0 + tid];
+    const int bb = MCRAW_LD(kBufBits, bits, b0 + tid);
     const int cl = bb < 0 ? 0 : (bb > 16 ? 16 : bb);
-    const int64_t o = offsets[b0 + tid];
-    s_cls[tid] = cl <= 10 ? cl : 16;
-    s_ref[tid] = refs[b0 + tid];
-    s_off[tid] = o;
+    const int64_t o = MCRAW_LD(kBufOffsets, offsets, b0 + tid);
+    MCRAW_SST(kBufSCls, s_cls, s_cls, tid, cl <= 10 ? cl : 16);
+    MCRAW_SST(kBufSRef, s_ref, s_ref, tid, MCRAW_LD(kBufRefs, refs, b0 + tid));
+    MCRAW_SST(kBufSOff, s_off, s_off, tid, o);
     ok = ok && o >= lo && o <= last;
   }
   cp_async_wait_all();
@@ -216,28 +230,29 @@ __global__ void __launch_bounds__(kThreads) unpack_legacy_kernel(
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int lb = 2 * lp + e;
-    const int c = s_cls[lb];
+    const int c = MCRAW_SLD(kBufSCls, s_cls, s_cls, lb);
     if (c == 0) {
       v[e][0] = v[e][1] = v[e][2] = v[e][3] = 0u;
     } else {
-      const int64_t s = s_off[lb] + ((q * c) >> 1);  // the window's first byte
-      const uint64_t win = staged ? staged_window(s_span, static_cast<int>(s - lo16))
-                                  : bounded_window(payload, n_bytes, s);
+      // the window's first byte
+      const int64_t s = MCRAW_SLD(kBufSOff, s_off, s_off, lb) + ((q * c) >> 1);
+      const uint64_t win = staged ? staged_window(s_span, static_cast<int>(s - lo16) MCRAW_CK)
+                                  : bounded_window(payload, n_bytes, s MCRAW_CK);
       quad_values(win, c, q, v[e]);
     }
-    const uint32_t ref = s_ref[lb];
+    const uint32_t ref = MCRAW_SLD(kBufSRef, s_ref, s_ref, lb);
 #pragma unroll
     for (int k = 0; k < 4; ++k) v[e][k] = (v[e][k] + ref) & 0xFFFFu;
   }
   uint16_t* o = out + static_cast<int64_t>(y) * width + x;
   if ((width & 7) == 0 && x + 8 <= width) {
-    *reinterpret_cast<uint4*>(o) =
-        make_uint4(v[0][0] | v[1][0] << 16, v[0][1] | v[1][1] << 16,
-                   v[0][2] | v[1][2] << 16, v[0][3] | v[1][3] << 16);
+    MCRAW_ST(kBufOut, reinterpret_cast<uint4*>(o), 0,
+             make_uint4(v[0][0] | v[1][0] << 16, v[0][1] | v[1][1] << 16,
+                        v[0][2] | v[1][2] << 16, v[0][3] | v[1][3] << 16));
   } else {
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      if (x + k < width) o[k] = static_cast<uint16_t>(v[k & 1][k >> 1]);
+      if (x + k < width) MCRAW_ST(kBufOut, o, k, static_cast<uint16_t>(v[k & 1][k >> 1]));
     }
   }
 }
@@ -253,7 +268,7 @@ extern "C" int mcraw_unpack_legacy(const uint8_t* payload, int64_t n_bytes,
                                    const int32_t* bits, const uint16_t* refs,
                                    const int64_t* offsets, uint16_t* out,
                                    int64_t height, int64_t width,
-                                   int64_t padded_width, void* stream) {
+                                   int64_t padded_width, void* stream MCRAW_CK_ENTRY_PARAM) {
   const int64_t pairs_per_row = padded_width / 32;
   const int64_t pairs = height * pairs_per_row;
   if (pairs <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
@@ -262,7 +277,7 @@ extern "C" int mcraw_unpack_legacy(const uint8_t* payload, int64_t n_bytes,
   unpack_legacy_kernel<false><<<static_cast<unsigned>(runs), kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       payload, n_bytes, bits, refs, offsets, out, pairs, pairs_per_row, width, nullptr,
-      nullptr, 0, 0);
+      nullptr, 0, 0 MCRAW_CK_LAUNCH(mcraw_check::kUnpackLegacy, mcraw_check::kEntryUnpackLegacy));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,7 +293,8 @@ extern "C" int mcraw_unpack_legacy_batch(const uint8_t* payload, int64_t n_bytes
                                          int64_t frames, const int32_t* bits,
                                          const uint16_t* refs, const int64_t* offsets,
                                          uint16_t* out, int64_t height, int64_t width,
-                                         int64_t padded_width, void* stream) {
+                                         int64_t padded_width,
+                                         void* stream MCRAW_CK_ENTRY_PARAM) {
   const int64_t pairs_per_row = padded_width / 32;
   const int64_t pairs = height * pairs_per_row;
   if (frames <= 0 || pairs <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
@@ -287,6 +303,8 @@ extern "C" int mcraw_unpack_legacy_batch(const uint8_t* payload, int64_t n_bytes
   const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(frames));
   unpack_legacy_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       payload, n_bytes, bits, refs, offsets, out, pairs, pairs_per_row, width, bases, lengths,
-      2 * pairs, height * width);
+      2 * pairs,
+      height * width MCRAW_CK_LAUNCH(mcraw_check::kUnpackLegacy,
+                                     mcraw_check::kEntryUnpackLegacyBatch));
   return static_cast<int>(cudaGetLastError());
 }

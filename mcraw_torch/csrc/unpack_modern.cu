@@ -58,13 +58,29 @@
 
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
+
 namespace {
+
+// The buffers of the checked build (kernels/build.py BUFFERS), in order:
+// the entry's global buffers, then the kernel's shared arrays.
+enum Buffer : int {
+  kBufWords, kBufBits, kBufRefs, kBufOffsets, kBufDesc, kBufClassIndex, kBufOut, kBufBases,
+  kBufLengths, kBufSDesc, kBufSWords, kBufSOff, kBufSCls, kBufSRef,
+};
+
+#ifdef MCRAW_CHECKED
+#define MCRAW_WORDS_CK , &ck, s_words
+#else
+#define MCRAW_WORDS_CK
+#endif
 
 constexpr int kClasses = 10;
 constexpr int kQuads = 16;                // groups of 4 values in a block
 constexpr int kFields = 3;
 constexpr int kDescRow = kQuads * kFields + 1;  // + (field count, 0, 0, 0)
 constexpr int kDesc = kClasses * kDescRow;      // int4 entries
+constexpr int64_t kDescBytes = kDesc * sizeof(int4);
 constexpr int kBitsLut = 17;
 constexpr int kClass16 = kClasses - 1;    // the 16-bit class: straight copy
 constexpr int kWarps = 8;
@@ -96,12 +112,20 @@ struct Words {
   const int32_t* words;
   int64_t first;           // the block's first word in the payload
   int64_t n_words;
+#ifdef MCRAW_CHECKED
+  const mcraw_check::Check* check;
+  const uint32_t* span;    // the staged span's first word
+#endif
   __device__ __forceinline__ uint32_t operator[](int i) const {
+#ifdef MCRAW_CHECKED
+    const mcraw_check::Check& ck = *check;
+#endif
     if constexpr (kStaged) {
-      return staged[i];
+      return MCRAW_SLDN(kBufSWords, span, kSpanBytes, staged, i);
     } else {
       const int64_t wi = first + i;
-      return (wi >= 0 && wi < n_words) ? static_cast<uint32_t>(words[wi]) : 0u;
+      return (wi >= 0 && wi < n_words) ? static_cast<uint32_t>(MCRAW_LD(kBufWords, words, wi))
+                                       : 0u;
     }
   }
 };
@@ -109,7 +133,8 @@ struct Words {
 // Values j0 .. j0 + 3 of a block of class `cls`, references not added.
 template <bool kStaged>
 __device__ __forceinline__ void block_values(const Words<kStaged>& w, const int4* desc,
-                                             int cls, int j0, uint32_t (&v)[4]) {
+                                             int cls, int j0,
+                                             uint32_t (&v)[4] MCRAW_CK_PARAM) {
   if (cls == kClass16) {
     const uint32_t w0 = w[j0 >> 1];
     const uint32_t w1 = w[(j0 >> 1) + 1];
@@ -120,12 +145,13 @@ __device__ __forceinline__ void block_values(const Words<kStaged>& w, const int4
     return;
   }
   const int4* d = desc + cls * kDescRow;
-  const int nf = d[kDescRow - 1].x;
+  const int nf = MCRAW_SLDN(kBufSDesc, desc, kDescBytes, d, kDescRow - 1).x;
   v[0] = v[1] = v[2] = v[3] = 0u;
 #pragma unroll
   for (int f = 0; f < kFields; ++f) {
     if (f >= nf) break;
-    const int4 e = d[(j0 >> 2) * kFields + f];  // widx, rsh, mask, lsh
+    const int4 e = MCRAW_SLDN(kBufSDesc, desc, kDescBytes, d, (j0 >> 2) * kFields + f);
+    // e: widx, rsh, mask, lsh
     const uint32_t ws = w[e.x] >> e.y;
     const uint32_t mask = static_cast<uint32_t>(e.z);
 #pragma unroll
@@ -144,11 +170,13 @@ __global__ void __launch_bounds__(kThreads) unpack_modern_kernel(
     const int4* __restrict__ desc, const int64_t* __restrict__ class_index,
     uint16_t* __restrict__ out, int64_t tx, int64_t tiles, int64_t rows, int64_t width,
     const int64_t* __restrict__ bases, const int64_t* __restrict__ lengths, int64_t nblk,
-    int64_t frame_elems) {
+    int64_t frame_elems MCRAW_CK_KERNEL_PARAM) {
+  MCRAW_CK_KERNEL_INIT
   if constexpr (kBatch) {
     const int64_t f = blockIdx.y;
-    int64_t base = bases[f];
-    int64_t len = lengths[f];
+    int64_t base = MCRAW_LD(kBufBases, bases, f);
+    int64_t len = MCRAW_LD(kBufLengths, lengths, f);
+    MCRAW_CK_WINDOW(kBufWords, words, base, len, 4)
     base = base < 0 ? 0 : (base > n_words ? n_words : base);
     len = len < 0 ? 0 : (len > n_words - base ? n_words - base : len);
     words += base;
@@ -168,22 +196,25 @@ __global__ void __launch_bounds__(kThreads) unpack_modern_kernel(
   const int64_t run = blockIdx.x;
   const int64_t b0 = run * kRunBlocks;
   const int nb = static_cast<int>(4 * tiles - b0 < kRunBlocks ? 4 * tiles - b0 : kRunBlocks);
-  for (int i = tid; i < kDesc; i += kThreads) s_desc[i] = desc[i];
+  for (int i = tid; i < kDesc; i += kThreads) {
+    MCRAW_SST(kBufSDesc, s_desc, s_desc, i, MCRAW_LD(kBufDesc, desc, i));
+  }
   if (tid < nb) {
-    const unsigned bb = bits[b0 + tid];
-    s_cls[tid] = static_cast<int32_t>(class_index[bb > 16 ? 16 : bb]);
-    s_ref[tid] = refs[b0 + tid];
-    s_off[tid] = offsets[b0 + tid];
+    const unsigned bb = MCRAW_LD(kBufBits, bits, b0 + tid);
+    MCRAW_SST(kBufSCls, s_cls, s_cls, tid,
+              static_cast<int32_t>(MCRAW_LD(kBufClassIndex, class_index, bb > 16 ? 16 : bb)));
+    MCRAW_SST(kBufSRef, s_ref, s_ref, tid, MCRAW_LD(kBufRefs, refs, b0 + tid));
+    MCRAW_SST(kBufSOff, s_off, s_off, tid, MCRAW_LD(kBufOffsets, offsets, b0 + tid));
   }
   __syncthreads();
 
-  const int64_t lo = s_off[0];
-  const int64_t last = s_off[nb - 1];
+  const int64_t lo = MCRAW_SLD(kBufSOff, s_off, s_off, 0);
+  const int64_t last = MCRAW_SLD(kBufSOff, s_off, s_off, nb - 1);
   const int64_t lo16 = lo & ~int64_t{15};
   const int64_t hi16 = ((last & ~int64_t{3}) + kMaxBlockBytes + 15) & ~int64_t{15};
   bool ok = lo >= 0 && hi16 - lo16 <= kSpanBytes;
   if (tid < nb) {
-    const int64_t o = s_off[tid];
+    const int64_t o = MCRAW_SLD(kBufSOff, s_off, s_off, tid);
     ok = ok && o >= lo && o <= last && (o & 7) == 0;
   }
   const bool staged = __syncthreads_and(ok);
@@ -195,12 +226,13 @@ __global__ void __launch_bounds__(kThreads) unpack_modern_kernel(
       const int64_t g = lo16 + 16 * static_cast<int64_t>(i);  // byte in the payload
       uint32_t* dst = s_words + 4 * i;
       if (aligned && g + 16 <= n_bytes) {
-        cp_async16(dst, words + (g >> 2));
+        MCRAW_CP_ASYNC16(kBufSWords, s_words, dst, kBufWords, words + (g >> 2));
       } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int64_t wi = (g >> 2) + k;
-          dst[k] = wi < n_words ? static_cast<uint32_t>(words[wi]) : 0u;
+          MCRAW_SST(kBufSWords, s_words, dst, k,
+                    wi < n_words ? static_cast<uint32_t>(MCRAW_LD(kBufWords, words, wi)) : 0u);
         }
       }
     }
@@ -229,27 +261,27 @@ __global__ void __launch_bounds__(kThreads) unpack_modern_kernel(
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int lb = 4 * tl + 2 * q + c;
-      const int64_t off = s_off[lb];
+      const int64_t off = MCRAW_SLD(kBufSOff, s_off, s_off, lb);
       if (staged) {
-        const Words<true> w{s_words + ((off - lo16) >> 2), words, 0, n_words};
-        block_values(w, s_desc, s_cls[lb], j0, v[c]);
+        const Words<true> w{s_words + ((off - lo16) >> 2), words, 0, n_words MCRAW_WORDS_CK};
+        block_values(w, s_desc, MCRAW_SLD(kBufSCls, s_cls, s_cls, lb), j0, v[c] MCRAW_CK);
       } else {
-        const Words<false> w{nullptr, words, off >> 2, n_words};
-        block_values(w, s_desc, s_cls[lb], j0, v[c]);
+        const Words<false> w{nullptr, words, off >> 2, n_words MCRAW_WORDS_CK};
+        block_values(w, s_desc, MCRAW_SLD(kBufSCls, s_cls, s_cls, lb), j0, v[c] MCRAW_CK);
       }
-      const uint32_t ref = s_ref[lb];
+      const uint32_t ref = MCRAW_SLD(kBufSRef, s_ref, s_ref, lb);
 #pragma unroll
       for (int u = 0; u < 4; ++u) v[c][u] = (v[c][u] + ref) & 0xFFFFu;
     }
     uint16_t* o = out + static_cast<int64_t>(r) * width + x;
     if (vec && x + 8 <= width) {
-      *reinterpret_cast<uint4*>(o) =
-          make_uint4(v[0][0] | v[1][0] << 16, v[0][1] | v[1][1] << 16,
-                     v[0][2] | v[1][2] << 16, v[0][3] | v[1][3] << 16);
+      MCRAW_ST(kBufOut, reinterpret_cast<uint4*>(o), 0,
+               make_uint4(v[0][0] | v[1][0] << 16, v[0][1] | v[1][1] << 16,
+                          v[0][2] | v[1][2] << 16, v[0][3] | v[1][3] << 16));
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        if (x + e < width) o[e] = static_cast<uint16_t>(v[e & 1][e >> 1]);
+        if (x + e < width) MCRAW_ST(kBufOut, o, e, static_cast<uint16_t>(v[e & 1][e >> 1]));
       }
     }
   }
@@ -268,14 +300,15 @@ extern "C" int mcraw_unpack_modern(const int32_t* words, int64_t n_words,
                                    const int64_t* offsets, const int32_t* desc,
                                    const int64_t* class_index, uint16_t* out, int64_t tx,
                                    int64_t tiles, int64_t rows, int64_t width,
-                                   void* stream) {
+                                   void* stream MCRAW_CK_ENTRY_PARAM) {
   if (tiles <= 0 || rows <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   const int64_t runs = (tiles + kRunTiles - 1) / kRunTiles;
   if (runs > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
   unpack_modern_kernel<false><<<static_cast<unsigned>(runs), kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       words, n_words, bits, refs, offsets, reinterpret_cast<const int4*>(desc), class_index,
-      out, tx, tiles, rows, width, nullptr, nullptr, 0, 0);
+      out, tx, tiles, rows, width, nullptr, nullptr, 0,
+      0 MCRAW_CK_LAUNCH(mcraw_check::kUnpackModern, mcraw_check::kEntryUnpackModern));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,7 +326,7 @@ extern "C" int mcraw_unpack_modern_batch(const int32_t* words, int64_t n_words,
                                          const int32_t* desc, const int64_t* class_index,
                                          uint16_t* out, int64_t frame_elems, int64_t tx,
                                          int64_t tiles, int64_t rows, int64_t width,
-                                         void* stream) {
+                                         void* stream MCRAW_CK_ENTRY_PARAM) {
   if (frames <= 0 || tiles <= 0 || rows <= 0 || width <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
@@ -302,6 +335,8 @@ extern "C" int mcraw_unpack_modern_batch(const int32_t* words, int64_t n_words,
   const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(frames));
   unpack_modern_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       words, n_words, bits, refs, offsets, reinterpret_cast<const int4*>(desc), class_index,
-      out, tx, tiles, rows, width, bases, lengths, nblk, frame_elems);
+      out, tx, tiles, rows, width, bases, lengths, nblk,
+      frame_elems MCRAW_CK_LAUNCH(mcraw_check::kUnpackModern,
+                                  mcraw_check::kEntryUnpackModernBatch));
   return static_cast<int>(cudaGetLastError());
 }

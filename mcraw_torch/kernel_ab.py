@@ -24,13 +24,17 @@ version; develop by the channels that differ from the plain version and
 from the f64 model, and whether a variant's output equals the new kernel's
 bit for bit. The checksum is also timed at 16 elements: the fixed cost of
 a call. Prints one JSON line per result, the card's name and power limit
-first, and the ``-Xptxas -v`` lines of every build. Needs one card.
+first, the ``-Xptxas -v`` lines of every build, and which kernel functions
+compile to the same SASS in the old and the new build (``cuobjdump
+-sass``, each function's name without its anonymous-namespace hash).
+Needs one card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 from pathlib import Path
@@ -103,6 +107,24 @@ def ptxas_lines(csrc: Path, build_dir: Path) -> list[str]:
     log = build.library_path(csrc, build_dir).with_suffix(".log")
     keep = ("Compiling entry", "registers", "spill", "stack frame")
     return [ln.strip() for ln in log.read_text().splitlines() if any(k in ln for k in keep)]
+
+
+def sass_functions(lib: Path) -> dict[str, list[str]]:
+    """Each kernel function's SASS instructions in `lib`, by its name
+    without the anonymous-namespace hash (which follows the file's
+    contents)."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", m.group(1))
+            out[cur] = []
+        elif cur and (m := re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?);", line)):
+            out[cur].append(m.group(1).strip())
+    return out
 
 
 def turns(name: str, fns: dict, n: int, bound_ms: float, **kw) -> None:
@@ -291,6 +313,11 @@ def main(argv=None) -> int:
     libs = {"old": build.load(build.build(args.old_csrc, build.BUILD_DIR / "ab_old"))}
     emit(ptxas_new=ptxas_lines(build.CSRC, build.BUILD_DIR),
          ptxas_old=ptxas_lines(args.old_csrc, build.BUILD_DIR / "ab_old"))
+    old = sass_functions(build.library_path(args.old_csrc, build.BUILD_DIR / "ab_old"))
+    new = sass_functions(build.library_path())
+    emit(sass={"functions_old": len(old), "functions_new": len(new),
+               "identical": sum(old.get(k) == v for k, v in new.items()),
+               "differ": sorted(k for k, v in new.items() if old.get(k) != v)})
     for spec in args.variant:
         name, csrc = spec.split("=", 1)
         out_dir = build.BUILD_DIR / f"ab_{name}"

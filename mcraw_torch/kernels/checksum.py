@@ -73,11 +73,10 @@ def device_checksum(x: torch.Tensor) -> torch.Tensor:
     # The C entry zeroes the int64 and the kernel adds into its low 32-bit
     # word (the card is little-endian), so it holds the uint32 sum.
     out = torch.empty((), dtype=torch.int64, device=x.device)
-    lib = build.lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mcraw_checksum(x.data_ptr(), x.numel(), elem_bytes, out.data_ptr(), stream)
-    build.check(err, "mcraw_checksum")
+        build.launch("mcraw_checksum", (x, out),
+                     x.data_ptr(), x.numel(), elem_bytes, out.data_ptr(), stream)
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
     return out

@@ -325,15 +325,14 @@ def develop_rgba_device(
     out = torch.empty(raw.shape, dtype=torch.uint32, device=raw.device)
     if out.numel() == 0:
         return out
-    lib = build.lib()
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mcraw_develop(
+        build.launch(
+            "mcraw_develop", (raw, out, quantizer, prm, cfa32),
             raw.data_ptr(), out.data_ptr(), frames, h, w, prm.ctypes.data,
             cfa32.ctypes.data, quantizer.data_ptr(),
             DEMOSAICS.index(demosaic), stream,
         )
-    build.check(err, "mcraw_develop")
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
     return out

@@ -251,15 +251,14 @@ def decode_legacy_device(
     out = torch.empty((height, width), dtype=torch.uint16, device=payload.device)
     if height == 0 or width == 0:
         return out
-    lib = build.lib()
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mcraw_unpack_legacy(
+        build.launch(
+            "mcraw_unpack_legacy", (payload, bits, refs, offsets, out),
             payload.data_ptr(), payload.numel(),
             bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
             out.data_ptr(), height, width, R.legacy_padded_width(width), stream,
         )
-    build.check(err, "mcraw_unpack_legacy")
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
     return out
@@ -332,15 +331,14 @@ def decode_legacy_batch_device(
     out = torch.empty((frames, height, width), dtype=torch.uint16, device=payload.device)
     if height == 0 or width == 0 or frames == 0:
         return out
-    lib = build.lib()
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mcraw_unpack_legacy_batch(
+        build.launch(
+            "mcraw_unpack_legacy_batch", (payload, bits, refs, offsets, out, bases, lengths),
             payload.data_ptr(), payload.numel(), bases.data_ptr(), lengths.data_ptr(),
             frames, bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
             out.data_ptr(), height, width, R.legacy_padded_width(width), stream,
         )
-    build.check(err, "mcraw_unpack_legacy_batch")
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
     return out

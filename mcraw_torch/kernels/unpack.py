@@ -331,16 +331,16 @@ def decode_modern_device(
     launch = unpack_launch(ty, tx, height, width)
     if launch.tiles == 0:
         return out
-    lib = build.lib()
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mcraw_unpack_modern(
+        build.launch(
+            "mcraw_unpack_modern",
+            (words, bits, refs, offsets, tab.quads, tab.class_index, out),
             words.data_ptr(), words.numel(),
             bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
             tab.quads.data_ptr(), tab.class_index.data_ptr(),
             out.data_ptr(), tx, launch.tiles, launch.rows, width, stream,
         )
-    build.check(err, "mcraw_unpack_modern")
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
     return out
@@ -418,16 +418,16 @@ def decode_modern_batch_device(
     launch = unpack_launch(ty, tx, height, width)
     if launch.tiles == 0 or frames == 0:
         return out
-    lib = build.lib()
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mcraw_unpack_modern_batch(
+        build.launch(
+            "mcraw_unpack_modern_batch",
+            (words, bits, refs, offsets, tab.quads, tab.class_index, out, bases, lengths),
             words.data_ptr(), words.numel(), bases.data_ptr(), lengths.data_ptr(),
             frames, 4 * ty * tx, bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
             tab.quads.data_ptr(), tab.class_index.data_ptr(), out.data_ptr(),
             height * width, tx, launch.tiles, launch.rows, width, stream,
         )
-    build.check(err, "mcraw_unpack_modern_batch")
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
     return out

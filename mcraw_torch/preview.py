@@ -194,14 +194,31 @@ def _conv2same(x: torch.Tensor, k: np.ndarray) -> torch.Tensor:
     return acc
 
 
+def bilinear_demosaic(raw: torch.Tensor, masks, inv_dens: torch.Tensor,
+                      gains=None) -> torch.Tensor:
+    """Mask-normalized bilinear demosaic on raw's device, the counterpart
+    of ``mcraw.preview.bilinear_demosaic``. raw: (H, W) float32; masks:
+    3-list of (H, W) float32; inv_dens: (3, H, W) 1/conv(mask) (borders
+    included); gains: optional (3,) per-channel scale folded into the
+    normalizer as ``inv_dens[c] * gains[c]``. Returns (H, W, 3)."""
+    if gains is not None:
+        gains = torch.as_tensor(gains, dtype=torch.float32, device=raw.device)
+    out = []
+    for c, k in ((0, _K_FULL), (1, _K_CROSS), (2, _K_FULL)):
+        num = _conv2same(raw * masks[c], k)
+        inv = inv_dens[c] if gains is None else inv_dens[c] * gains[c]
+        out.append(num * inv)
+    return torch.stack(out, dim=-1)
+
+
 def develop(raw_u16: torch.Tensor, black_level, white_level, as_shot_neutral,
             forward_matrix, *, cfa: tuple[int, ...]) -> torch.Tensor:
     """(H, W) uint16 Bayer -> (H, W, 3) uint8 sRGB preview, bilinear, on
     raw's device: the counterpart of ``mcraw.preview.develop`` (plain torch
     there as in the JAX package, which runs it as XLA, not as a kernel).
 
-    The mask normalizer is the 1/conv(mask) table (:func:`_inv_dens`);
-    white balance multiplies into it. The preview takes this path only at
+    The demosaic is :func:`bilinear_demosaic` with the 1/conv(mask) table
+    (:func:`_inv_dens`); white balance multiplies into it. The preview takes this path only at
     height <= 2, where the develop kernel is not used."""
     global DEVELOP_CALLS
     DEVELOP_CALLS += 1
@@ -214,12 +231,10 @@ def develop(raw_u16: torch.Tensor, black_level, white_level, as_shot_neutral,
     inv_scale = site_map(torch.tensor(f32(1.0) / (f32(white_level) - b), device=dev), h, w)
     x = ((raw_u16.to(torch.float32) - bl) * inv_scale).clamp(0.0, 1.0)
 
-    gains = f32(1.0) / np.asarray(as_shot_neutral, f32)
+    gains = torch.from_numpy(f32(1.0) / np.asarray(as_shot_neutral, f32)).to(dev)
     inv_dens = torch.from_numpy(_inv_dens(h, w, tuple(cfa))).to(dev)
-    rgb = []
-    for c, k in ((0, _K_FULL), (1, _K_CROSS), (2, _K_FULL)):
-        num = _conv2same(x * (chan == c).to(torch.float32), k)
-        rgb.append((num * (inv_dens[c] * float(gains[c]))).clamp(0.0, 1.0))
+    masks = [(chan == c).to(torch.float32) for c in range(3)]
+    rgb = bilinear_demosaic(x, masks, inv_dens, gains).clamp(0.0, 1.0).unbind(-1)
 
     m = _XYZ_D50_TO_SRGB @ np.asarray(forward_matrix, f32)
     out = []

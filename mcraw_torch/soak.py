@@ -3,7 +3,7 @@ parity grid on the card.
 
     python -m mcraw_torch.soak [--device cuda|cpu] [--seconds S] [--seed N]
         [--legs codec,mutation,malformed,container,json] [--iterations N]
-        [--failures DIR]
+        [--failures DIR] [--checked]
     python -m mcraw_torch.soak --grid [--quick] [--device cuda|cpu] [--out FILE]
 
 The legs (each in a child process of its own, all at once):
@@ -45,6 +45,13 @@ way. One JSON line per leg; the exit code is 1 on any failure or crash.
 flipped) and ``--inject crash`` (each child kills itself at its first
 path) show that the soak reports both.
 
+``--checked`` runs every leg's launches on the checked build of the kernels
+(``kernels/build.py::use_checked``: every global and shared access held to
+its buffer's extent, each launch waited for, a fault raised as the path's
+outcome, so a failure). Each leg's line names the library that ran and,
+checked, its launches, faults and batch reads outside a frame's own window
+by kernel. It needs a card: ``--checked --device cpu`` exits 2.
+
 ``--grid`` runs the parity grid, one child process per case: five
 geometries x five contents x both codecs (``tools/hw_parity.py``'s), each
 frame through the six paths and ``export_clip`` and checked by device
@@ -79,6 +86,7 @@ from . import codecs
 from . import encode as E
 from . import parallel as PAR
 from .container import COMPRESSION_TYPE
+from .kernels import build
 from .kernels import checksum as C
 from .kernels import legacy as L
 from .kernels import native
@@ -830,7 +838,13 @@ def run_leg(leg: str, seed: int, device, seconds: float, iterations: int | None,
                                                   or runner.iteration < iterations):
         runner.step()
     inflight_path(failures, leg).unlink(missing_ok=True)
-    return runner.summary(time.perf_counter() - t0)
+    row = runner.summary(time.perf_counter() - t0)
+    path = build.loaded()
+    row["library"] = path.name if path else None
+    if build.checked():
+        row["checked"] = {k: dict(build.CHECKED[k])
+                          for k in ("launches", "faults", "cross_frame_reads")}
+    return row
 
 
 # -- the parent: one child process a leg ----------------------------------------------
@@ -846,6 +860,8 @@ def run_child(leg: str, args) -> dict:
         cmd += ["--iterations", str(args.iterations)]
     if args.inject:
         cmd += ["--inject", args.inject]
+    if args.checked:
+        cmd.append("--checked")
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=child_env())
     row, at = None, None
@@ -887,13 +903,12 @@ def soak(args) -> int:
     if args.seed is None:
         args.seed = int(time.time()) % (1 << 31)
     print(json.dumps({"soak": {"seed": args.seed, "device": args.device, "legs": args.legs,
-                               "seconds": args.seconds, "iterations": args.iterations}}),
+                               "seconds": args.seconds, "iterations": args.iterations,
+                               "checked": args.checked}}),
           flush=True)
     resolve_device(args.device)  # no card: raise here, not in every child
     if torch.device(args.device).type == "cuda":
-        from .kernels import build
-
-        build.lib()  # build once, before the children load it
+        build.build(checked=args.checked)  # build once, before the children load it
     args.failures.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(args.legs)) as pool:
         rows = list(pool.map(lambda leg: run_child(leg, args), args.legs))
@@ -1036,8 +1051,6 @@ def grid(args) -> int:
     """The parity grid, one child process per case, GRID_JOBS at a time."""
     resolve_device(args.device)
     if torch.device(args.device).type == "cuda":
-        from .kernels import build
-
         build.lib()
     geoms = ["4k", "1080p"] if args.quick else list(GEOMETRIES)
     contents = ["mid12"] if args.quick else list(CONTENTS)
@@ -1085,6 +1098,8 @@ def parse(argv) -> argparse.Namespace:
                     help="comma-separated: codec, mutation, malformed, container, json "
                          "(cli: the last two)")
     ap.add_argument("--failures", type=Path, default=Path("soak_failures"))
+    ap.add_argument("--checked", action="store_true",
+                    help="run the legs on the checked build of the kernels (needs a card)")
     ap.add_argument("--inject", choices=("wrong", "crash"), default=None,
                     help="a wrong decoder or a dying child, to show the soak reports it")
     ap.add_argument("--grid", action="store_true")
@@ -1101,6 +1116,9 @@ def parse(argv) -> argparse.Namespace:
     if unknown:
         ap.error(f"unknown legs {unknown}")
     args.legs = legs
+    if args.checked and (args.grid or torch.device(args.device).type != "cuda"):
+        ap.error("--checked needs --device cuda (the checked build runs on the card) "
+                 "and no --grid")
     return args
 
 
@@ -1110,6 +1128,8 @@ def main(argv=None) -> int:
         # One leg a process, small frames: the plain versions' threads
         # would only contend with the other legs'.
         torch.set_num_threads(1)
+        if args.checked:
+            build.use_checked()
         row = run_leg(args.child, args.seed, args.device, args.seconds, args.iterations,
                       args.failures, args.inject)
         print(json.dumps(row), flush=True)

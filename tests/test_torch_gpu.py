@@ -786,3 +786,83 @@ def test_bench_quick_on_card(cuda):
         trace = line["legs"][leg]["trace"]
         assert any(kernel in name for name in trace["device_ms_per_frame"]), (leg, trace)
         assert 0 < trace["busy_share"] <= 1
+
+
+# -- the checked build: every access held to its buffer's extent -------------------
+
+
+@pytest.fixture(scope="module")
+def checked_run():
+    """``python -m mcraw_torch.bounds`` in a child process (the checked
+    build cannot share this process with the default library): its JSON
+    line."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    res = subprocess.run([sys.executable, "-m", "mcraw_torch.bounds"],
+                         cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                         text=True, timeout=900)
+    assert res.returncode in (0, 1) and res.stdout.strip(), res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_checked_run_holds(cuda, checked_run):
+    assert checked_run["problems"] == []
+    assert checked_run["library"].startswith("libmcraw_torch_checked_")
+
+
+@pytest.mark.parametrize("kernel", ["unpack_modern", "unpack_legacy", "develop", "checksum"])
+def test_checked_launches_equal_the_default_library(cuda, checked_run, kernel):
+    """Each clean checked launch gives the default library's output bit
+    for bit, with no fault."""
+    from mcraw_torch import bounds
+
+    cases = [(name, fn) for name, k, fn in bounds.clean_cases(cuda) if k == kernel]
+    want = {name: bounds.digest(fn()) for name, fn in cases}
+    assert {name: checked_run["clean"].get(name) for name in want} == want
+    assert checked_run["launches"][kernel] >= len(cases)
+    assert checked_run["faults"].get(kernel, 0) == 0
+
+
+def _negative_ids():
+    from mcraw_torch import bounds
+
+    return [f"{k}-{kind}-{buf}" for k, kind, buf, _ in bounds.NEGATIVE]
+
+
+@pytest.mark.parametrize("case", _negative_ids())
+def test_checked_fires_on_an_understated_extent(cuda, checked_run, case):
+    """A clean launch with one buffer's checked extent cut short faults,
+    names that buffer and counts a fault of the kind of access."""
+    kernel, kind, buf = case.split("-")
+    row = next(r for r in checked_run["negative"]
+               if (r["kernel"], r["kind"], r["buffer"]) == (kernel, kind, buf))
+    assert row["fired"] and row["named"] == buf and row["counts"][kind] > 0, row
+    assert f"of {buf} at byte" in row["text"]
+    assert kind in checked_run["fired"][kernel]
+    if (kernel, kind) == ("checksum", "store"):  # the host's memset and the kernel's add
+        assert row["counts"]["store"] >= 2, row
+
+
+@pytest.mark.parametrize("kernel", ["unpack_modern", "unpack_legacy"])
+def test_checked_batch_reads_only_its_frames_windows(cuda, checked_run, kernel):
+    """A batch with a frame whose shuffled offsets point past its own end
+    reads nothing outside any frame's window and faults nowhere; with the
+    checked windows cut short, the reads there are counted, not faulted."""
+    w = checked_run["windows"][kernel]
+    assert w["past_end_cross_frame_reads"] == 0
+    assert w["cut_cross_frame_reads"] > 0
+    assert checked_run["faults"].get(kernel, 0) == 0
+
+
+def test_checked_build_refused_after_the_default(cuda):
+    from mcraw_torch.kernels import build
+
+    build.lib()
+    with pytest.raises(RuntimeError, match="already loaded"):
+        build.use_checked()
+    assert not build.checked() and build.loaded() == build.library_path()

@@ -175,3 +175,32 @@ def test_develop_equals_jax_develop():
 def test_rgba_to_rgb_is_a_byte_view():
     rgba = torch.tensor([[0xFF030201, 0xFFFFFEFD]], dtype=torch.int64).to(torch.uint32)
     assert P.rgba_to_rgb(rgba).tolist() == [[[1, 2, 3], [253, 254, 255]]]
+
+
+@pytest.mark.parametrize("with_gains", [False, True])
+@pytest.mark.parametrize("sensor", ["rggb", "bggr", "grbg", "gbrg"])
+@pytest.mark.parametrize("shape", [(4, 8), (36, 250), (37, 251)])
+def test_bilinear_demosaic_equals_jax(shape, sensor, with_gains):
+    """bilinear_demosaic against mcraw.preview.bilinear_demosaic, bit for
+    bit: both convolve as the same shifted adds in the same order, and the
+    weights (1, 2, 4) make every product exact, so no contraction into an
+    FMA can change a sum; the normalizer is one product either way."""
+    import jax.numpy as jnp
+
+    from mcraw.metadata import CFA_PATTERNS
+
+    h, w = shape
+    cfa = tuple(CFA_PATTERNS[sensor])
+    rng = np.random.default_rng(sum(shape) + len(sensor))
+    raw = rng.random((h, w), dtype=np.float32)
+    masks = JP._phase_masks(h, w, cfa)
+    inv_dens = JP._inv_dens(h, w, cfa)
+    gains = rng.uniform(0.5, 2.5, 3).astype(np.float32) if with_gains else None
+    want = np.asarray(JP.bilinear_demosaic(
+        jnp.asarray(raw), [jnp.asarray(m) for m in masks], jnp.asarray(inv_dens),
+        None if gains is None else jnp.asarray(gains)))
+    got = P.bilinear_demosaic(
+        torch.from_numpy(raw), [torch.from_numpy(m) for m in masks],
+        torch.from_numpy(inv_dens), None if gains is None else torch.from_numpy(gains))
+    assert got.dtype == torch.float32 and got.shape == (h, w, 3)
+    assert np.array_equal(got.numpy(), want, equal_nan=True)
