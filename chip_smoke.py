@@ -19,7 +19,11 @@ failure exits non-zero and prints no result:
    that cross rows), 4036, 4090, 33 and 1 with refs up to 65535, shuffled
    offsets, offsets around the end of the payload, no zero tail; checksum
    at odd shapes, 4K uint16, (6144, 4096) uint32, views that start off a
-   16-byte boundary, lengths 1..17), <= 1 LSB per channel with alpha 255 for develop
+   16-byte boundary, lengths 1..17; the block offsets, the modern device
+   prep, at one block, a tile and one either side, bits 0..65535, all 0,
+   all >= 16 at 3,145,728 blocks, a 4K frame, batches of F = 1, 2, 5 and 8
+   4K frames, views off a 16-byte boundary, a (1, nblk) batch against the
+   single entry, four streams launching at once), <= 1 LSB per channel with alpha 255 for develop
    (both demosaic modes at (16, 128), (36, 250), (3, 64) and (3024, 4032);
    the tiled kernel's edges (37, 251), (65, 130), (3, 101), (5, 7),
    (33, 66); (3072, 4096) in the bench's parameters; all four CFAs at a
@@ -52,7 +56,9 @@ failure exits non-zero and prints no result:
      ``mcraw_torch.Decoder(path, device="cuda").load_frame_device``; every
      frame equals its source image and its device checksum the host's. The
      counters must show one unpack launch of the clip's codec and one
-     checksum launch per frame, and no plain-version call. The legacy phase
+     checksum launch per frame, and no plain-version call. On every main
+     path below too, each modern unpack launch (a frame, a batch, a band)
+     comes with one block offsets launch and a legacy one with none. The legacy phase
      prints which host scan walked each frame's header chain and whether
      the native scans were built.
    - batched decode: ``decode_batch()`` over the modern clip's five frames
@@ -136,7 +142,8 @@ failure exits non-zero and prints no result:
    malvar``: PPMs within 1 of the f64 model.
 6. times on the card (printed, not asserted): CUDA-event medians of each
    kernel and its plain version at the 4K 12-bit frame of its codec (both
-   demosaic modes for develop), the ``load_frame_device`` split: host prep
+   demosaic modes for develop; the block offsets also at F = 2, 5 and 8,
+   beside the torch chain they replaced), the ``load_frame_device`` split: host prep
    (the legacy scan also on its own), its one H2D, device prep (modern) and
    kernel, the ``preview_frame_rgba`` split: decode and develop; and for
    ``decode_batch`` of the modern clip's five frames and the legacy clip's
@@ -159,7 +166,8 @@ failure exits non-zero and prints no result:
 
 The line before last is ``{"kernels": [...]}``: one entry per TPU kernel
 of the repo (eight; the routed ones carry the numbers of the CUDA kernel
-that computes them) with its launches on the main paths, its error, its
+that computes them) and one for the block offsets (the counterpart of
+``_v6_build_meta``'s offsets, plain jnp) with its launches on the main paths, its error, its
 times, its bound from this run's bytes and operations, and the time of
 one torch call that computes the same function where there is one. The
 last line is ``{"ok": true, "device": {...}}``. Needs one card, no network,
@@ -245,6 +253,7 @@ from mcraw_torch.kernels import checksum as C  # noqa: E402
 from mcraw_torch.kernels import develop as D  # noqa: E402
 from mcraw_torch.kernels import legacy as L  # noqa: E402
 from mcraw_torch.kernels import native  # noqa: E402  (the C++ host scans)
+from mcraw_torch.kernels import offsets as O  # noqa: E402
 from mcraw_torch.kernels import tables as T  # noqa: E402
 from mcraw_torch.kernels import unpack as U  # noqa: E402
 from mcraw_torch.kernels.staging import Staging, slot_layout  # noqa: E402
@@ -481,8 +490,74 @@ def phase_kernels(rng) -> dict:
               f"plain {want} host {ref}")
         emit("kernels", kernel="checksum", dtype=np.dtype(dtype).name, shape=list(shape),
              start=start, max_abs_err=err)
+    errs["block_offsets"] = phase_kernels_offsets(rng)
     errs["develop"] = phase_kernels_develop(rng)
     return errs
+
+
+NBLK_4K = 4 * (H // 4) * (W // 64)  # 196,608 blocks of 64 values
+# (shape, bits drawn from [lo, hi)): the block offsets' edges. One block;
+# one below, at and one above a tile; 0..65535 where the clamp matters; all
+# 0 (every offset 16); all >= 16 at 3,145,728 blocks (the largest sums,
+# ~4e8); a 4K frame; batches of 4K frames (F = 1 also against the single
+# entry, below).
+OFFSETS_CASES = (
+    ((1,), 0, 1 << 16), ((O.TILE - 1,), 0, 1 << 16), ((O.TILE,), 0, 1 << 16),
+    ((O.TILE + 1,), 0, 1 << 16), ((3 * O.TILE + 5,), 0, 1), ((3_145_728,), 16, 1 << 16),
+    ((NBLK_4K,), 0, 1 << 16), ((1, NBLK_4K), 0, 17), ((2, NBLK_4K), 0, 1 << 16),
+    ((5, NBLK_4K), 0, 17), ((8, NBLK_4K), 16, 1 << 16), ((3, O.TILE + 1), 0, 1 << 16),
+)
+
+
+def phase_kernels_offsets(rng) -> int:
+    """The block offsets kernel against its plain version on the card,
+    element for element: OFFSETS_CASES; views off a 16-byte boundary; a
+    (1, nblk) batch against the single entry on its row 0 (the view
+    parallel.decode_frame_sharded passes); four streams, each launching a
+    batch at once. The max error."""
+    err = 0
+
+    def held(bits, what: str) -> torch.Tensor:
+        nonlocal err
+        launches = O.KERNEL_LAUNCHES
+        got = O.block_offsets_device(bits)
+        torch.cuda.synchronize()
+        check(O.KERNEL_LAUNCHES == launches + 1, f"block offsets {what}: launches")
+        want = O.block_offsets_plain(bits)
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        check(got.shape == bits.shape and got.dtype == torch.int64 and e == 0,
+              f"block offsets {what}: {got.dtype} {tuple(got.shape)}, err {e}")
+        emit("kernels", kernel="block_offsets", case=what, shape=list(bits.shape),
+             last=int(got.reshape(-1)[-1]), max_abs_err=e)
+        return got
+
+    for shape, lo, hi in OFFSETS_CASES:
+        bits = put(rng.integers(lo, hi, size=shape, dtype=np.uint16))
+        got = held(bits, f"[{lo}, {hi})")
+        check(hi != 1 or bool((got == 16).all()), "block offsets of zero bits != 16")
+    x = put(rng.integers(0, 1 << 16, size=(1, 9000), dtype=np.uint16))
+    held(x.view(-1)[1:], "view from element 1")
+    held(x.view(-1)[3:8196], "view from element 3")
+    row = held(x[0], "row 0 of a (1, nblk) batch")
+    check(torch.equal(held(x, "(1, nblk) batch")[0], row), "block offsets: F = 1 != single")
+    inputs = [put(rng.integers(0, 1 << 16, size=(3, NBLK_4K), dtype=np.uint16))
+              for _ in range(4)]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    outs = []
+    for s, bits in zip(streams, inputs):
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(SPIN_CYCLES)  # the four launches overlap
+            outs.append(O.block_offsets_device(bits))
+    torch.cuda.synchronize()
+    for i, (bits, got) in enumerate(zip(inputs, outs)):
+        e = max_abs_err(got, O.block_offsets_plain(bits))
+        err = max(err, e)
+        check(e == 0, f"block offsets on stream {i} of 4: err {e}")
+    emit("kernels", kernel="block_offsets", case="four streams at once",
+         shape=[3, NBLK_4K], max_abs_err=0)
+    return err
 
 
 def slots(arrays):
@@ -710,7 +785,7 @@ def phase_kernels_develop(rng) -> int:
 # The launch wrappers whose outputs the checked phase holds bit-equal.
 RECORDED = ((U, "decode_modern_device"), (U, "decode_modern_batch_device"),
             (L, "decode_legacy_device"), (L, "decode_legacy_batch_device"),
-            (D, "develop_rgba_device"), (C, "device_checksum"))
+            (D, "develop_rgba_device"), (C, "device_checksum"), (O, "block_offsets_device"))
 
 
 @contextlib.contextmanager
@@ -874,7 +949,14 @@ def make_legacy_clip(path: Path):
     return imgs, payloads
 
 
-COUNTED = {"unpack_modern": U, "unpack_legacy": L, "checksum": C, "develop": D}
+COUNTED = {"unpack_modern": U, "unpack_legacy": L, "checksum": C, "develop": D,
+           "block_offsets": O}
+
+
+def unpacks(kernel: str, n: int) -> dict:
+    """The launches of n unpacks (frames, batches or bands) of `kernel`'s
+    codec: a modern one launches the block offsets once before each."""
+    return {kernel: n} | ({"block_offsets": n} if kernel == "unpack_modern" else {})
 
 
 def reset_counters() -> None:
@@ -906,7 +988,7 @@ def phase_main_path(name: str, clip: Path, imgs, kernel: str) -> dict:
               f"{name} frame {i} != source image")
         check(int(cs.item()) == host_checksum(src),
               f"{name} frame {i}: checksum mismatch")
-    want = {k: 0 for k in COUNTED} | {kernel: n, "checksum": n}
+    want = {k: 0 for k in COUNTED} | unpacks(kernel, n) | {"checksum": n}
     check(launches == want, f"{name}: launch counts {launches}, expected {want}")
     check(not any(plain.values()), f"{name}: plain calls {plain}")
     emit("main_path", clip=name, frames=n,
@@ -957,7 +1039,7 @@ def phase_batch_path(name: str, clip: Path, imgs, kernel: str, path: str) -> dic
               and img.shape == src.shape, f"{name} {path} frame {i}: {tuple(img.shape)}")
         check(np.array_equal(img.cpu().numpy(), src), f"{name} {path} frame {i} != source")
         check(int(cs.item()) == host_checksum(src), f"{name} {path} frame {i}: checksum")
-    want = {k: 0 for k in COUNTED} | {kernel: calls, "checksum": len(imgs)}
+    want = {k: 0 for k in COUNTED} | unpacks(kernel, calls) | {"checksum": len(imgs)}
     if path.startswith("iter"):
         check(calls == len(runs), f"{name} {path}: {calls} launches for runs {runs}")
     check(launches == want, f"{name} {path}: launch counts {launches}, expected {want}")
@@ -1083,13 +1165,14 @@ def phase_develop_path(clip: Path, model: DevelopModel) -> dict:
           f"preview_clip checksums {clip_sums} != preview_frame_rgba {bilinear}")
     # DEVELOP_FRAMES (7, 7, 7, 6) in chunks of 2: runs (0, 1), (2), (3).
     want_clip = {"unpack_modern": 2, "unpack_legacy": 1, "checksum": len(frames),
-                 "develop": len(frames)}
+                 "develop": len(frames), "block_offsets": 2}
     check(clip_launches == want_clip,
           f"preview_clip: launch counts {clip_launches}, expected {want_clip}")
     check(not any(clip_plain.values()), f"preview_clip: plain calls {clip_plain}")
     n_modern = sum(DEVELOP_FRAMES[i][0] == 7 for i, _ in DEVELOP_RUNS)
     want = {"unpack_modern": n_modern, "unpack_legacy": len(DEVELOP_RUNS) - n_modern,
-            "checksum": len(DEVELOP_RUNS), "develop": len(DEVELOP_RUNS)}
+            "checksum": len(DEVELOP_RUNS), "develop": len(DEVELOP_RUNS),
+            "block_offsets": n_modern}
     check(launches == want, f"develop path: launch counts {launches}, expected {want}")
     check(not any(plain.values()), f"develop path: plain calls {plain}")
     check(develop_calls == 0, f"develop path: {develop_calls} height <= 2 develop calls")
@@ -1142,7 +1225,7 @@ def phase_export_path(name: str, clip: Path, imgs, kernel: str, work: Path) -> d
         check((out / f"frame_{i:06d}.dng").read_bytes() == dng_bytes(img, meta, cm),
               f"{name} export: frame_{i:06d}.dng != dng_bytes of its source image")
     shutil.rmtree(out)
-    want = {k: 0 for k in COUNTED} | {kernel: n}
+    want = {k: 0 for k in COUNTED} | unpacks(kernel, n)
     check(launches == want, f"{name} export: launch counts {launches}, expected {want}")
     check(not any(plain.values()), f"{name} export: plain calls {plain}")
     timing = stats.stage_timing
@@ -1191,7 +1274,7 @@ def phase_export_corrupt(clip: Path, work: Path) -> dict:
           f"corrupt export: {stats.frames_done} done, errors {got}, mcraw's {want}")
     for n in ("frame_000000.dng", "frame_000002.dng"):
         check(filecmp.cmp(out / n, ref / n, shallow=False), f"corrupt export: {n} differs")
-    want_launches = {k: 0 for k in COUNTED} | {"unpack_modern": 2}
+    want_launches = {k: 0 for k in COUNTED} | unpacks("unpack_modern", 2)
     check(launches == want_launches and not any(plain.values()),
           f"corrupt export: launches {launches}, plain {plain}")
     emit("main_path", clip=clip.name, path="export_clip, a corrupt frame", frames=3,
@@ -1233,16 +1316,16 @@ def check_sharded(what: str, s, mesh: PAR.Mesh, rows: list[int]) -> None:
 
 def mesh_path(what: str, kernel: str, fn, want_unpack: int, checksums: int) -> tuple:
     """Run fn() with the counters set to 0 just before and read just after;
-    fails unless `kernel` launched `want_unpack` times, the checksum
-    `checksums` times, nothing else, and no plain version ran. (fn's result,
-    the launch counts)."""
+    fails unless `kernel` launched `want_unpack` times (and, modern, the
+    block offsets as often), the checksum `checksums` times, nothing else,
+    and no plain version ran. (fn's result, the launch counts)."""
     reset_counters()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches, plain = counts()
-    want = {k: 0 for k in COUNTED} | {kernel: want_unpack, "checksum": checksums}
+    want = {k: 0 for k in COUNTED} | unpacks(kernel, want_unpack) | {"checksum": checksums}
     check(launches == want, f"{what}: launch counts {launches}, expected {want}")
     check(not any(plain.values()), f"{what}: plain calls {plain}")
     return out, launches, secs
@@ -1395,7 +1478,8 @@ def phase_mesh_dryrun(clip: Path, model: DevelopModel, mesh: PAR.Mesh) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches, plain = counts()
-    want = {k: 0 for k in COUNTED} | {"unpack_modern": mesh.size, "develop": mesh.size}
+    want = {k: 0 for k in COUNTED} | unpacks("unpack_modern", mesh.size) | {
+        "develop": mesh.size}
     check(launches == want and not any(plain.values()),
           f"dry run: launches {launches} (expected {want}), plain {plain}")
     check([r.device for r in rgbas] == list(mesh.devices), "dry run: develop off its shard")
@@ -1498,7 +1582,8 @@ def worker(port: str, rank: int, clip: str, outdir: str, spec: str) -> int:
               f"rank {rank}: local {local.device} {tuple(local.shape)}, global {imgs.shape}")
         mine = [int(s.item()) for s in sums]
         check(mine == want["sums"][4 * rank : 4 * rank + 4], f"rank {rank}: checksums {mine}")
-        check(decode_launches == {k: 0 for k in COUNTED} | {"unpack_modern": 1, "checksum": 4}
+        check(decode_launches == {k: 0 for k in COUNTED} | unpacks("unpack_modern", 1)
+              | {"checksum": 4}
               and not any(plain.values()), f"rank {rank}: launches {decode_launches} {plain}")
         # The cross-rank reduction: an all-reduce of the ranks' checksums, an
         # int64 scalar on the CPU over gloo.
@@ -1513,7 +1598,7 @@ def worker(port: str, rank: int, clip: str, outdir: str, spec: str) -> int:
         mine_ts, first = DIST.frame_shard(d.frames)
         check(stats.frames_done == len(mine_ts) and stats.frames_failed == 0,
               f"rank {rank}: export {stats.frames_done} done, {stats.errors}")
-        check(export_launches == {k: 0 for k in COUNTED} | {"unpack_modern": len(mine_ts)}
+        check(export_launches == {k: 0 for k in COUNTED} | unpacks("unpack_modern", len(mine_ts))
               and not any(plain.values()), f"rank {rank}: export launches {export_launches}")
     dist.barrier()
     dist.destroy_process_group()
@@ -1915,6 +2000,36 @@ def phase_times(payload: np.ndarray, card: str) -> dict:
     return t
 
 
+def phase_times_offsets(payloads, card: str) -> dict:
+    """CUDA-event medians of the block offsets kernel, its plain version and
+    the torch chain it replaced (an int64 cast, a clamp, a gather,
+    ``torch.cumsum``, a subtract and an add: one call each) on the bits of
+    the modern clip's 4K frames: one frame, and batches of F = 2, 5 and 8
+    (the frames repeated); the bytes (bits read, offsets written) and their
+    bound."""
+    tab = modern_tables(DEV)
+    bits = np.stack([U.scan_modern(p, W, H).bits for p in payloads])
+    t = {}
+    for f in (1, 2, 5, 8):
+        x = put(bits[0] if f == 1 else bits[[i % len(payloads) for i in range(f)]])
+
+        def chain(x=x):
+            lengths = tab.block_length[x.to(torch.int64).clamp_(max=16)]
+            return 16 + torch.cumsum(lengths, -1) - lengths
+
+        ms = time_cuda(lambda: O.block_offsets_device(x))
+        plain_ms = time_cuda(lambda: O.block_offsets_plain(x))
+        chain_ms = time_cuda(chain)
+        moved = x.numel() * (2 + 8)
+        bound_ms = bound(moved)[0]
+        emit("times_kernels", card=card, frame=f"block offsets, {f} x {W}x{H} 12-bit", n=N_TIMED,
+             blocks=x.numel(), kernel_bytes=moved, block_offsets_ms=ms,
+             block_offsets_plain_ms=plain_ms, torch_chain_ms=chain_ms, bound_ms=bound_ms,
+             share=bound_ms / ms)
+        t[f"offsets_{f}"] = (ms, plain_ms, chain_ms, moved)
+    return t
+
+
 def phase_times_legacy(payload: np.ndarray, card: str) -> dict:
     """The legacy kernel and its plain version at a 4K 12-bit frame, and
     the legacy load_frame_device split."""
@@ -2293,6 +2408,8 @@ TPU_KERNELS = (
     ("unpack_legacy_v5", "mcraw/kernels/pallas_legacy.py:327", "unpack_legacy"),
     ("unpack_legacy_v1", "mcraw/kernels/pallas_legacy.py:68", "unpack_legacy"),
     ("develop", "mcraw/kernels/pallas_develop.py:66, :338", "develop"),
+    # _v6_build_meta's offsets: plain jnp, no pallas_call.
+    ("block_offsets", "mcraw/kernels/pallas_unpack.py:1711", "block_offsets"),
 )
 
 
@@ -2313,6 +2430,7 @@ def kernels_line(t: dict, errs: dict, paths: list) -> list:
                      bound(t["checksum_bytes"])),
         "develop": (t["develop_bilinear_ms"], t["develop_bilinear_plain_ms"], None,
                     bound(t["develop_bytes"], t["develop_fp32_ops"])),
+        "block_offsets": (*t["offsets_1"][:3], bound(t["offsets_1"][3])),
     }
     rows = []
     for name, replaces, kernel in TPU_KERNELS:
@@ -2326,6 +2444,11 @@ def kernels_line(t: dict, errs: dict, paths: list) -> list:
         if kernel == "develop":
             rows[-1]["malvar_ms"] = t["develop_malvar_ms"]
             rows[-1]["malvar_plain_ms"] = t["develop_malvar_plain_ms"]
+        if kernel == "block_offsets":
+            rows[-1]["batches"] = {f: {"ms": t[f"offsets_{f}"][0], "plain_ms": t[f"offsets_{f}"][1],
+                                       "library_ms": t[f"offsets_{f}"][2],
+                                       "bound_ms": bound(t[f"offsets_{f}"][3])[0]}
+                                   for f in (2, 5, 8)}
         codec = {"unpack_modern": "modern", "unpack_legacy": "legacy"}.get(kernel)
         if codec:
             n, batch_ms, singles_ms, batch_bound_ms = t[f"{codec}_batch"]
@@ -2407,7 +2530,8 @@ def main() -> None:
         phase_cli_export({clip: 7, legacy: 6}, corrupt, work)
         phase_cli_preview(develop, work, model)
         emit("f64_model", calls=len(model._cache), seconds=model.seconds)
-        t = (phase_times(payloads[0], card) | phase_times_legacy(lpayloads[0], card)
+        t = (phase_times(payloads[0], card) | phase_times_offsets(payloads, card)
+             | phase_times_legacy(lpayloads[0], card)
              | phase_times_develop(develop, card) | phase_times_batch(clip, legacy, card)
              | phase_times_mesh(clip, legacy, card))
         phase_times_export((clip, legacy), card, work)

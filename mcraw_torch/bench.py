@@ -92,6 +92,7 @@ from .errors import MotionCamException
 from .kernels import checksum as C
 from .kernels import develop as D
 from .kernels import legacy as L
+from .kernels import offsets as O
 from .kernels import unpack as U
 from .kernels.staging import Staging
 from .kernels.tables import modern_tables
@@ -116,7 +117,8 @@ CFA = (0, 1, 1, 2)
 DEVELOP_MODEL = (np.zeros(4), 4095.0, np.ones(3), np.diag([0.9642, 1.0, 0.8249]))
 # Frames of more pixels than this in one set are encoded in a process pool.
 POOL_PIXELS = 1 << 22
-COUNTED = {"unpack_modern": U, "unpack_legacy": L, "checksum": C, "develop": D}
+COUNTED = {"unpack_modern": U, "unpack_legacy": L, "checksum": C, "develop": D,
+           "block_offsets": O}
 
 
 class Timing(NamedTuple):

@@ -1,4 +1,4 @@
-"""The checked build of the four CUDA kernels, driven on the card.
+"""The checked build of the five CUDA kernels, driven on the card.
 
     python -m mcraw_torch.bounds [--device cuda]
 
@@ -10,7 +10,8 @@ one, ``kernels/build.py::use_checked``):
   hold it against the default library's on the same inputs;
 - :data:`NEGATIVE`: for each kernel and each kind of access it makes
   (global load, ``cp.async``, store, shared index; develop's host reads of
-  its parameters), a clean launch with one buffer's checked extent
+  its parameters; the block offsets' memset of their status scratch, a
+  store from the host), a clean launch with one buffer's checked extent
   understated (``build.understate``), which must fault on that buffer and
   count a fault of that kind;
 - :data:`WINDOWS`: a batch of each codec with one frame's offsets shuffled
@@ -40,6 +41,7 @@ from .kernels import build
 from .kernels import checksum as C
 from .kernels import develop as D
 from .kernels import legacy as L
+from .kernels import offsets as O
 from .kernels import tables as T
 from .kernels import unpack as U
 from .kernels.staging import Staging
@@ -55,6 +57,7 @@ DEVELOP_PARAMS = (np.array([64, 60, 70, 64], np.float32), 4095.0,
                   np.array([[0.86, 0.08, 0.02], [0.04, 0.91, 0.05],
                             [0.01, 0.06, 0.76]], np.float32))
 BGGR = tuple(CFA_PATTERNS["bggr"])
+OFFSETS_BLOCKS = 2 * O.TILE + 5  # two full tiles and a partial one
 
 # (kernel, kind, buffer, bytes off its checked extent): each fires on a
 # clean launch of :func:`_inputs`' frame of that kernel. None: the cut
@@ -62,7 +65,10 @@ BGGR = tuple(CFA_PATTERNS["bggr"])
 # last block's 16-byte chunk starts: past the block data come the metadata
 # streams and the tail, which the kernel never reads; develop's params keep
 # 64 bytes, below the 17 floats its entry reads). The checksum's out, cut
-# to 3 bytes, fails both its host memset and its kernel's atomic add.
+# to 3 bytes, fails both its host memset and its kernel's atomic add. The
+# block offsets' status scratch, cut by one word, fails the entry's memset
+# of it on the host (the entry then does not launch); s_local, cut by one
+# word, fails at the last block of a full tile.
 NEGATIVE = (
     ("unpack_modern", "load", "bits", 2),
     ("unpack_modern", "cp.async", "words", None),
@@ -79,6 +85,10 @@ NEGATIVE = (
     ("checksum", "load", "x", 2),
     ("checksum", "store", "out", 5),
     ("checksum", "shared", "s_warp", 4),
+    ("block_offsets", "load", "bits", 2),
+    ("block_offsets", "store", "offsets", 8),
+    ("block_offsets", "store", "status", 8),
+    ("block_offsets", "shared", "s_local", 4),
 )
 # kernel -> bytes off every batch frame's checked window.
 WINDOWS = {"unpack_modern": 512, "unpack_legacy": 64}
@@ -179,6 +189,8 @@ def _inputs(dev) -> tuple[dict, dict]:
     raw = torch.from_numpy(_image(rng, *DEVELOP)).to(dev)
     params = D.pack_develop_params(*DEVELOP_PARAMS)
     x = torch.from_numpy(_image(rng, 256, 256)).to(dev)
+    bits = torch.from_numpy(rng.integers(0, 1 << 16, size=OFFSETS_BLOCKS, dtype=np.uint16))
+    bits = bits.to(dev)
     last = int(U.block_offsets(modern.bits, modern_tables(dev))[-1])
     cuts = {("unpack_modern", "words"): 4 * modern.words.numel() - last // 16 * 16,
             ("develop", "params"): params.nbytes - 64}
@@ -187,6 +199,7 @@ def _inputs(dev) -> tuple[dict, dict]:
         "unpack_legacy": lambda: L.unpack_legacy(legacy, lw, lh),
         "develop": lambda: D.develop_rgba_device(raw, params, cfa=BGGR),
         "checksum": lambda: C.device_checksum(x),
+        "block_offsets": lambda: O.block_offsets_device(bits),
     }, cuts
 
 
@@ -223,6 +236,19 @@ def clean_cases(dev) -> list[tuple[str, str, Callable[[], torch.Tensor]]]:
     for start, n in ((1, 17), (3, 4096), (0, 4099)):
         cases.append((f"checksum uint16[{start}:{start + n}]", "checksum",
                       lambda s=start, k=n: C.device_checksum(words[s : s + k])))
+    for what, shape, hi in (("one block", (1,), 1 << 16), ("a tile less one", (4095,), 17),
+                            ("a tile and one, all 0", (4097,), 1),
+                            ("(3, 4097), all >= 16", (3, 4097), None),
+                            ("(1, 8192)", (1, 8192), 1 << 16),
+                            ("(2, 5000)", (2, 5000), 1 << 16)):
+        b = (rng.integers(16, 1 << 16, size=shape, dtype=np.uint16) if hi is None
+             else rng.integers(0, hi, size=shape, dtype=np.uint16))
+        b = torch.from_numpy(b).to(dev)
+        cases.append((f"block offsets {what}", "block_offsets",
+                      lambda b=b: O.block_offsets_device(b)))
+    odd = torch.from_numpy(rng.integers(0, 1 << 16, size=4100, dtype=np.uint16)).to(dev)
+    cases.append(("block offsets uint16[1:4100], off 16 bytes", "block_offsets",
+                  lambda: O.block_offsets_device(odd[1:])))
     return cases
 
 

@@ -24,9 +24,14 @@
 //   [bases[f], bases[f] + lengths[f]) but inside the buffer are counted
 //   (kCrossFrame), not faulted: the kernels mask what such reads return;
 // - the entry's own host reads (develop's parameters) and host-issued
-//   stores (the checksum's memset) are checked against the same extents
-//   into the host record of Args; develop then returns without launching,
-//   the checksum skips its memset and launches.
+//   stores (the memsets of the checksum and of the block offsets' status
+//   scratch) are checked against the same extents into the host record of
+//   Args; develop then returns without launching, the checksum skips its
+//   memset and launches, the block offsets return without launching (their
+//   kernel would wait on tile status words that were never zeroed);
+// - a tile status word of the block offsets' look-back that faults reads
+//   as a known prefix of 0, so a faulted load ends the look-back instead
+//   of spinning on it.
 //
 // The wrapper (kernels/build.py::launch) waits for the launch, reads both
 // records and raises on a fault.
@@ -37,13 +42,25 @@
 
 #include <cuda_runtime.h>
 
+// A 64-bit word read with acquire and written with release semantics at
+// the scope of the card (csrc/block_offsets.cu's tile status words).
+__device__ __forceinline__ unsigned long long mcraw_ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mcraw_st_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
 #ifdef MCRAW_CHECKED
 
 namespace mcraw_check {
 
 constexpr int kMaxBuffers = 16;
 
-enum Kernel : int { kUnpackModern = 0, kUnpackLegacy, kDevelop, kChecksum };
+enum Kernel : int { kUnpackModern = 0, kUnpackLegacy, kDevelop, kChecksum, kBlockOffsets };
 enum Entry : int {
   kEntryUnpackModern = 0,
   kEntryUnpackModernBatch,
@@ -51,6 +68,8 @@ enum Entry : int {
   kEntryUnpackLegacyBatch,
   kEntryDevelop,
   kEntryChecksum,
+  kEntryBlockOffsets,
+  kEntryBlockOffsetsBatch,
 };
 enum Kind : int { kLoad = 0, kCpAsync, kStore, kShared, kHost, kKinds };
 // The record: kRecordWords int64 (kernels/build.py RECORD).
@@ -189,6 +208,25 @@ __device__ inline void atomic_add(const Check& c, int buf, T* p, V v) {
   if (global_ok(c, buf, p, sizeof(T), kStore)) atomicAdd(p, v);
 }
 
+// The acquire load of word i, or `fallback` where it faults.
+__device__ inline unsigned long long ld_acquire(const Check& c, int buf,
+                                                const unsigned long long* p, int64_t i,
+                                                unsigned long long fallback) {
+  return global_ok(c, buf, p + i, 8, kLoad) ? mcraw_ld_acquire(p + i) : fallback;
+}
+
+__device__ inline void st_release(const Check& c, int buf, unsigned long long* p, int64_t i,
+                                  unsigned long long v) {
+  if (global_ok(c, buf, p + i, 8, kStore)) mcraw_st_release(p + i, v);
+}
+
+// An atomic ticket: the word's old value, one added; `fallback` where it
+// faults.
+__device__ inline unsigned long long ticket(const Check& c, int buf, unsigned long long* p,
+                                            unsigned long long fallback) {
+  return global_ok(c, buf, p, 8, kStore) ? atomicAdd(p, 1ull) : fallback;
+}
+
 template <class T>
 __device__ inline T sld(const Check& c, int id, const void* base, int64_t size, const T* p,
                         int64_t i) {
@@ -240,6 +278,9 @@ __device__ inline bool cp_ok(const Check& c, int sid, const void* sbase, int64_t
 #define MCRAW_LDG(buf, p, i) mcraw_check::ldg(ck, buf, p, i)
 #define MCRAW_ST(buf, p, i, v) mcraw_check::st(ck, buf, p, i, v)
 #define MCRAW_ATOMIC_ADD(buf, p, v) mcraw_check::atomic_add(ck, buf, p, v)
+#define MCRAW_ATOMIC_TICKET(buf, p, fallback) mcraw_check::ticket(ck, buf, p, fallback)
+#define MCRAW_LD_ACQUIRE(buf, p, i, fallback) mcraw_check::ld_acquire(ck, buf, p, i, fallback)
+#define MCRAW_ST_RELEASE(buf, p, i, v) mcraw_check::st_release(ck, buf, p, i, v)
 // Shared memory: `arr` the array (its sizeof is the extent), or `base` and
 // `size` where only a pointer to it is in scope.
 #define MCRAW_SLD(id, arr, p, i) mcraw_check::sld(ck, id, arr, sizeof(arr), p, i)
@@ -265,6 +306,9 @@ __device__ inline bool cp_ok(const Check& c, int sid, const void* sbase, int64_t
 #define MCRAW_LDG(buf, p, i) __ldg((p) + (i))
 #define MCRAW_ST(buf, p, i, v) ((p)[i] = (v))
 #define MCRAW_ATOMIC_ADD(buf, p, v) atomicAdd(p, v)
+#define MCRAW_ATOMIC_TICKET(buf, p, fallback) atomicAdd(p, 1ull)
+#define MCRAW_LD_ACQUIRE(buf, p, i, fallback) mcraw_ld_acquire((p) + (i))
+#define MCRAW_ST_RELEASE(buf, p, i, v) mcraw_st_release((p) + (i), v)
 #define MCRAW_SLD(id, arr, p, i) ((p)[i])
 #define MCRAW_SST(id, arr, p, i, v) ((p)[i] = (v))
 #define MCRAW_SLDN(id, base, size, p, i) ((p)[i])

@@ -16,7 +16,7 @@ through :func:`launch`.
 The checked build (``csrc/checked.cuh``) is the same sources compiled with
 one more define, ``-DMCRAW_CHECKED``, into
 ``libmcraw_torch_checked_<digest>.so``: every global load and store,
-``cp.async`` and shared-memory index of the four kernels is held to the
+``cp.async`` and shared-memory index of the five kernels is held to the
 extent of its buffer, and a batch frame's reads outside its own window are
 counted. A process asks for it in code, before its first launch, with
 :func:`use_checked` (it needs a card; nothing selects it otherwise, and
@@ -156,11 +156,13 @@ def load(path: Path, checked: bool = False) -> ctypes.CDLL:
         "mcraw_unpack_legacy_batch": [p, i64, p, p, i64, p, p, p, p, i64, i64, i64, p],
         "mcraw_checksum": [p, i64, i32, p, p],
         "mcraw_develop": [p, p, i64, i64, i64, p, p, p, i32, p],
+        "mcraw_block_offsets": [p, i64, p, p, i64, p],
+        "mcraw_block_offsets_batch": [p, i64, i64, p, p, i64, p],
     }
     for name, argtypes in entries.items():
         # An earlier csrc (python -m mcraw_torch.kernel_ab) may not have
-        # the batch entries.
-        if hasattr(cdll, name) or not name.endswith("_batch"):
+        # the batch entries or the block offsets.
+        if hasattr(cdll, name) or not name.endswith(("_batch", "_block_offsets")):
             fn = getattr(cdll, name)
             fn.restype = ctypes.c_int
             fn.argtypes = [*argtypes, p] if checked else argtypes
@@ -225,7 +227,7 @@ def check(err: int, name: str) -> None:
 # its csrc file's `enum Buffer` (kBufWords -> "words"): the entry's global
 # buffers, then its shared arrays. csrc/checked.cuh's Kernel, Entry, Kind
 # and Record enums are in the order of these tuples.
-KERNELS = ("unpack_modern", "unpack_legacy", "develop", "checksum")
+KERNELS = ("unpack_modern", "unpack_legacy", "develop", "checksum", "block_offsets")
 ENTRIES = {
     "mcraw_unpack_modern": "unpack_modern",
     "mcraw_unpack_modern_batch": "unpack_modern",
@@ -233,6 +235,8 @@ ENTRIES = {
     "mcraw_unpack_legacy_batch": "unpack_legacy",
     "mcraw_develop": "develop",
     "mcraw_checksum": "checksum",
+    "mcraw_block_offsets": "block_offsets",
+    "mcraw_block_offsets_batch": "block_offsets",
 }
 BUFFERS = {
     "unpack_modern": ("words", "bits", "refs", "offsets", "desc", "class_index", "out",
@@ -241,6 +245,7 @@ BUFFERS = {
                       "s_span", "s_off", "s_cls", "s_ref"),
     "develop": ("raw", "out", "quantizer", "params", "cfa", "s_tile", "s_q"),
     "checksum": ("x", "out", "s_warp"),
+    "block_offsets": ("bits", "offsets", "status", "s_local", "s_warp", "s_tile"),
 }
 KINDS = ("load", "cp.async", "store", "shared", "host")
 RECORD = ("faults", "kernel", "entry", "buffer", "kind", "index", "extent", "block_x",

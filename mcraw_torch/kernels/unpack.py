@@ -9,8 +9,9 @@ The frame's path, as in the JAX package's single-frame device path
    in a :class:`~mcraw_torch.kernels.staging.Staging`; the upload it
    returns sends them in one H2D (:func:`stage_modern` is both).
 2. :func:`block_offsets` (device): clamp each block's bit width to 16, map
-   it to a byte length, and take ``16 + exclusive prefix sum`` as an int64
-   ``torch.cumsum``.
+   it to a byte length, and take ``16 + exclusive prefix sum`` in int64:
+   the hand-written CUDA scan of :mod:`mcraw_torch.kernels.offsets`
+   (``csrc/block_offsets.cu``).
 3. :func:`decode_modern_device`: the hand-written CUDA kernel
    (``csrc/unpack_modern.cu``) unpacks every block, adds its reference and
    writes Bayer-de-interleaved rows of the (height, width) uint16 plane.
@@ -42,6 +43,7 @@ import torch
 from ..errors import DecodeError
 from . import build
 from . import numpy_ref as R
+from . import offsets as O
 from . import tables as T
 from .native import decode_metadata_stream
 from .staging import (SHARE_GEOMETRY, Staging, check_batch_inputs, frame_spans, slot_bytes,
@@ -203,9 +205,10 @@ def decode_modern_batch(payloads, width: int, height: int, staging: Staging) -> 
 def block_offsets(bits: torch.Tensor, tables: ModernTables) -> torch.Tensor:
     """(..., nblk) int64 payload byte offset of every main-data block: 16 +
     the exclusive prefix sum of the clamped bits' block lengths, along the
-    last axis (one frame's blocks, or each row of a batch's (F, nblk))."""
-    lengths = tables.block_length[bits.to(torch.int64).clamp_(max=16)]
-    return R.METADATA_OFFSET + torch.cumsum(lengths, -1) - lengths
+    last axis (one frame's blocks, or each row of a batch's (F, nblk)):
+    :func:`~mcraw_torch.kernels.offsets.block_offsets_device`, one kernel
+    launch on a card, the plain version (with `tables`) on the CPU."""
+    return O.block_offsets_device(bits, tables)
 
 
 def _check_inputs(words, bits, refs, offsets, ty: int, tx: int) -> None:

@@ -90,6 +90,7 @@ from .kernels import build
 from .kernels import checksum as C
 from .kernels import legacy as L
 from .kernels import native
+from .kernels import offsets as O
 from .kernels.staging import SHARE_GEOMETRY
 from .kernels import unpack as U
 from .metadata import example_container_metadata, example_frame_metadata
@@ -100,7 +101,7 @@ CLI_LEGS = ("container", "json")
 LEGS = DECODE_LEGS + CLI_LEGS
 PATHS = ("codecs", "load_frame_device", "decode_batch", "frame_decoder",
          "load_frame_sharded", "decode_batch_iter")
-COUNTED = {"unpack_modern": U, "unpack_legacy": L, "checksum": C}
+COUNTED = {"unpack_modern": U, "unpack_legacy": L, "checksum": C, "block_offsets": O}
 UNPACK = {7: "unpack_modern", 6: "unpack_legacy"}
 MAX_REPRODUCERS = 20  # a leg keeps the first reproducers, counts the rest
 

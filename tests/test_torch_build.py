@@ -235,8 +235,9 @@ def test_checked_launch_reports_a_cuda_error(fake_checked, monkeypatch):
 
 def test_negative_cases_cover_every_kind_of_every_kernel():
     """Each kernel's access kinds (develop makes no cp.async; its host reads
-    of the parameters are the host kind; the checksum's only cp.async-free
-    too) each have a negative case, on a buffer of that kernel."""
+    of the parameters are the host kind; the checksum and the block offsets
+    are cp.async-free too, their memsets stores) each have a negative case,
+    on a buffer of that kernel."""
     kinds = {k: set() for k in build.KERNELS}
     for kernel, kind, buf, _ in bounds.NEGATIVE:
         assert buf in build.BUFFERS[kernel] and kind in build.KINDS
@@ -244,7 +245,8 @@ def test_negative_cases_cover_every_kind_of_every_kernel():
     assert kinds == {"unpack_modern": {"load", "cp.async", "store", "shared"},
                      "unpack_legacy": {"load", "cp.async", "store", "shared"},
                      "develop": {"load", "store", "shared", "host"},
-                     "checksum": {"load", "store", "shared"}}
+                     "checksum": {"load", "store", "shared"},
+                     "block_offsets": {"load", "store", "shared"}}
 
 
 def test_bounds_without_a_card_exits_2(capsys):

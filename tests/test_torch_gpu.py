@@ -17,6 +17,7 @@ from mcraw_torch import soak as S
 from mcraw_torch.kernels import checksum as C
 from mcraw_torch.kernels import develop as D
 from mcraw_torch.kernels import legacy as L
+from mcraw_torch.kernels import offsets as O
 from mcraw_torch.kernels import tables as T
 from mcraw_torch.kernels import unpack as U
 from mcraw_torch.kernels.tables import modern_tables
@@ -211,6 +212,74 @@ def test_checksum_kernel_takes_every_integer_dtype(cuda, shape, dtype):
     got = int(C.device_checksum(x))
     assert (C.KERNEL_LAUNCHES, C.PLAIN_CALLS) == (before[0] + 1, before[1])
     assert got == int(a.astype(np.int64).sum() & 0xFFFFFFFF)
+
+
+# -- the block offsets (the modern device prep) ---------------------------------
+
+# (shape, bits drawn from [lo, hi)): one block; one below, at and one above a
+# tile; 0..65535 where the clamp matters; all 0 (every offset 16); all >= 16
+# at 8K (the largest sums); 4K; batches of 4K frames, F = 1 against the
+# single entry below.
+OFFSETS_CASES = [
+    ((1,), 0, 1 << 16), ((4095,), 0, 1 << 16), ((4096,), 0, 1 << 16), ((4097,), 0, 1 << 16),
+    ((8191,), 0, 17), ((8193,), 0, 1 << 16), ((3 * 4096 + 5,), 0, 1), ((3_145_728,), 16, 1 << 16),
+    ((786_432,), 0, 1 << 16), ((1, 786_432), 0, 17), ((2, 786_432), 0, 1 << 16),
+    ((5, 786_432), 0, 17), ((8, 786_432), 16, 1 << 16), ((3, 4097), 0, 1 << 16),
+    ((7, 1), 0, 1 << 16),
+]
+
+
+@pytest.mark.parametrize("shape, lo, hi", OFFSETS_CASES)
+def test_block_offsets_kernel_equals_plain(cuda, shape, lo, hi):
+    rng = np.random.default_rng([len(shape), shape[-1], lo])
+    bits = torch.from_numpy(rng.integers(lo, hi, size=shape, dtype=np.uint16)).to(cuda)
+    launches, plain = O.KERNEL_LAUNCHES, O.PLAIN_CALLS
+    got = O.block_offsets_device(bits)
+    torch.cuda.synchronize()
+    assert (O.KERNEL_LAUNCHES, O.PLAIN_CALLS) == (launches + 1, plain)
+    assert got.shape == shape and got.dtype == torch.int64 and got.device == bits.device
+    assert torch.equal(got, O.block_offsets_plain(bits))
+    if hi == 1:
+        assert bool((got == 16).all())
+
+
+def test_block_offsets_kernel_views_and_single_rows(cuda):
+    """A view off a 16-byte boundary, a (1, nblk) batch against the single
+    entry, and row 0 of it as parallel.decode_frame_sharded passes it."""
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.integers(0, 1 << 16, size=(1, 9000), dtype=np.uint16)).to(cuda)
+    for view in (x.view(-1)[1:], x.view(-1)[3:8196], x[0]):
+        assert torch.equal(O.block_offsets_device(view), O.block_offsets_plain(view))
+    assert torch.equal(O.block_offsets_device(x)[0], O.block_offsets_device(x[0]))
+    assert torch.equal(U.block_offsets(x, modern_tables(cuda)), O.block_offsets_plain(x))
+
+
+def test_block_offsets_kernel_on_four_streams_at_once(cuda):
+    """Four streams of one card each launch a batch at the same time; each
+    launch has its own status scratch and gives its own answer."""
+    rng = np.random.default_rng(32)
+    inputs = [torch.from_numpy(rng.integers(0, 1 << 16, size=(3, 786_432), dtype=np.uint16))
+              .to(cuda) for _ in range(4)]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        outs = []
+        for s, bits in zip(streams, inputs):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(100_000)  # the launches queue behind each other's
+                outs.append(O.block_offsets_device(bits))
+        torch.cuda.synchronize()
+        for bits, got in zip(inputs, outs):
+            assert torch.equal(got, O.block_offsets_plain(bits))
+
+
+def test_block_offsets_kernel_empty(cuda):
+    launches = O.KERNEL_LAUNCHES
+    for shape in ((0,), (4, 0), (0, 5)):
+        got = O.block_offsets_device(torch.zeros(shape, dtype=torch.uint16, device=cuda))
+        assert got.shape == shape and got.dtype == torch.int64
+    assert O.KERNEL_LAUNCHES == launches
 
 
 def test_decoder_on_card(cuda):
@@ -815,7 +884,8 @@ def test_checked_run_holds(cuda, checked_run):
     assert checked_run["library"].startswith("libmcraw_torch_checked_")
 
 
-@pytest.mark.parametrize("kernel", ["unpack_modern", "unpack_legacy", "develop", "checksum"])
+@pytest.mark.parametrize("kernel", ["unpack_modern", "unpack_legacy", "develop", "checksum",
+                                    "block_offsets"])
 def test_checked_launches_equal_the_default_library(cuda, checked_run, kernel):
     """Each clean checked launch gives the default library's output bit
     for bit, with no fault."""
