@@ -1,9 +1,10 @@
-"""Time the four CUDA kernels (modern unpack, develop, legacy unpack,
-checksum) against an earlier version of their sources, and against variants
-of the current ones, in turns, on one CUDA card.
+"""Time the five CUDA kernels (modern unpack, develop, legacy unpack,
+checksum, the modern device prep) against an earlier version of their
+sources, and against variants of the current ones, in turns, on one CUDA
+card.
 
     python -m mcraw_torch.kernel_ab OLD_CSRC [--variant NAME=CSRC ...]
-        [--kernels unpack_modern,develop,unpack_legacy,checksum] [--n 20]
+        [--kernels unpack_modern,develop,unpack_legacy,checksum,block_offsets] [--n 20]
 
 OLD_CSRC is a directory with an earlier ``mcraw_torch/csrc`` (for example
 unpacked from ``git archive <commit> mcraw_torch/csrc`` into a git-ignored
@@ -16,7 +17,10 @@ by writing 256 MB, as chip_smoke.py does, and again by reading them) in
 the order old, new, variants, the variants again in reverse, new, old:
 the modern unpack on ``encode_modern``'s payload, the legacy unpack on
 ``encode_legacy``'s (chip_smoke.py's first legacy frame), the checksum on
-that frame's uint16 plane. A checksum time is everything a call enqueues:
+that frame's uint16 plane, the device prep on the modern payload's bits,
+one frame and a batch of 8 (the grade step's) in one launch; a build whose
+sources have no prep entry (older than the prep kernel) sits out its turns.
+A checksum time is everything a call enqueues:
 the new kernel's entry zeroes its own output word, the old one's caller
 does (a fill launch, as its wrapper did). The outputs are compared: the
 unpacks element for element and the checksum by value against the plain
@@ -49,6 +53,7 @@ from .kernels import checksum as C
 from .kernels import develop as D
 from .kernels import legacy as L
 from .kernels import numpy_ref as R
+from .kernels import offsets as O
 from .kernels import unpack as U
 from .kernels.staging import Staging
 from .kernels.tables import modern_tables
@@ -62,7 +67,8 @@ BENCH_DEVELOP_ARGS = (
     np.zeros(4, np.float32), 4095.0, np.ones(3, np.float32),
     np.diag([0.9642, 1.0, 0.8249]).astype(np.float32),
 )
-KERNELS = ("unpack_modern", "develop", "unpack_legacy", "checksum")
+KERNELS = ("unpack_modern", "develop", "unpack_legacy", "checksum", "block_offsets")
+OFFSETS_FRAMES = (1, 8)  # the device prep's cases: one frame, the grade step's batch
 
 
 def emit(**kw) -> None:
@@ -148,9 +154,22 @@ def stream() -> int:
 
 
 def in_turns(libs: dict, call, new) -> dict:
-    """old, new, then the variants: `call(name)` runs library `name`, `new`
-    the current kernel through its wrapper."""
-    return {"old": call("old"), "new": new} | {k: call(k) for k in libs if k != "old"}
+    """old (where `libs` has it), new, then the variants: `call(name)` runs
+    library `name`, `new` the current kernel through its wrapper."""
+    old = {"old": call("old")} if "old" in libs else {}
+    return old | {"new": new} | {k: call(k) for k in libs if k != "old"}
+
+
+def with_entry(libs: dict, entry: str) -> dict:
+    """The libraries that have the C entry `entry`: an earlier csrc may
+    not."""
+    return {k: lib for k, lib in libs.items() if hasattr(lib, entry)}
+
+
+def offsets_bytes(frames: int, nblk: int) -> int:
+    """The device prep's bytes: each block's uint16 bits in, its int64
+    offset out."""
+    return frames * nblk * (2 + 8)
 
 
 def ab_unpack_modern(libs: dict, dev, n: int) -> None:
@@ -261,6 +280,39 @@ def ab_unpack_legacy(libs: dict, dev, n: int) -> None:
           exact={k: bool(torch.equal(v.to(torch.int32), want)) for k, v in got.items()})
 
 
+def ab_block_offsets(libs: dict, dev, n: int) -> None:
+    rng = np.random.default_rng(21)
+    payload = np.frombuffer(E.encode_modern(twelve_bit(rng, 0)), np.uint8)
+    one = U.stage_modern(Staging(dev), payload, W, H).bits.clone()
+    nblk = one.numel()
+    for frames in OFFSETS_FRAMES:
+        bits = one if frames == 1 else one.repeat(frames, 1)
+        entry = "mcraw_block_offsets" if frames == 1 else "mcraw_block_offsets_batch"
+        have = with_entry(libs, entry)
+        words = O.status_words(frames, nblk)
+        outs = {k: torch.empty(bits.shape, dtype=torch.int64, device=dev) for k in have}
+        status = {k: torch.empty(words, dtype=torch.int64, device=dev) for k in have}
+
+        def call(name):
+            fn = getattr(have[name], entry)
+            rows = (nblk,) if frames == 1 else (frames, nblk)
+
+            def run():
+                build.check(fn(bits.data_ptr(), *rows, outs[name].data_ptr(),
+                               status[name].data_ptr(), words, stream()), f"{name} {entry}")
+            return run
+
+        fns = in_turns(have, call, lambda: O.block_offsets_device(bits))
+        results = {k: f() for k, f in fns.items()}
+        want = O.block_offsets_plain(bits.cpu())
+        torch.cuda.synchronize()
+        got = {k: results["new"] if k == "new" else outs[k] for k in fns}
+        moved = offsets_bytes(frames, nblk)
+        turns("block_offsets", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
+              frames=frames, blocks=nblk, bytes=moved, without_entry=sorted(set(libs) - set(have)),
+              exact={k: bool(torch.equal(v.cpu(), want)) for k, v in got.items()})
+
+
 def checksum_fns(libs: dict, x: torch.Tensor) -> tuple[dict, dict]:
     """Callables for one checksum of `x` by each build (old, new,
     variants), and the output words of the libraries called directly."""
@@ -336,6 +388,8 @@ def main(argv=None) -> int:
         tiny = torch.from_numpy(legacy_image()[0, :16].copy()).to(dev)
         turns("checksum_16_elements", checksum_fns(libs, tiny)[0], args.n,
               (2 * tiny.numel() + 4) / PEAK_BYTES_PER_S * 1e3)
+    if "block_offsets" in kernels:
+        ab_block_offsets(libs, dev, args.n)
     return 0
 
 

@@ -39,6 +39,8 @@ from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from .. import observe
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
@@ -348,7 +350,13 @@ def launch(entry: str, buffers: tuple, *args) -> None:
     In a checked process the entry also gets the extents of `buffers` (its
     kernel's global buffers in BUFFERS order, None where it has none), the
     call waits for the launch, and a fault raises :class:`CheckedFault`.
-    Call it with the launch's device current."""
+    Call it with the launch's device current. The whole call, the library
+    lookup included, is the span ``launch.<entry>``."""
+    with observe.span("launch." + entry):
+        _launch(entry, buffers, args)
+
+
+def _launch(entry: str, buffers: tuple, args: tuple) -> None:
     fn = getattr(lib(), entry)
     if not _checked:
         check(fn(*args), entry)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import observe
 from . import build
 
 KERNEL_LAUNCHES = 0
@@ -57,6 +58,7 @@ def kernel_elements(x: torch.Tensor) -> tuple[torch.Tensor, int]:
     return x.reshape(-1).view(torch.int32)[0::2].contiguous(), 4
 
 
+@observe.spanned("checksum")
 def device_checksum(x: torch.Tensor) -> torch.Tensor:
     """0-d int64 tensor on x's device holding the uint32 wrap-around sum.
 

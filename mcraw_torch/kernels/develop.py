@@ -32,6 +32,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import observe
 from ..metadata import CFA_PATTERNS
 from . import build
 
@@ -301,6 +302,7 @@ def develop_rgba_plain(
     return pack_rgba(*out).reshape(raw.shape)
 
 
+@observe.spanned("develop")
 def develop_rgba_device(
     raw: torch.Tensor, params, *, cfa, demosaic: str = "bilinear"
 ) -> torch.Tensor:

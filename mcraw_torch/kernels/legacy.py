@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import observe
 from . import build
 from . import native
 from . import numpy_ref as R
@@ -120,7 +121,8 @@ def prepare_legacy_batch(staging: Staging, payloads, width: int, height: int) ->
     """The host prep of a batch: its inputs laid out in `staging`, not yet
     sent: each payload straight into its 16-byte aligned slot, followed by
     its zeroed tail; each frame's :func:`scan_chain` straight into its
-    rows."""
+    rows. The scans are the span ``stage.scan``, the copies
+    ``stage.layout``."""
     payloads = [np.asarray(p, dtype=np.uint8) for p in payloads]
     if not payloads:
         raise ValueError("a batch needs at least one frame")
@@ -130,12 +132,15 @@ def prepare_legacy_batch(staging: Staging, payloads, width: int, height: int) ->
     buf, bases, lengths, bits, refs, offsets = staging.host(
         ((total,), np.uint8), ((frames,), np.int64), ((frames,), np.int64),
         ((frames, nblk), np.int32), ((frames, nblk), np.uint16), ((frames, nblk), np.int64))
-    for f, (p, lo, size) in enumerate(zip(payloads, starts.tolist(), sizes)):
-        scan_chain(p, nblk, out=(bits[f], refs[f], offsets[f]))
-        buf[lo : lo + len(p)] = p
-        buf[lo + len(p) : lo + size] = 0
-    bases[:] = starts
-    lengths[:] = [len(p) + TAIL_BYTES for p in payloads]
+    with observe.span("stage.scan"):
+        for f, p in enumerate(payloads):
+            scan_chain(p, nblk, out=(bits[f], refs[f], offsets[f]))
+    with observe.span("stage.layout"):
+        for p, lo, size in zip(payloads, starts.tolist(), sizes):
+            buf[lo : lo + len(p)] = p
+            buf[lo + len(p) : lo + size] = 0
+        bases[:] = starts
+        lengths[:] = [len(p) + TAIL_BYTES for p in payloads]
 
 
 def prepare_legacy(staging: Staging, payload, width: int, height: int
@@ -224,6 +229,7 @@ def decode_legacy_plain(
     return out
 
 
+@observe.spanned("unpack.legacy")
 def decode_legacy_device(
     payload: torch.Tensor,
     bits: torch.Tensor,
@@ -299,6 +305,7 @@ def decode_legacy_batch_plain(
     return out
 
 
+@observe.spanned("unpack.legacy")
 def decode_legacy_batch_device(
     payload: torch.Tensor,
     bases: torch.Tensor,

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import observe
 from . import build
 from . import numpy_ref as R
 from .tables import ModernTables, modern_tables
@@ -55,6 +56,7 @@ def status_words(frames: int, nblk: int) -> int:
     return 1 + frames * -(-nblk // TILE)
 
 
+@observe.spanned("offsets")
 def block_offsets_device(bits: torch.Tensor, tables: ModernTables | None = None
                          ) -> torch.Tensor:
     """(nblk,) or (F, nblk) int64 offsets of contiguous uint16 bits.

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import observe
+
 # gridDim.y of the batched launches: one frame a row of blocks.
 MAX_BATCH_FRAMES = 65535
 
@@ -73,11 +75,14 @@ class Staging:
         """One H2D of the arrays of the last :meth:`host` call; each on the
         device, with its shape and dtype. With `source`, the arrays that
         `source` laid out go into this staging's device buffer: one host
-        prep sent to several devices (a frame replicated over a mesh)."""
+        prep sent to several devices (a frame replicated over a mesh). The
+        copy is the span ``stage.h2d``; its bytes count as ``h2d_bytes``."""
         src = self if source is None else source
-        if self._dev.numel() < src._used:
-            self._dev = torch.empty(src._used, dtype=torch.uint8, device=self.device)
-        self._dev[: src._used].copy_(src._host[: src._used])
+        with observe.span("stage.h2d"):
+            if self._dev.numel() < src._used:
+                self._dev = torch.empty(src._used, dtype=torch.uint8, device=self.device)
+            self._dev[: src._used].copy_(src._host[: src._used])
+        observe.count("h2d_bytes", src._used)
         return [self._dev[lo : lo + a.nbytes].view(torch.from_numpy(a.reshape(-1)[:0]).dtype)
                 .view(a.shape) for lo, a in src._parts]
 

@@ -40,6 +40,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import observe
 from ..errors import DecodeError
 from . import build
 from . import numpy_ref as R
@@ -131,28 +132,31 @@ def prepare_modern_batch(staging: Staging, payloads, width: int, height: int
     the batch's inputs laid out in `staging` (each payload straight into its
     16-byte aligned slot, followed by a zeroed tail of TAIL_BYTES), not yet
     sent; the (tiles_y, tiles_x) they share. Frames whose encoded geometry
-    differs raise ValueError."""
+    differs raise ValueError. The scans are the span ``stage.scan``, the
+    layout ``stage.layout``."""
     payloads = [np.asarray(p, dtype=np.uint8) for p in payloads]
     if not payloads:
         raise ValueError("a batch needs at least one frame")
     scans = []
-    for p in payloads:
-        scan = scan_modern(p, width, height)
-        if scans and scan[3:] != scans[0][3:]:
-            raise ValueError(SHARE_GEOMETRY)
-        scans.append(scan)
-    sizes = [slot_bytes(sc.n, TAIL_BYTES) for sc in scans]
-    starts, total = slot_layout(sizes)
-    frames, nblk = len(scans), scans[0].bits.size
-    words, bases, lengths, bits, refs = staging.host(
-        ((total // 4,), np.int32), ((frames,), np.int64), ((frames,), np.int64),
-        ((frames, nblk), np.uint16), ((frames, nblk), np.uint16))
-    buf = words.view(np.uint8)
-    for f, (p, sc, lo, size) in enumerate(zip(payloads, scans, starts.tolist(), sizes)):
-        buf[lo : lo + sc.n] = p
-        buf[lo + sc.n : lo + size] = 0
-        bits[f], refs[f] = sc.bits, sc.refs
-    bases[:], lengths[:] = starts // 4, np.asarray(sizes) // 4
+    with observe.span("stage.scan"):
+        for p in payloads:
+            scan = scan_modern(p, width, height)
+            if scans and scan[3:] != scans[0][3:]:
+                raise ValueError(SHARE_GEOMETRY)
+            scans.append(scan)
+    with observe.span("stage.layout"):
+        sizes = [slot_bytes(sc.n, TAIL_BYTES) for sc in scans]
+        starts, total = slot_layout(sizes)
+        frames, nblk = len(scans), scans[0].bits.size
+        words, bases, lengths, bits, refs = staging.host(
+            ((total // 4,), np.int32), ((frames,), np.int64), ((frames,), np.int64),
+            ((frames, nblk), np.uint16), ((frames, nblk), np.uint16))
+        buf = words.view(np.uint8)
+        for f, (p, sc, lo, size) in enumerate(zip(payloads, scans, starts.tolist(), sizes)):
+            buf[lo : lo + sc.n] = p
+            buf[lo + sc.n : lo + size] = 0
+            bits[f], refs[f] = sc.bits, sc.refs
+        bases[:], lengths[:] = starts // 4, np.asarray(sizes) // 4
     return scans[0].tiles_y, scans[0].tiles_x
 
 
@@ -301,6 +305,7 @@ def decode_modern_plain(
     return out
 
 
+@observe.spanned("unpack.modern")
 def decode_modern_device(
     words: torch.Tensor,
     bits: torch.Tensor,
@@ -384,6 +389,7 @@ def decode_modern_batch_plain(
     return out
 
 
+@observe.spanned("unpack.modern")
 def decode_modern_batch_device(
     words: torch.Tensor,
     bases: torch.Tensor,

@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import observe
 from .color import interpolated_matrices
 from .kernels.develop import (
     develop_rgba_device,
@@ -256,10 +257,11 @@ def develop_rgba(raw_u16: torch.Tensor, black_level, white_level,
     leading shape, through the develop kernel (plain version on the CPU).
     Within 1 LSB per channel of :func:`develop_f64`, in either demosaic
     mode ("bilinear" or "malvar")."""
-    params = pack_develop_params(
-        np.asarray(black_level), np.asarray(white_level),
-        np.asarray(as_shot_neutral), np.asarray(forward_matrix),
-    )
+    with observe.span("develop.params"):
+        params = pack_develop_params(
+            np.asarray(black_level), np.asarray(white_level),
+            np.asarray(as_shot_neutral), np.asarray(forward_matrix),
+        )
     return develop_rgba_device(raw_u16, params, cfa=tuple(cfa), demosaic=demosaic)
 
 

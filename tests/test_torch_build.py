@@ -293,3 +293,35 @@ def test_kernel_ab_sass_functions_strip_the_namespace_hash(monkeypatch):
         "_ZN44_GLOBAL__N__11_checksum_cu_02bd7603kernelEv": ["LDC R1, c[0x0][0x28]", "EXIT"],
         "_ZN43_GLOBAL__N__10_develop_cu_37cf5901kernelEv": ["BRA 0x0"],
     }
+
+
+def test_kernel_ab_plans_the_device_prep(monkeypatch):
+    """kernel_ab times the device prep (block_offsets) like the other
+    kernels: old, new, variants in turns, one frame and the grade step's
+    batch of 8, against the bytes bound of its bits in and offsets out; a
+    build without the prep entry (older sources) sits out its turns."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from mcraw_torch import kernel_ab
+
+    assert kernel_ab.KERNELS[-1] == "block_offsets" and kernel_ab.OFFSETS_FRAMES == (1, 8)
+    before = SimpleNamespace(mcraw_checksum=None)  # sources older than the prep kernel
+    variant = SimpleNamespace(mcraw_checksum=None, mcraw_block_offsets_batch=None)
+    libs = {"old": before, "v1": variant}
+    have = kernel_ab.with_entry(libs, "mcraw_block_offsets_batch")
+    assert have == {"v1": variant}
+    assert list(kernel_ab.in_turns(have, str.upper, "wrapper").items()) == [
+        ("new", "wrapper"), ("v1", "V1")]
+    assert list(kernel_ab.in_turns(libs, str.upper, "wrapper")) == ["old", "new", "v1"]
+    # 196,608 blocks a 4096x3072 frame: 10 bytes each, 0.000587 ms at 3.35 TB/s
+    for frames, bound_ms in ((1, 0.000587), (8, 0.00470)):
+        moved = kernel_ab.offsets_bytes(frames, 196_608)
+        assert moved / kernel_ab.PEAK_BYTES_PER_S * 1e3 == pytest.approx(bound_ms, rel=2e-3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        kernel_ab.main(["old_csrc", "--kernels", "block_offsets"])
+    with pytest.raises(SystemExit) as e:
+        kernel_ab.main(["old_csrc", "--kernels", "prep"])
+    assert e.value.code == 2

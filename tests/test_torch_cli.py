@@ -4,9 +4,11 @@ no JAX in a process that only uses mcraw_torch. The subcommands info,
 verify and encode and decode --pipeline / --verbose / --trace-dir against
 mcraw's: identical JSON, exit codes and files (tolerance 0)."""
 
+import collections
 import contextlib
 import io
 import json
+import logging
 import os
 import re
 import struct
@@ -554,18 +556,43 @@ def test_decode_verbose(clip, tmp_path, pipeline):
 
 
 @pytest.mark.parametrize("pipeline", [True, False])
-def test_decode_trace_dir(clip, tmp_path, monkeypatch, capsys, pipeline):
+def test_decode_trace_dir(clip, tmp_path, monkeypatch, capsys, caplog, pipeline):
     """--trace-dir D: a torch.profiler Chrome trace of the decode in D, the
-    outputs as without it."""
+    outputs as without it. The program's spans are on: each frame's H2D
+    and unpack, the split of the Decoder's "unpack" stage, are in the
+    trace where the thread that started the profiler decodes (without
+    --pipeline), and in the spans' record from every thread."""
     monkeypatch.chdir(tmp_path)
     flags = ["--pipeline"] if pipeline else []
-    assert cli.main(["decode", str(clip), "--device", "cpu", "--trace-dir", "t", *flags]) == 0
+    with caplog.at_level(logging.INFO, logger="mcraw_torch"):
+        assert cli.main(["decode", str(clip), "--device", "cpu", "--trace-dir", "t",
+                         *flags]) == 0
     traces = list((tmp_path / "t").glob("*.pt.trace.json"))
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    if not pipeline:
+        spans = collections.Counter(e.get("name") for e in events
+                                    if str(e.get("name", "")).startswith("mcraw."))
+        assert spans["mcraw.stage.h2d"] == spans["mcraw.unpack.modern"] == 3
+        assert spans["mcraw.stage.scan"] == spans["mcraw.offsets"] == 3
+    (timing,) = [e for e in map(json.loads, (r.message for r in caplog.records))
+                 if e["event"] == "span_timing"]
+    assert timing["spans"]["stage.h2d"]["count"] == timing["spans"]["unpack.modern"]["count"] == 3
     assert len(list(tmp_path.glob("frame_*.dng"))) == 3
     assert capsys.readouterr().out.splitlines()[0] == "Found 3 frames"
+
+
+def test_decode_trace_dir_verbose_logs_span_timing(clip, tmp_path):
+    """--trace-dir with --verbose: one span_timing event on stderr, the
+    spans' summary and counters."""
+    res = _run(["-m", "mcraw_torch", "decode", str(clip), "--verbose", "--device", "cpu",
+                "--trace-dir", "t"], tmp_path)
+    assert res.returncode == 0, res.stderr
+    (event,) = [json.loads(ln) for ln in res.stderr.splitlines() if ln.startswith("{")]
+    assert event["event"] == "span_timing"
+    assert event["spans"]["unpack.modern"]["count"] == 3
+    assert event["spans"]["stage.h2d"]["count"] == 3 and event["counters"]["h2d_bytes"] > 0
 
 
 def test_decode_trace_dir_no_card_is_a_clean_error(clip, tmp_path, monkeypatch, capsys):

@@ -612,6 +612,57 @@ def test_device_trace_records_the_unpack_kernel(cuda, tmp_path):
     assert sum("unpack_legacy_kernel" in k for k in kernels) == codecs.count(6)
 
 
+def test_spans_on_the_card_hold_each_launch(cuda, tmp_path):
+    """The program's spans under device_trace on the card: each wrapper
+    body holds its one launch.<entry> span, a launch per kernel launch
+    counted, and each kernel of the trace was launched (its runtime call,
+    by correlation id) inside the launch span of its own entry."""
+    import json
+
+    from mcraw_torch import observe
+    from mcraw_torch.kernels.staging import Staging
+
+    rng = np.random.default_rng(31)
+    images = [rng.integers(0, 4096, size=(64, 256)).astype(np.uint16) for _ in range(2)]
+    modern = [np.frombuffer(E.encode_modern(img), np.uint8) for img in images]
+    legacy = [np.frombuffer(E.encode_legacy(img), np.uint8) for img in images]
+    counters = (U, L, D, C, O)
+    before = [m.KERNEL_LAUNCHES for m in counters]
+    with observe.device_trace(str(tmp_path / "t"), cuda) as rec:
+        mb = U.stage_modern_batch(Staging(cuda), modern, 256, 64)
+        offs = U.block_offsets(mb.bits, modern_tables(cuda))
+        planes = U.decode_modern_batch_device(mb.words, mb.bases, mb.lengths, mb.bits, mb.refs,
+                                              offs, ty=mb.tiles_y, tx=mb.tiles_x, height=64,
+                                              width=256)
+        rgba = P.develop_rgba(planes, np.zeros(4), 4095.0, np.ones(3), np.eye(3),
+                              cfa=(0, 1, 1, 2))
+        C.device_checksum(rgba)
+        lb = L.stage_legacy_batch(Staging(cuda), legacy, 256, 64)
+        L.decode_legacy_batch_device(*lb, height=64, width=256)
+        torch.cuda.synchronize()
+    launched = sum(m.KERNEL_LAUNCHES for m in counters) - sum(before)
+    by_id = {r.id: r for r in rec.rows}
+    launches = [r for r in rec.rows if r.name.startswith("launch.")]
+    assert len(launches) == launched == 5
+    assert sorted(by_id[r.parent].name for r in launches) == [
+        "checksum", "develop", "offsets", "unpack.legacy", "unpack.modern"]
+    assert rec.summary()["counters"]["h2d_bytes"] > 0
+    events = json.loads(next((tmp_path / "t").glob("*.pt.trace.json")).read_text())["traceEvents"]
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    spans = [e for e in events if e.get("name", "").startswith("mcraw.launch.")]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "_kernel" in e["name"]
+               and any(k in e["name"] for k in ("unpack", "develop", "checksum", "offsets"))]
+    assert len(kernels) == 5
+    for k in kernels:
+        call = runtime[k["args"]["correlation"]]
+        inside = [m["name"] for m in spans if m.get("tid") == call.get("tid")
+                  and m["ts"] <= call["ts"] and call["ts"] + call["dur"] <= m["ts"] + m["dur"]]
+        stem = k["name"].split("_kernel")[0].split("::")[-1].removeprefix("void ")
+        assert len(inside) == 1 and inside[0].startswith("mcraw.launch.mcraw_" + stem), (
+            k["name"], inside)
+
+
 @pytest.mark.parametrize("codec", [7, 6])
 def test_host_codecs_on_card_equal_cpu(cuda, codec):
     """mcraw_torch.decode_modern / decode_legacy run on the card by default
