@@ -27,8 +27,12 @@ failure exits non-zero and prints no result:
    (both demosaic modes at (16, 128), (36, 250), (3, 64) and (3024, 4032);
    the tiled kernel's edges (37, 251), (65, 130), (3, 101), (5, 7),
    (33, 66); (3072, 4096) in the bench's parameters; all four CFAs at a
-   small size; the small ones also against the f64 model; a (3, 5, 250)
-   and a (2, 3072, 4096) batch bit-equal to single calls); each batched
+   small size; the small ones also against the f64 model; a (3, 5, 250),
+   a (2, 3072, 4096) and an (8, 2160, 3840) batch, the grade step's, with
+   a 4095 and a 0 frame among its smooth ones, bit-equal to single calls;
+   by the ``develop.ring`` / ``develop.direct`` counters, each case on the
+   path its shape gives: the ring where the width is a multiple of 8 and
+   the black levels >= 0, else direct); each batched
    unpack (one launch with a frame axis) element-exact against its plain
    batched version and against one single-frame launch per frame: F = 3 4K
    frames of the decode clips (modern 12-bit, worst case, all-16; legacy
@@ -243,6 +247,7 @@ from mcraw_torch import bench as BENCH  # noqa: E402
 from mcraw_torch import bounds as BOUNDS  # noqa: E402
 from mcraw_torch import distributed as DIST  # noqa: E402
 from mcraw_torch import encode as E  # noqa: E402  (the fixture writer)
+from mcraw_torch import observe  # noqa: E402
 from mcraw_torch import parallel as PAR  # noqa: E402
 from mcraw_torch import preview as P  # noqa: E402
 from mcraw_torch.clip import export_clip  # noqa: E402
@@ -709,13 +714,24 @@ def channel_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
     return int(d.max().item()), int((d != 0).sum().item())
 
 
-def develop_check(raw: np.ndarray, args, cfa, demosaic: str, what: str) -> int:
+def develop_path(x: torch.Tensor, params, **kw) -> tuple[torch.Tensor, str]:
+    """One develop launch and the path it took ("ring" or "direct"), by
+    the ``develop.ring`` / ``develop.direct`` counters."""
+    with observe.tracing() as rec:
+        out = D.develop_rgba_device(x, params, **kw)
+    paths = {k: v for k, v in rec.counters.items() if k.startswith("develop.")}
+    check(len(paths) == 1 and sum(paths.values()) == 1, f"develop path counters {paths}")
+    return out, next(iter(paths)).removeprefix("develop.")
+
+
+def develop_check(raw: np.ndarray, args, cfa, demosaic: str, what: str, path: str) -> int:
     """The develop kernel against its plain version on the card (and the
-    f64 model at small shapes), <= 1 LSB per channel; the max error against
-    the plain version."""
+    f64 model at small shapes), <= 1 LSB per channel, on `path`; the max
+    error against the plain version."""
     x = torch.from_numpy(raw).to(DEV)
     params = D.pack_develop_params(*args)
-    got = D.develop_rgba_device(x, params, cfa=cfa, demosaic=demosaic)
+    got, took = develop_path(x, params, cfa=cfa, demosaic=demosaic)
+    check(took == path, f"develop {what} {tuple(raw.shape)}: the {took} path, not {path}")
     want = D.develop_rgba_plain(x, params, cfa=cfa, demosaic=demosaic)
     torch.cuda.synchronize()
     check(got.shape == raw.shape and got.dtype == torch.uint32,
@@ -723,7 +739,7 @@ def develop_check(raw: np.ndarray, args, cfa, demosaic: str, what: str) -> int:
     g = rgba_channels(got, f"develop {what}")
     err, ndiff = channel_diff(g, rgba_channels(want, f"develop plain {what}"))
     row = dict(kernel="develop", case=what, shape=list(raw.shape), cfa=list(cfa),
-               demosaic=demosaic, max_abs_err=err, channels_differ=ndiff)
+               demosaic=demosaic, path=took, max_abs_err=err, channels_differ=ndiff)
     if raw.size <= F64_MAX_PIXELS:
         frames = raw.reshape(-1, *raw.shape[-2:])
         model = torch.from_numpy(np.stack(
@@ -736,47 +752,69 @@ def develop_check(raw: np.ndarray, args, cfa, demosaic: str, what: str) -> int:
     return err
 
 
+def develop_singles_check(x: torch.Tensor, params, cfa, demosaic: str, what: str,
+                          path: str) -> None:
+    """A batch in one launch bit-equal to one launch a frame, every launch
+    on `path`."""
+    batched, took = develop_path(x, params, cfa=cfa, demosaic=demosaic)
+    singles = [develop_path(f, params, cfa=cfa, demosaic=demosaic) for f in x]
+    torch.cuda.synchronize()
+    paths = {took} | {p for _, p in singles}
+    check(paths == {path}, f"develop {what} {demosaic}: paths {paths}, not {path}")
+    check(torch.equal(batched.to(torch.int64),
+                      torch.stack([o for o, _ in singles]).to(torch.int64)),
+          f"develop {what} {demosaic} != single calls")
+    emit("kernels", kernel="develop", case=what, shape=list(x.shape), demosaic=demosaic,
+         path=path, equals_single_calls=True)
+
+
+def uhd_batch(rng) -> np.ndarray:
+    """The grade step's (8, 2160, 3840): smooth 12-bit frames with an all-4095
+    frame after the first and an all-0 frame after the third. 2160 rows are
+    not a multiple of the 32-row tile, so the last tiles' boxes reach past
+    each frame's bottom: a row of the next frame read there would show."""
+    frames = [twelve_bit(rng, k, 2160, 3840) for k in range(8)]
+    frames[1][:] = 4095
+    frames[3][:] = 0
+    return np.stack(frames)
+
+
 def phase_kernels_develop(rng) -> int:
     err = 0
     bggr = tuple(CFA_PATTERNS["bggr"])
+    uhd = uhd_batch(rng)
     for demosaic in MODES:
-        for h, w in ((16, 128), (36, 250), (3, 64), (3024, 4032)):
+        for h, w, path in ((16, 128, "ring"), (36, 250, "direct"), (3, 64, "ring"),
+                           (3024, 4032, "ring")):
             raw = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
-            err = max(err, develop_check(raw, DEVELOP_ARGS, bggr, demosaic, "test"))
+            err = max(err, develop_check(raw, DEVELOP_ARGS, bggr, demosaic, "test", path))
         # Edges of the tiled kernel: odd W and H, W % 4 != 0 (masked
-        # stores), H = 3, tiles cut on both axes.
+        # stores), H = 3, tiles cut on both axes; no width a multiple of 8.
         for h, w in ((37, 251), (65, 130), (3, 101), (5, 7), (33, 66)):
             raw = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
-            err = max(err, develop_check(raw, DEVELOP_ARGS, bggr, demosaic, "edge"))
+            err = max(err, develop_check(raw, DEVELOP_ARGS, bggr, demosaic, "edge", "direct"))
         # A (3, 5, 250) batch: frames 1250 pixels apart, so not 16-byte
         # aligned; bit-equal to three single calls, <= 1 of plain and f64.
         small = rng.integers(0, 4096, size=(3, 5, 250), dtype=np.uint16)
-        err = max(err, develop_check(small, DEVELOP_ARGS, bggr, demosaic, "batch"))
-        x = torch.from_numpy(small).to(DEV)
-        params = D.pack_develop_params(*DEVELOP_ARGS)
-        batched = D.develop_rgba_device(x, params, cfa=bggr, demosaic=demosaic)
-        singles = torch.stack(
-            [D.develop_rgba_device(f, params, cfa=bggr, demosaic=demosaic) for f in x])
-        torch.cuda.synchronize()
-        check(torch.equal(batched.to(torch.int64), singles.to(torch.int64)),
-              f"develop (3, 5, 250) batch {demosaic} != single calls")
+        err = max(err, develop_check(small, DEVELOP_ARGS, bggr, demosaic, "batch", "direct"))
+        develop_singles_check(torch.from_numpy(small).to(DEV),
+                              D.pack_develop_params(*DEVELOP_ARGS), bggr, demosaic,
+                              "(3, 5, 250) batch", "direct")
         err = max(err, develop_check(twelve_bit(rng, 0), BENCH_DEVELOP_ARGS, RGGB,
-                                     demosaic, "bench"))
+                                     demosaic, "bench", "ring"))
         for sensor, cfa in CFA_PATTERNS.items():
             raw = rng.integers(0, 4096, size=(20, 50), dtype=np.uint16)
             err = max(err, develop_check(raw, DEVELOP_ARGS, tuple(cfa), demosaic,
-                                         f"cfa {sensor}"))
+                                         f"cfa {sensor}", "direct"))
         # Two frames in one launch against two single calls, bit for bit.
         x = torch.from_numpy(np.stack([twelve_bit(rng, k) for k in (1, 2)])).to(DEV)
-        params = D.pack_develop_params(*BENCH_DEVELOP_ARGS)
-        batched = D.develop_rgba_device(x, params, cfa=RGGB, demosaic=demosaic)
-        singles = torch.stack(
-            [D.develop_rgba_device(f, params, cfa=RGGB, demosaic=demosaic) for f in x])
-        torch.cuda.synchronize()
-        check(torch.equal(batched.to(torch.int64), singles.to(torch.int64)),
-              f"develop batched {demosaic} != single calls")
-        emit("kernels", kernel="develop", case="batched", shape=list(x.shape),
-             demosaic=demosaic, equals_single_calls=True)
+        develop_singles_check(x, D.pack_develop_params(*BENCH_DEVELOP_ARGS), RGGB, demosaic,
+                              "batched", "ring")
+        # The grade step's batch, against plain and against single calls.
+        err = max(err, develop_check(uhd, DEVELOP_ARGS, bggr, demosaic, "grade batch", "ring"))
+        develop_singles_check(torch.from_numpy(uhd).to(DEV),
+                              D.pack_develop_params(*DEVELOP_ARGS), bggr, demosaic,
+                              "grade batch", "ring")
     return err
 
 

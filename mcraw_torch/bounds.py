@@ -10,10 +10,11 @@ one, ``kernels/build.py::use_checked``):
   hold it against the default library's on the same inputs;
 - :data:`NEGATIVE`: for each kernel and each kind of access it makes
   (global load, ``cp.async``, store, shared index; develop's host reads of
-  its parameters; the block offsets' memset of their status scratch, a
-  store from the host), a clean launch with one buffer's checked extent
-  understated (``build.understate``), which must fault on that buffer and
-  count a fault of that kind;
+  its parameters and tensor map, and the reach of that map, whose TMA
+  copies are the develop's ``cp.async``; the block offsets' memset of
+  their status scratch, a store from the host), a clean launch with one
+  buffer's checked extent understated (``build.understate``), which must
+  fault on that buffer and count a fault of that kind;
 - :data:`WINDOWS`: a batch of each codec with one frame's offsets shuffled
   and pointed past its own end, which must read nothing outside its own
   window, and the same batch with every frame's checked window cut short
@@ -51,7 +52,8 @@ from .metadata import CFA_PATTERNS
 SEED = 2027
 MODERN = (64, 1024)  # 16 x 16 tiles: 8 full runs of the unpack kernel
 LEGACY = (24, 1000)  # 768 pairs: 24 full runs, runs that cross rows
-DEVELOP = (37, 251)  # odd: border tiles, masked stores, unpaired loads
+DEVELOP = (37, 251)  # odd: border tiles, masked stores, unpaired loads (the direct path)
+DEVELOP_RING = (37, 256)  # the ring path: its boxes reach past the frame on every side
 DEVELOP_PARAMS = (np.array([64, 60, 70, 64], np.float32), 4095.0,
                   np.array([0.61, 1.0, 0.72], np.float32),
                   np.array([[0.86, 0.08, 0.02], [0.04, 0.91, 0.05],
@@ -68,7 +70,12 @@ OFFSETS_BLOCKS = 2 * O.TILE + 5  # two full tiles and a partial one
 # to 3 bytes, fails both its host memset and its kernel's atomic add. The
 # block offsets' status scratch, cut by one word, fails the entry's memset
 # of it on the host (the entry then does not launch); s_local, cut by one
-# word, fails at the last block of a full tile.
+# word, fails at the last block of a full tile. The develop cases of
+# RING_NEGATIVE launch the ring path (DEVELOP_RING), the others the direct
+# path: the ring entry holds its tensor map's reach on raw to raw's extent
+# on the host (a cp.async fault, no launch) and reads its 128-byte map;
+# s_ring, cut by more than its size, faults at every copy into it and
+# every read of it.
 NEGATIVE = (
     ("unpack_modern", "load", "bits", 2),
     ("unpack_modern", "cp.async", "words", None),
@@ -82,6 +89,9 @@ NEGATIVE = (
     ("develop", "store", "out", 4),
     ("develop", "shared", "s_q", 8),
     ("develop", "host", "params", None),
+    ("develop", "cp.async", "raw", 2),
+    ("develop", "shared", "s_ring", 1 << 20),
+    ("develop", "host", "map", 8),
     ("checksum", "load", "x", 2),
     ("checksum", "store", "out", 5),
     ("checksum", "shared", "s_warp", 4),
@@ -90,6 +100,8 @@ NEGATIVE = (
     ("block_offsets", "store", "status", 8),
     ("block_offsets", "shared", "s_local", 4),
 )
+RING_NEGATIVE = {("develop", "cp.async", "raw"), ("develop", "shared", "s_ring"),
+                 ("develop", "host", "map")}
 # kernel -> bytes off every batch frame's checked window.
 WINDOWS = {"unpack_modern": 512, "unpack_legacy": 64}
 
@@ -178,15 +190,17 @@ def _legacy_batch(rng, dev, past_end: bool):
 
 
 def _inputs(dev) -> tuple[dict, dict]:
-    """kernel -> a call that launches it once on a clean frame (the
-    negative cases' inputs), and (kernel, buffer) -> the bytes to cut where
-    NEGATIVE leaves them to the frame."""
+    """input -> (kernel, a call that launches it once on a clean frame):
+    the negative cases' inputs, one a kernel and "develop ring"; and
+    (kernel, buffer) -> the bytes to cut where NEGATIVE leaves them to the
+    frame."""
     rng = np.random.default_rng([SEED, 1])
     mh, mw = MODERN
     modern = U.stage_modern(Staging(dev), _encoded(E.encode_modern, rng, mh, mw), mw, mh)
     lh, lw = LEGACY
     legacy = L.stage_legacy(Staging(dev), _encoded(E.encode_legacy, rng, lh, lw), lw, lh)
     raw = torch.from_numpy(_image(rng, *DEVELOP)).to(dev)
+    ring = torch.from_numpy(_image(rng, *DEVELOP_RING)).to(dev)
     params = D.pack_develop_params(*DEVELOP_PARAMS)
     x = torch.from_numpy(_image(rng, 256, 256)).to(dev)
     bits = torch.from_numpy(rng.integers(0, 1 << 16, size=OFFSETS_BLOCKS, dtype=np.uint16))
@@ -195,11 +209,12 @@ def _inputs(dev) -> tuple[dict, dict]:
     cuts = {("unpack_modern", "words"): 4 * modern.words.numel() - last // 16 * 16,
             ("develop", "params"): params.nbytes - 64}
     return {
-        "unpack_modern": lambda: U.unpack_modern(modern, mw, mh),
-        "unpack_legacy": lambda: L.unpack_legacy(legacy, lw, lh),
-        "develop": lambda: D.develop_rgba_device(raw, params, cfa=BGGR),
-        "checksum": lambda: C.device_checksum(x),
-        "block_offsets": lambda: O.block_offsets_device(bits),
+        "unpack_modern": ("unpack_modern", lambda: U.unpack_modern(modern, mw, mh)),
+        "unpack_legacy": ("unpack_legacy", lambda: L.unpack_legacy(legacy, lw, lh)),
+        "develop": ("develop", lambda: D.develop_rgba_device(raw, params, cfa=BGGR)),
+        "develop ring": ("develop", lambda: D.develop_rgba_device(ring, params, cfa=BGGR)),
+        "checksum": ("checksum", lambda: C.device_checksum(x)),
+        "block_offsets": ("block_offsets", lambda: O.block_offsets_device(bits)),
     }, cuts
 
 
@@ -208,7 +223,8 @@ def clean_cases(dev) -> list[tuple[str, str, Callable[[], torch.Tensor]]]:
     the edges its kernel handles: unaligned and odd sizes, batches with a
     frame whose offsets point past its own end."""
     rng = np.random.default_rng(SEED)
-    cases = [(f"negative-case input: {k}", k, fn) for k, fn in _inputs(dev)[0].items()]
+    cases = [(f"negative-case input: {name}", kernel, fn)
+             for name, (kernel, fn) in _inputs(dev)[0].items()]
     mh, mw = MODERN
     payloads = [_encoded(E.encode_modern, rng, mh, mw) for _ in range(3)]
     cases.append(("modern batch, 3 encoded frames", "unpack_modern",
@@ -228,9 +244,13 @@ def clean_cases(dev) -> list[tuple[str, str, Callable[[], torch.Tensor]]]:
                   lambda: L.decode_legacy_device(*single, height=lh, width=lw)))
     params = D.pack_develop_params(*DEVELOP_PARAMS)
     frames = torch.from_numpy(_image(rng, 3 * 5, 250).reshape(3, 5, 250)).to(dev)
+    ring = torch.from_numpy(_image(rng, 3 * 66, 1024).reshape(3, 66, 1024)).to(dev)
     for demosaic in D.DEMOSAICS:
         cases.append((f"develop (3, 5, 250) {demosaic}", "develop",
                       lambda m=demosaic: D.develop_rgba_device(frames, params, cfa=BGGR,
+                                                               demosaic=m)))
+        cases.append((f"develop ring (3, 66, 1024) {demosaic}", "develop",
+                      lambda m=demosaic: D.develop_rgba_device(ring, params, cfa=BGGR,
                                                                demosaic=m)))
     words = torch.from_numpy(rng.integers(0, 1 << 16, size=4099, dtype=np.uint16)).to(dev)
     for start, n in ((1, 17), (3, 4096), (0, 4099)):
@@ -261,9 +281,10 @@ def negative(dev) -> tuple[list, dict, list]:
     for kernel, kind, buf, cut in NEGATIVE:
         cut = cuts[kernel, buf] if cut is None else cut
         row = {"kernel": kernel, "kind": kind, "buffer": buf, "bytes_cut": cut, "fired": False}
+        launch = inputs["develop ring" if (kernel, kind, buf) in RING_NEGATIVE else kernel][1]
         try:
             with build.understate(kernel, **{buf: cut}):
-                inputs[kernel]()
+                launch()
         except build.CheckedFault as e:
             row.update(fired=e.counts[kind] > 0 and e.buffer == buf, named=e.buffer,
                        counts=e.counts, text=str(e))

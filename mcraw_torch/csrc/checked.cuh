@@ -14,21 +14,23 @@
 //   extent (a shared array's: off its true size) and off each batch frame's
 //   window, and a device record of kRecordWords int64;
 // - each kernel takes a Check by value and tests every global load, global
-//   store, cp.async source and destination and shared-memory index against
-//   the extent of its buffer. A violation adds one to the record's count of
-//   its kind, fills the record's first-fault fields once (kernel, entry,
-//   buffer, kind, byte index, extent, block, thread) and skips the access:
-//   a skipped load reads 0. No __trap, which would end the process's CUDA
-//   context and every later launch with it;
+//   store, cp.async source and destination, TMA destination and
+//   shared-memory index against the extent of its buffer. A violation adds
+//   one to the record's count of its kind, fills the record's first-fault
+//   fields once (kernel, entry, buffer, kind, byte index, extent, block,
+//   thread) and skips the access: a skipped load reads 0. No __trap, which
+//   would end the process's CUDA context and every later launch with it;
 // - a batch frame's reads of its payload outside its own window
 //   [bases[f], bases[f] + lengths[f]) but inside the buffer are counted
 //   (kCrossFrame), not faulted: the kernels mask what such reads return;
-// - the entry's own host reads (develop's parameters) and host-issued
-//   stores (the memsets of the checksum and of the block offsets' status
-//   scratch) are checked against the same extents into the host record of
-//   Args; develop then returns without launching, the checksum skips its
-//   memset and launches, the block offsets return without launching (their
-//   kernel would wait on tile status words that were never zeroed);
+// - the entry's own host reads (develop's parameters and tensor map),
+//   host-issued stores (the memsets of the checksum and of the block
+//   offsets' status scratch) and the reach of a TMA copy's tensor map (the
+//   develop ring's, whose reads the map bounds) are checked against the
+//   same extents into the host record of Args; develop then returns
+//   without launching, the checksum skips its memset and launches, the
+//   block offsets return without launching (their kernel would wait on
+//   tile status words that were never zeroed);
 // - a tile status word of the block offsets' look-back that faults reads
 //   as a known prefix of 0, so a faulted load ends the look-back instead
 //   of spinning on it.
@@ -70,6 +72,7 @@ enum Entry : int {
   kEntryChecksum,
   kEntryBlockOffsets,
   kEntryBlockOffsetsBatch,
+  kEntryDevelopRing,
 };
 enum Kind : int { kLoad = 0, kCpAsync, kStore, kShared, kHost, kKinds };
 // The record: kRecordWords int64 (kernels/build.py RECORD).
@@ -126,20 +129,27 @@ inline Check make(const Args* a, int kernel, int entry) {
   return c;
 }
 
-// A host-side access of `need` bytes at the start of buffer `buf`.
-inline bool host_ok(Args* a, int kernel, int entry, int buf, int kind, int64_t need) {
-  const int64_t extent = a->bytes[buf] - a->trim[buf];
-  if (need <= extent) return true;
+// A fault of the entry's own, on the host: at byte `index` of buffer
+// `buf`, held to `extent`.
+inline void host_fault(Args* a, int kernel, int entry, int buf, int kind, int64_t index,
+                       int64_t extent) {
   a->host[kByKind + kind] += 1;
   if (a->host[kFaults]++ == 0) {
     a->host[kKernel] = kernel;
     a->host[kEntry] = entry;
     a->host[kBuffer] = buf;
     a->host[kKind] = kind;
-    a->host[kIndex] = need - 1;
+    a->host[kIndex] = index;
     a->host[kExtent] = extent;
     a->host[kBlockX] = a->host[kBlockY] = a->host[kThread] = -1;
   }
+}
+
+// A host-side access of `need` bytes at the start of buffer `buf`.
+inline bool host_ok(Args* a, int kernel, int entry, int buf, int kind, int64_t need) {
+  const int64_t extent = a->bytes[buf] - a->trim[buf];
+  if (need <= extent) return true;
+  host_fault(a, kernel, entry, buf, kind, need - 1, extent);
   return false;
 }
 
@@ -287,6 +297,10 @@ __device__ inline bool cp_ok(const Check& c, int sid, const void* sbase, int64_t
 #define MCRAW_SST(id, arr, p, i, v) mcraw_check::sst(ck, id, arr, sizeof(arr), p, i, v)
 #define MCRAW_SLDN(id, base, size, p, i) mcraw_check::sld(ck, id, base, size, p, i)
 #define MCRAW_SSTN(id, base, size, p, i, v) mcraw_check::sst(ck, id, base, size, p, i, v)
+// [p, p + n) inside shared array `base` of `size`, for a copy that the
+// hardware writes there (a TMA box): the checked build skips a copy that
+// does not fit.
+#define MCRAW_SHARED_OK(id, base, size, p, n) mcraw_check::shared_ok(ck, id, base, size, p, n)
 #define MCRAW_CP_ASYNC16(sid, sarr, dst, gbuf, src) \
   if (mcraw_check::cp_ok(ck, sid, sarr, sizeof(sarr), dst, gbuf, src)) cp_async16(dst, src)
 
@@ -313,6 +327,7 @@ __device__ inline bool cp_ok(const Check& c, int sid, const void* sbase, int64_t
 #define MCRAW_SST(id, arr, p, i, v) ((p)[i] = (v))
 #define MCRAW_SLDN(id, base, size, p, i) ((p)[i])
 #define MCRAW_SSTN(id, base, size, p, i, v) ((p)[i] = (v))
+#define MCRAW_SHARED_OK(id, base, size, p, n) true
 #define MCRAW_CP_ASYNC16(sid, sarr, dst, gbuf, src) cp_async16(dst, src)
 
 #endif  // MCRAW_CHECKED

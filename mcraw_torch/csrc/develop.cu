@@ -10,21 +10,35 @@
 // What bounds it: at 4096x3072 it reads 25.2 MB of uint16 and writes
 // 50.3 MB of uint32, 75.5 MB in all, >= 0.0225 ms at 3.35 TB/s; the
 // arithmetic is ~100 float and integer operations per pixel, so the design
-// is about issuing few instructions per byte:
+// is about issuing few instructions per byte, and about keeping the reads
+// in flight while those instructions issue:
 //
 // - The grid is persistent: a block walks 64x32 tiles (of every frame of
-//   a batch) and loads the next tile's raw values, 4 a step in coalesced
-//   4-byte pairs, while it develops the current one. Its 256 threads stage
-//   the tile and a 2-pixel halo (the Malvar reach; bilinear reads 1 of it)
-//   in shared memory as float32, normalizing each value once, on its own
-//   CFA site:
+//   a batch). It stages a tile and a 2-pixel halo (the Malvar reach;
+//   bilinear reads 1 of it) in shared memory as float32, normalizing each
+//   value once, on its own CFA site:
 //   clip((raw - black) * 1/(white - black), 0, 1), and for Malvar times its
 //   site's white-balance gain. A tap outside [0, height) x [0, width) of its
 //   own frame is 0 (Malvar: 0 times the gain), so any width and height work
-//   unpadded and no frame reads its neighbour's rows. A tile whose staged
-//   rectangle lies inside its frame (all but the border tiles) takes a
-//   path without bounds tests. The walk steps its tile coordinates by the
-//   grid's, so the loop divides only at a frame change.
+//   unpadded and no frame reads its neighbour's rows. The walk steps its
+//   tile coordinates by the grid's, so the loop divides only at a frame
+//   change. The raw values reach the block by one of two paths:
+//   - the ring (ring::develop_kernel): where rows are a multiple of 16
+//     bytes, the base is 16-byte aligned and raw 0 normalizes to 0 on every
+//     site (the host's test, kernels/develop.py::ring_takes), a producer
+//     warp copies each tile's raw box (36 rows of 80 values, one frame of a
+//     3-D tensor map) into a ring of kRingStages stages in shared memory
+//     with the Tensor Memory Accelerator, up to kRingStages tiles ahead of
+//     the 8 warps that develop them, each stage with a full and an empty
+//     mbarrier. The hardware fills a box's part outside the frame with raw
+//     0, which normalizes to the 0 the direct path stages there, so no
+//     value needs a bounds test. The developing warps stage into one float
+//     tile and meet at their own barrier twice a tile;
+//   - direct (develop_kernel), any other input: each thread loads the next
+//     tile's raw values, 4 a step in coalesced 4-byte pairs, into registers
+//     while it develops the current one. A tile whose staged rectangle lies
+//     inside its frame (all but the border tiles) takes a path without
+//     bounds tests.
 // - Integer <-> float conversions issue at 1/8 of the float rate on this
 //   card, so there are none per value: a raw value becomes a float by a
 //   byte permute and an exact subtract, a bucket index is read off the
@@ -70,8 +84,10 @@
 // version. The contract is <= 1 LSB per channel against the f64 model.
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is reached through the runtime
 #include <cuda_runtime.h>
 
 #include "checked.cuh"
@@ -79,9 +95,19 @@
 namespace {
 
 // The buffers of the checked build (kernels/build.py BUFFERS), in order:
-// the entry's buffers (params and cfa in host memory), then the kernel's
-// shared arrays.
-enum Buffer : int { kBufRaw, kBufOut, kBufQuantizer, kBufParams, kBufCfa, kBufSTile, kBufSQ };
+// the entry's buffers (params, cfa and the ring's tensor map in host
+// memory), then the kernels' shared arrays.
+enum Buffer : int {
+  kBufRaw,
+  kBufOut,
+  kBufQuantizer,
+  kBufParams,
+  kBufCfa,
+  kBufSTile,
+  kBufSQ,
+  kBufMap,
+  kBufSRing,
+};
 
 constexpr int kTileW = 64;                 // output pixels per block, across
 constexpr int kTileH = 32;                 // and down
@@ -102,6 +128,31 @@ constexpr int kQuantizer = (0x3F800000 >> 16) - kBucketBase + 1;
 static_assert(kRowW % 4 == 0, "rows must stay 16-byte aligned");
 constexpr int64_t kTileBytes = sizeof(float) * kRows * kRowW;
 constexpr int64_t kQuantizerBytes = sizeof(uint2) * kQuantizer;
+
+// The ring path (kernels/develop.py RING_BOX): a tile's raw box is kRows
+// rows of kBoxW uint16, one frame deep. It starts kBoxX0 columns left of
+// the tile, not kHalo: the hardware takes a box only where its first
+// column lies on a 16-byte boundary of the row (x0 - 2 faults with an
+// illegal instruction, x0 - 8 does not), and a box row is a multiple of
+// 16 bytes. Each stage starts 128-byte aligned, as a TMA destination must.
+constexpr int kBoxX0 = 8;                                     // uint16 of 16 bytes
+constexpr int kBoxW = (kBoxX0 + kTileW + kHalo + 7) / 8 * 8;  // 80: columns x0 - 8 .. x0 + 71
+constexpr int kBoxBytes = 2 * kRows * kBoxW;                  // 5,760
+constexpr int kStagePitch = (kBoxBytes + 127) / 128 * 128;
+// 4 stages and 3 blocks an SM: the fastest of (stages, blocks) = (4, 3),
+// (6, 3), (4, 2) and (8, 2) on an H100 (python -m mcraw_torch.kernel_ab).
+constexpr int kRingStages = 4;
+constexpr int kRingBlocks = 3;                      // blocks an SM
+constexpr int kRingThreads = kThreads + 32;         // the developing warps and the producer
+constexpr int64_t kRingBytes = int64_t{kRingStages} * kStagePitch;
+// A ring block's dynamic shared memory: the ring, the float tile, the
+// quantizer, the barriers.
+constexpr int64_t kRingSmemBytes =
+    kRingBytes + kTileBytes + kQuantizerBytes + 2 * kRingStages * sizeof(uint64_t);
+constexpr int kMaxDevices = 64;
+static_assert((2 * kBoxW) % 16 == 0 && (2 * kBoxX0) % 16 == 0 && kTileW % kBoxX0 == 0,
+              "a box's rows and first column must lie on 16-byte boundaries");
+static_assert(kTileBytes % 16 == 0 && kQuantizerBytes % 8 == 0, "shared arrays stay aligned");
 
 struct DevelopParams {
   float black[4];      // per 2x2 site
@@ -309,10 +360,120 @@ __device__ __forceinline__ void store_row(const DevelopParams& p, const float (&
   }
 }
 
-// Where a tile's staged values come from: frame f, rows y0 - 2 .., columns
-// x0 - 2 ..; `interior`: the staged rectangle lies inside the frame and
-// every even column's pair is 4-byte aligned, so no value needs a bounds
-// test. Uniform over the block.
+// Develops the staged tile at (y0, x0) into frame_out: each of the kThreads
+// developing threads its two 2x2 quads, from its 6x8 window of `tile`,
+// which lies in the shared array `tiles` of `tiles_bytes`.
+template <class P, bool kMalvar>
+__device__ __forceinline__ void develop_tile(const DevelopParams& p, const float (*tile)[kRowW],
+                                             const void* tiles, int64_t tiles_bytes,
+                                             uint32_t* __restrict__ frame_out, int y0, int x0,
+                                             int height, int width,
+                                             const uint2* q MCRAW_CK_PARAM) {
+  const int qx = threadIdx.x % kThreadsX;
+  const int qy = threadIdx.x / kThreadsX;
+  const int x = x0 + 4 * qx;
+  const int y = y0 + 2 * qy;
+  if (x >= width || y >= height) return;
+  float w[6][8];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    const float4* lo4 = reinterpret_cast<const float4*>(&tile[2 * qy + r][4 * qx]);
+    const float4* hi4 = reinterpret_cast<const float4*>(&tile[2 * qy + r][4 * qx + 4]);
+    const float4 lo = MCRAW_SLDN(kBufSTile, tiles, tiles_bytes, lo4, 0);
+    const float4 hi = MCRAW_SLDN(kBufSTile, tiles, tiles_bytes, hi4, 0);
+    w[r][0] = lo.x; w[r][1] = lo.y; w[r][2] = lo.z; w[r][3] = lo.w;
+    w[r][4] = hi.x; w[r][5] = hi.y; w[r][6] = hi.z; w[r][7] = hi.w;
+  }
+  if (kMalvar || (x > 0 && x + 4 < width && y > 0 && y + 2 < height)) {
+    store_row<P, kMalvar, false, 0>(p, w, frame_out, y, x, height, width, q MCRAW_CK);
+    store_row<P, kMalvar, false, 1>(p, w, frame_out, y, x, height, width, q MCRAW_CK);
+  } else {
+    store_row<P, kMalvar, true, 0>(p, w, frame_out, y, x, height, width, q MCRAW_CK);
+    store_row<P, kMalvar, true, 1>(p, w, frame_out, y, x, height, width, q MCRAW_CK);
+  }
+}
+
+// A block's walk over tiles blockIdx.x, + gridDim.x, ... (frame-major,
+// then rows of tiles): it steps its (frame, tile row, tile column) by the
+// grid's (rows, columns), so no division is left in the loop but at a
+// frame change. 32-bit index math: the host keeps tiles < 2^31.
+struct TileWalk {
+  int f, ty, tx;
+  int tiles_x, tiles_y, step_x, step_y;
+
+  __device__ __forceinline__ TileWalk(int tiles_x_, int tiles_y_)
+      : tiles_x(tiles_x_), tiles_y(tiles_y_) {
+    const int per_frame = tiles_x * tiles_y;
+    step_y = static_cast<int>(gridDim.x) / tiles_x;
+    step_x = static_cast<int>(gridDim.x) - step_y * tiles_x;
+    f = static_cast<int>(blockIdx.x) / per_frame;
+    ty = (static_cast<int>(blockIdx.x) - f * per_frame) / tiles_x;
+    tx = static_cast<int>(blockIdx.x) - f * per_frame - ty * tiles_x;
+  }
+  __device__ __forceinline__ int y0() const { return ty * kTileH; }
+  __device__ __forceinline__ int x0() const { return tx * kTileW; }
+  __device__ __forceinline__ void advance() {
+    tx += step_x;
+    ty += step_y;
+    if (tx >= tiles_x) {
+      tx -= tiles_x;
+      ++ty;
+    }
+    if (ty >= tiles_y) {
+      const int df = ty / tiles_y;
+      f += df;
+      ty -= df * tiles_y;
+    }
+  }
+};
+
+// Each thread's staged places: at step k, row sy[k] (>= kRows: none) and
+// column sx[k] (a multiple of 4) of the tile.
+__device__ __forceinline__ void staged_places(int (&sy)[kQuadSteps], int (&sx)[kQuadSteps]) {
+#pragma unroll
+  for (int k = 0; k < kQuadSteps; ++k) {
+    const int q = threadIdx.x + k * kThreads;
+    sy[k] = q / kQuadsPerRow;
+    sx[k] = 4 * (q - sy[k] * kQuadsPerRow);
+  }
+}
+
+// The uint16 in half `hi` of `word` as a float, exactly: the bits
+// 0x4B00uuuu are 2^23 + u, and 2^23 + u - 2^23 is exact. A byte permute and
+// an add, where an int-to-float conversion issues at 1/8 of the float rate.
+__device__ __forceinline__ float u16_to_float(uint32_t word, bool hi) {
+  return sub(__uint_as_float(__byte_perm(word, 0x4B00u, hi ? 0x5432u : 0x5410u)), 8388608.f);
+}
+
+// Four staged values: the raw pairs `words` (columns of parity 0, 1, 0, 1
+// on a row of parity r), each normalized on its own site, 0 where `in` is
+// false (outside the frame); for Malvar also times its site's gain.
+template <bool kMalvar>
+__device__ __forceinline__ float4 normalize4(const DevelopParams& p, int r, uint2 words,
+                                             const bool (&in)[4]) {
+  const float b0 = r ? p.black[2] : p.black[0], b1 = r ? p.black[3] : p.black[1];
+  const float s0 = r ? p.inv_scale[2] : p.inv_scale[0];
+  const float s1 = r ? p.inv_scale[3] : p.inv_scale[1];
+  const float g0 = r ? p.gain_site[2] : p.gain_site[0];
+  const float g1 = r ? p.gain_site[3] : p.gain_site[1];
+  const uint32_t w[2] = {words.x, words.y};
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const bool odd = e & 1;
+    const float u = u16_to_float(w[e >> 1], odd);
+    v[e] = in[e] ? clip01(mul(sub(u, odd ? b1 : b0), odd ? s1 : s0)) : 0.f;
+    if constexpr (kMalvar) v[e] = mul(v[e], odd ? g1 : g0);
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// -- the direct path -------------------------------------------------------------
+
+// Where a tile's staged values come from: frame f, rows y0 - 2 ..,
+// columns x0 - 2 ..; `interior`: the staged rectangle lies inside the
+// frame and every even column's pair is 4-byte aligned, so no value needs
+// a bounds test. Uniform over the block.
 struct TileAt {
   int f, y0, x0;
   bool interior;
@@ -356,13 +517,6 @@ __device__ __forceinline__ void load_tile(const uint16_t* __restrict__ fr, int y
   }
 }
 
-// The uint16 in half `hi` of `word` as a float, exactly: the bits
-// 0x4B00uuuu are 2^23 + u, and 2^23 + u - 2^23 is exact. A byte permute and
-// an add, where an int-to-float conversion issues at 1/8 of the float rate.
-__device__ __forceinline__ float u16_to_float(uint32_t word, bool hi) {
-  return sub(__uint_as_float(__byte_perm(word, 0x4B00u, hi ? 0x5432u : 0x5410u)), 8388608.f);
-}
-
 // Normalizes the loaded values into the shared tile: each once, on its own
 // site; for Malvar also times its site's gain; 0 outside the frame.
 template <bool kMalvar, bool kInterior>
@@ -377,25 +531,15 @@ __device__ __forceinline__ void stage_tile(const DevelopParams& p, int y0, int x
     const int gy = y0 - kHalo + sy[k];
     const int gx = x0 - kHalo + sx[k];
     const bool row_in = kInterior || static_cast<unsigned>(gy) < static_cast<unsigned>(height);
-    const int r = gy & 1;  // gy may be negative: & keeps the parity
-    const float b0 = r ? p.black[2] : p.black[0], b1 = r ? p.black[3] : p.black[1];
-    const float s0 = r ? p.inv_scale[2] : p.inv_scale[0];
-    const float s1 = r ? p.inv_scale[3] : p.inv_scale[1];
-    const float g0 = r ? p.gain_site[2] : p.gain_site[0];
-    const float g1 = r ? p.gain_site[3] : p.gain_site[1];
-    const uint32_t words[2] = {raw[k].x, raw[k].y};
-    float v[4];
+    bool in[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const bool odd = e & 1;
-      const float u = u16_to_float(words[e >> 1], odd);
-      const bool in = kInterior || (row_in && static_cast<unsigned>(gx + e) <
-                                                  static_cast<unsigned>(width));
-      v[e] = in ? clip01(mul(sub(u, odd ? b1 : b0), odd ? s1 : s0)) : 0.f;
-      if constexpr (kMalvar) v[e] = mul(v[e], odd ? g1 : g0);
+      in[e] = kInterior ||
+              (row_in && static_cast<unsigned>(gx + e) < static_cast<unsigned>(width));
     }
+    // gy may be negative: & keeps the parity
     MCRAW_SSTN(kBufSTile, tile, kTileBytes, reinterpret_cast<float4*>(&tile[sy[k]][sx[k]]), 0,
-               make_float4(v[0], v[1], v[2], v[3]));
+               normalize4<kMalvar>(p, gy & 1, raw[k], in));
   }
 }
 
@@ -419,42 +563,15 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
   const bool paired = (width & 1) == 0 && (reinterpret_cast<uintptr_t>(raw) & 3) == 0;
   const int64_t plane = static_cast<int64_t>(height) * width;
-  int sy[kQuadSteps], sx[kQuadSteps];  // the thread's staged places, per step
-#pragma unroll
-  for (int k = 0; k < kQuadSteps; ++k) {
-    const int q = tid + k * kThreads;
-    sy[k] = q / kQuadsPerRow;  // >= kRows: no place at this step
-    sx[k] = 4 * (q - sy[k] * kQuadsPerRow);
-  }
+  int sy[kQuadSteps], sx[kQuadSteps];
+  staged_places(sy, sx);
 
-  // The walk over tiles blockIdx.x, + gridDim.x, ... (frame-major, then rows
-  // of tiles) steps its (frame, tile row, tile column) by the grid's
-  // (rows, columns), so no division is left in the loop but at a frame
-  // change. 32-bit index math: the host keeps tiles < 2^31.
-  const int per_frame = tiles_x * tiles_y;
-  const int step_y = static_cast<int>(gridDim.x) / tiles_x;
-  const int step_x = static_cast<int>(gridDim.x) - step_y * tiles_x;
-  int f = static_cast<int>(blockIdx.x) / per_frame;
-  int ty = (static_cast<int>(blockIdx.x) - f * per_frame) / tiles_x;
-  int tx = static_cast<int>(blockIdx.x) - f * per_frame - ty * tiles_x;
+  TileWalk walk(tiles_x, tiles_y);
   auto at = [&]() {
-    const int y0 = ty * kTileH, x0 = tx * kTileW;
+    const int y0 = walk.y0(), x0 = walk.x0();
     const bool interior = paired && y0 >= kHalo && x0 >= kHalo &&
                           y0 + kTileH + kHalo <= height && x0 + kTileW + kHalo <= width;
-    return TileAt{f, y0, x0, interior};
-  };
-  auto advance = [&]() {
-    tx += step_x;
-    ty += step_y;
-    if (tx >= tiles_x) {
-      tx -= tiles_x;
-      ++ty;
-    }
-    if (ty >= tiles_y) {
-      const int df = ty / tiles_y;
-      f += df;
-      ty -= df * tiles_y;
-    }
+    return TileAt{walk.f, y0, x0, interior};
   };
   auto load = [&](const TileAt& t, uint2 (&dst)[kQuadSteps]) {
     const uint16_t* fr = raw + static_cast<int64_t>(t.f) * plane;
@@ -477,43 +594,191 @@ __global__ void __launch_bounds__(kThreads, 3)
     __syncthreads();
     const int y0 = t.y0, x0 = t.x0, frame = t.f;
     if (tile + static_cast<int>(gridDim.x) < tiles) {  // in flight while this tile develops
-      advance();
+      walk.advance();
       t = at();
       load(t, cur);
     }
-
-    const int qx = tid % kThreadsX;
-    const int qy = tid / kThreadsX;
-    const int x = x0 + 4 * qx;
-    const int y = y0 + 2 * qy;
-    if (x < width && y < height) {
-      float w[6][8];
-#pragma unroll
-      for (int r = 0; r < 6; ++r) {
-        const float4* lo4 = reinterpret_cast<const float4*>(&s_tile[2 * qy + r][4 * qx]);
-        const float4* hi4 = reinterpret_cast<const float4*>(&s_tile[2 * qy + r][4 * qx + 4]);
-        const float4 lo = MCRAW_SLD(kBufSTile, s_tile, lo4, 0);
-        const float4 hi = MCRAW_SLD(kBufSTile, s_tile, hi4, 0);
-        w[r][0] = lo.x; w[r][1] = lo.y; w[r][2] = lo.z; w[r][3] = lo.w;
-        w[r][4] = hi.x; w[r][5] = hi.y; w[r][6] = hi.z; w[r][7] = hi.w;
-      }
-      uint32_t* __restrict__ fo = out + static_cast<int64_t>(frame) * plane;
-      if (kMalvar || (x > 0 && x + 4 < width && y > 0 && y + 2 < height)) {
-        store_row<P, kMalvar, false, 0>(p, w, fo, y, x, height, width, s_q MCRAW_CK);
-        store_row<P, kMalvar, false, 1>(p, w, fo, y, x, height, width, s_q MCRAW_CK);
-      } else {
-        store_row<P, kMalvar, true, 0>(p, w, fo, y, x, height, width, s_q MCRAW_CK);
-        store_row<P, kMalvar, true, 1>(p, w, fo, y, x, height, width, s_q MCRAW_CK);
-      }
-    }
+    develop_tile<P, kMalvar>(p, s_tile, s_tile, kTileBytes, out + frame * plane, y0, x0,
+                             height, width, s_q MCRAW_CK);
     __syncthreads();  // the tile is restaged next
   }
 }
 
+// -- the ring path ---------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem(bar)), "r"(arrivals)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem(bar)) : "memory");
+}
+
+// Arrives and adds `bytes` to the phase's expected transfer.
+__device__ __forceinline__ void bar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed (a fresh barrier
+// counts the phase before its first, of parity 1, as complete).
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// The box at (x, y, f) of `map` into `dst`; its bytes complete `bar`'s
+// phase. Coordinates may be negative: the hardware fills what lies outside
+// the tensor with 0.
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, int x, int y,
+                                             int f, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(f), "r"(smem(bar))
+      : "memory");
+}
+
+// The developing warps' own barrier (the producer warp is not in it).
+__device__ __forceinline__ void developers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
+}
+
+// Normalizes one ring stage (the box's raw uint16, rows of kBoxW, staged
+// column 0 at box column kBoxX0 - kHalo) into the float tile: every value
+// as stage_tile normalizes one inside its frame. The box holds raw 0
+// outside the frame, and the host takes this path only where raw 0
+// normalizes to 0 on every site, so that is what is staged there, as on
+// the direct path.
+template <bool kMalvar>
+__device__ __forceinline__ void stage_ring(const DevelopParams& p, const uint16_t* stage,
+                                           const void* ring_base, const int (&sy)[kQuadSteps],
+                                           const int (&sx)[kQuadSteps],
+                                           float (*tile)[kRowW] MCRAW_CK_PARAM) {
+  constexpr bool in[4] = {true, true, true, true};
+#pragma unroll
+  for (int k = 0; k < kQuadSteps; ++k) {
+    if (sy[k] >= kRows) break;
+    // 4-byte aligned: two pairs
+    const uint32_t* pairs = reinterpret_cast<const uint32_t*>(
+        stage + sy[k] * kBoxW + (kBoxX0 - kHalo) + sx[k]);
+    const uint2 words = make_uint2(MCRAW_SLDN(kBufSRing, ring_base, kRingBytes, pairs, 0),
+                                   MCRAW_SLDN(kBufSRing, ring_base, kRingBytes, pairs, 1));
+    // The tile's rows start on an even row of the frame, its columns on an
+    // even column: the staged row's parity is its own.
+    MCRAW_SSTN(kBufSTile, tile, kTileBytes,
+               reinterpret_cast<float4*>(&tile[sy[k]][sx[k]]),
+               0, normalize4<kMalvar>(p, sy[k] & 1, words, in));
+  }
+}
+
+namespace ring {
+
+// The same tile walk and arithmetic as ::develop_kernel (and the same name,
+// by which a trace knows the develop), fed from a ring of raw boxes: warp
+// kThreads / 32 is the producer, one lane of which copies each tile's box
+// with the Tensor Memory Accelerator into the next stage once the
+// developing warps have released it; they wait on the stage's full
+// barrier, normalize it into the float tile, release the stage, meet at
+// their own barrier, develop the tile and meet again before restaging it.
 template <class P, bool kMalvar>
-cudaError_t launch_one(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x,
-                       int tiles_y, int tiles, const uint2* quantizer,
-                       const DevelopParams& p, cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
+__global__ void __launch_bounds__(kRingThreads, kRingBlocks)
+    develop_kernel(const __grid_constant__ CUtensorMap map, uint32_t* __restrict__ out,
+                   int height, int width, int tiles_x, int tiles_y, int tiles,
+                   const uint2* __restrict__ quantizer,
+                   const __grid_constant__ DevelopParams p MCRAW_CK_KERNEL_PARAM) {
+  MCRAW_CK_KERNEL_INIT
+  extern __shared__ __align__(128) unsigned char s_smem[];
+  uint16_t* s_ring = reinterpret_cast<uint16_t*>(s_smem);
+  auto s_tile = reinterpret_cast<float (*)[kRowW]>(s_smem + kRingBytes);
+  uint2* s_q = reinterpret_cast<uint2*>(s_smem + kRingBytes + kTileBytes);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(s_smem + kRingBytes + kTileBytes + kQuantizerBytes);
+  uint64_t* empty = full + kRingStages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      bar_init(full + s, 1);               // the producer's arrival, and the box's bytes
+      bar_init(empty + s, kThreads);       // every developing thread's
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  TileWalk walk(tiles_x, tiles_y);
+
+  if (tid >= kThreads) {  // the producer warp: one lane issues every copy
+    if (tid == kThreads) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&map))
+                   : "memory");
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        bar_wait(empty + stage, phase ^ 1);
+        uint16_t* dst = s_ring + stage * (kStagePitch / 2);
+        if (MCRAW_SHARED_OK(kBufSRing, s_ring, kRingBytes, dst, kBoxBytes)) {
+          bar_arrive_tx(full + stage, kBoxBytes);
+          tma_load_box(dst, &map, walk.x0() - kBoxX0, walk.y0() - kHalo, walk.f, full + stage);
+        } else {
+          bar_arrive(full + stage);  // the checked build's skipped copy
+        }
+        walk.advance();
+        if (++stage == kRingStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  for (int i = tid; i < kQuantizer; i += kThreads) {
+    MCRAW_SSTN(kBufSQ, s_q, kQuantizerBytes, s_q, i, MCRAW_LD(kBufQuantizer, quantizer, i));
+  }
+  const int64_t plane = static_cast<int64_t>(height) * width;
+  int sy[kQuadSteps], sx[kQuadSteps];
+  staged_places(sy, sx);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    bar_wait(full + stage, phase);
+    stage_ring<kMalvar>(p, s_ring + stage * (kStagePitch / 2), s_ring, sy, sx,
+                        s_tile MCRAW_CK);
+    bar_arrive(empty + stage);
+    developers_sync();  // every value of the float tile is staged
+    develop_tile<P, kMalvar>(p, s_tile, s_tile, kTileBytes, out + walk.f * plane, walk.y0(),
+                             walk.x0(), height, width, s_q MCRAW_CK);
+    walk.advance();
+    developers_sync();  // every thread is past the tile, which is restaged next
+    if (++stage == kRingStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+}  // namespace ring
+
+// -- the entries -----------------------------------------------------------------
+
+template <class P, bool kMalvar>
+cudaError_t launch_direct(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x,
+                          int tiles_y, int tiles, const uint2* quantizer,
+                          const DevelopParams& p, cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -527,24 +792,128 @@ cudaError_t launch_one(const uint16_t* raw, uint32_t* out, int h, int w, int til
   return cudaGetLastError();
 }
 
-template <class P>
-cudaError_t launch(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x, int tiles_y,
-                   int tiles, const uint2* quantizer, const DevelopParams& p, bool malvar,
-                   cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
-  return malvar ? launch_one<P, true>(raw, out, h, w, tiles_x, tiles_y, tiles, quantizer, p,
-                                      s MCRAW_CK_ENTRY)
-                : launch_one<P, false>(raw, out, h, w, tiles_x, tiles_y, tiles, quantizer, p,
-                                       s MCRAW_CK_ENTRY);
+template <class P, bool kMalvar>
+cudaError_t launch_ring(const CUtensorMap& map, uint32_t* out, int h, int w, int tiles_x,
+                        int tiles_y, int tiles, const uint2* quantizer, const DevelopParams& p,
+                        cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
+  constexpr int64_t smem_bytes = kRingSmemBytes;
+  // The persistent grid on each device, 0 until the first launch there,
+  // which also lets the kernel have its dynamic shared memory.
+  static int caps[kMaxDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int cap = dev < kMaxDevices ? caps[dev] : 0;
+  if (cap == 0) {
+    int sms = 0, per_sm = 0;
+    cudaFuncSetAttribute(ring::develop_kernel<P, kMalvar>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem_bytes));
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring::develop_kernel<P, kMalvar>,
+                                                  kRingThreads, smem_bytes);
+    cap = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+    if (dev < kMaxDevices) caps[dev] = cap;
+  }
+  const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);
+  ring::develop_kernel<P, kMalvar><<<grid, kRingThreads, smem_bytes, s>>>(
+      map, out, h, w, tiles_x, tiles_y, tiles, quantizer,
+      p MCRAW_CK_LAUNCH(mcraw_check::kDevelop, mcraw_check::kEntryDevelopRing));
+  return cudaGetLastError();
+}
+
+// The kernel's parameters from the entry's host row and CFA (both copied
+// into the kernel's by-value argument); false for a channel outside 0..2.
+bool pack_params(const float* params, const int32_t* cfa, DevelopParams* p) {
+  const float white = params[4];
+  for (int k = 0; k < 4; ++k) {
+    if (cfa[k] < 0 || cfa[k] > 2) return false;
+    p->black[k] = params[k];
+    p->inv_scale[k] = 1.f / (white - params[k]);
+    p->gain_site[k] = params[5 + cfa[k]];
+  }
+  for (int c = 0; c < 3; ++c) p->gain[c] = params[5 + c];
+  for (int i = 0; i < 9; ++i) p->m[i] = params[8 + i];
+  return true;
+}
+
+// launch(Cfa<...>{}) for the Bayer pattern `cfa`, or cudaErrorInvalidValue
+// for another pattern.
+template <class Launch>
+cudaError_t with_cfa(const int32_t* cfa, Launch&& launch) {
+  switch (((cfa[0] * 3 + cfa[1]) * 3 + cfa[2]) * 3 + cfa[3]) {
+    case ((0 * 3 + 1) * 3 + 1) * 3 + 2:  // rggb
+      return launch(Cfa<0, 1, 1, 2>{});
+    case ((2 * 3 + 1) * 3 + 1) * 3 + 0:  // bggr
+      return launch(Cfa<2, 1, 1, 0>{});
+    case ((1 * 3 + 0) * 3 + 2) * 3 + 1:  // grbg
+      return launch(Cfa<1, 0, 2, 1>{});
+    case ((1 * 3 + 2) * 3 + 0) * 3 + 1:  // gbrg
+      return launch(Cfa<1, 2, 0, 1>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The grid's tiles of `frames` frames; false for a size the kernels cannot
+// index.
+bool tiling(int64_t frames, int64_t height, int64_t width, int* tiles_x, int* tiles_y,
+            int* tiles) {
+  const int64_t gx = (width + kTileW - 1) / kTileW;
+  const int64_t gy = (height + kTileH - 1) / kTileH;
+  if (height * width > (int64_t{1} << 31) || gx * gy * frames > 0x7FFFFFFF) return false;
+  *tiles_x = static_cast<int>(gx);
+  *tiles_y = static_cast<int>(gy);
+  *tiles = static_cast<int>(gx * gy * frames);
+  return true;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime, so that the library
+// links no -lcuda; nullptr where the driver lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D tiled map of uint16 over `base`: dims and the box innermost first,
+// the strides (bytes) of dims 1 and 2; no swizzle, and 0 outside the
+// tensor. 0, the driver's CUresult, or -1 where there is no encoder.
+int encode_u16_map(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[3],
+                   const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return static_cast<int>(encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT16, 3, const_cast<void*>(base),
+                                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                 CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 }  // namespace
 
 // Develops `frames` (height, width) uint16 frames laid out one after
-// another in `raw` into as many uint32 RGBA8888 frames in `out`.
-// params: host pointer to pack_develop_params's row (at least 17 floats);
-// cfa: host pointer to 4 int32 channels, one of the four Bayer patterns
-// (both copied into the kernel's by-value argument); quantizer: device
-// pointer to the kQuantizer (threshold bits, code) pairs of
+// another in `raw` into as many uint32 RGBA8888 frames in `out`, on the
+// direct path. params: host pointer to pack_develop_params's row (at least
+// 17 floats); cfa: host pointer to 4 int32 channels, one of the four Bayer
+// patterns (both copied into the kernel's by-value argument); quantizer:
+// device pointer to the kQuantizer (threshold bits, code) pairs of
 // develop.quantizer_table; malvar: 0 bilinear, 1 Malvar. Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a size the kernel cannot index or another CFA.
@@ -553,9 +922,8 @@ extern "C" int mcraw_develop(const uint16_t* raw, uint32_t* out, int64_t frames,
                              const int32_t* cfa, const uint2* quantizer, int32_t malvar,
                              void* stream MCRAW_CK_ENTRY_PARAM) {
   if (frames <= 0 || height <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
-  const int64_t gx = (width + kTileW - 1) / kTileW;
-  const int64_t gy = (height + kTileH - 1) / kTileH;
-  if (height * width > (int64_t{1} << 31) || gx * gy * frames > 0x7FFFFFFF) {
+  int tx = 0, ty = 0, tiles = 0;
+  if (!tiling(frames, height, width, &tx, &ty, &tiles)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MCRAW_CK_HOST(mcraw_check::kDevelop, mcraw_check::kEntryDevelop, kBufParams, kHost,
@@ -563,43 +931,100 @@ extern "C" int mcraw_develop(const uint16_t* raw, uint32_t* out, int64_t frames,
   MCRAW_CK_HOST(mcraw_check::kDevelop, mcraw_check::kEntryDevelop, kBufCfa, kHost,
                 static_cast<int64_t>(4 * sizeof(int32_t)))
   DevelopParams p;
-  const float white = params[4];
-  for (int k = 0; k < 4; ++k) {
-    if (cfa[k] < 0 || cfa[k] > 2) return static_cast<int>(cudaErrorInvalidValue);
-    p.black[k] = params[k];
-    p.inv_scale[k] = 1.f / (white - params[k]);
-    p.gain_site[k] = params[5 + cfa[k]];
-  }
-  for (int c = 0; c < 3; ++c) p.gain[c] = params[5 + c];
-  for (int i = 0; i < 9; ++i) p.m[i] = params[8 + i];
-
+  if (!pack_params(params, cfa, &p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int h = static_cast<int>(height);
   const int w = static_cast<int>(width);
-  const int tx = static_cast<int>(gx);
-  const int ty = static_cast<int>(gy);
-  const int tiles = static_cast<int>(gx * gy * frames);
-  const bool m = malvar != 0;
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (((cfa[0] * 3 + cfa[1]) * 3 + cfa[2]) * 3 + cfa[3]) {
-    case ((0 * 3 + 1) * 3 + 1) * 3 + 2:  // rggb
-      err = launch<Cfa<0, 1, 1, 2>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m,
-                                    s MCRAW_CK_ENTRY);
-      break;
-    case ((2 * 3 + 1) * 3 + 1) * 3 + 0:  // bggr
-      err = launch<Cfa<2, 1, 1, 0>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m,
-                                    s MCRAW_CK_ENTRY);
-      break;
-    case ((1 * 3 + 0) * 3 + 2) * 3 + 1:  // grbg
-      err = launch<Cfa<1, 0, 2, 1>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m,
-                                    s MCRAW_CK_ENTRY);
-      break;
-    case ((1 * 3 + 2) * 3 + 0) * 3 + 1:  // gbrg
-      err = launch<Cfa<1, 2, 0, 1>>(raw, out, h, w, tx, ty, tiles, quantizer, p, m,
-                                    s MCRAW_CK_ENTRY);
-      break;
-    default:
-      break;
+  return static_cast<int>(with_cfa(cfa, [&](auto cfa_type) {
+    using P = decltype(cfa_type);
+    return malvar != 0 ? launch_direct<P, true>(raw, out, h, w, tx, ty, tiles, quantizer, p,
+                                                s MCRAW_CK_ENTRY)
+                       : launch_direct<P, false>(raw, out, h, w, tx, ty, tiles, quantizer, p,
+                                                 s MCRAW_CK_ENTRY);
+  }));
+}
+
+// Encodes into `map` (host memory, 128 bytes, a CUtensorMap) the 3-D tiled
+// map of uint16 over the device address `base` that kernels/develop.py's
+// ring_map_geometry describes: dims[3] and box[3] innermost first,
+// strides[2] the bytes of a row and of a frame. Returns 0, the driver's
+// CUresult, or -1 where the driver has no cuTensorMapEncodeTiled.
+extern "C" int mcraw_develop_map(void* map, const void* base, const int64_t* dims,
+                                 const int64_t* strides, const int32_t* box) {
+  const cuuint64_t d[3] = {static_cast<cuuint64_t>(dims[0]), static_cast<cuuint64_t>(dims[1]),
+                           static_cast<cuuint64_t>(dims[2])};
+  const cuuint64_t st[2] = {static_cast<cuuint64_t>(strides[0]),
+                            static_cast<cuuint64_t>(strides[1])};
+  const cuuint32_t b[3] = {static_cast<cuuint32_t>(box[0]), static_cast<cuuint32_t>(box[1]),
+                           static_cast<cuuint32_t>(box[2])};
+  CUtensorMap m;
+  std::memset(&m, 0, sizeof m);
+  const int err = encode_u16_map(&m, base, d, st, b);
+  if (err == 0) std::memcpy(map, &m, sizeof m);
+  return err;
+}
+
+// As mcraw_develop, on the ring path, with `map` (host memory, 128 bytes)
+// the tensor map of `raw` that mcraw_develop_map encoded: the caller takes
+// this entry only where width % 8 == 0, raw is 16-byte aligned and raw 0
+// normalizes to 0 on every site (kernels/develop.py::ring_takes); this
+// returns cudaErrorInvalidValue where the first two do not hold. The
+// checked build also holds the map's reach, frames * height * width
+// uint16, to raw's extent (a cp.async fault, on the host), and the map to
+// the one this entry encodes from those numbers (a host fault on map).
+extern "C" int mcraw_develop_ring(const uint16_t* raw, uint32_t* out, int64_t frames,
+                                  int64_t height, int64_t width, const float* params,
+                                  const int32_t* cfa, const uint2* quantizer, int32_t malvar,
+                                  const void* map, void* stream MCRAW_CK_ENTRY_PARAM) {
+  if (frames <= 0 || height <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
+  int tx = 0, ty = 0, tiles = 0;
+  if (!tiling(frames, height, width, &tx, &ty, &tiles) || width % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(raw) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  MCRAW_CK_HOST(mcraw_check::kDevelop, mcraw_check::kEntryDevelopRing, kBufParams, kHost,
+                static_cast<int64_t>(17 * sizeof(float)))
+  MCRAW_CK_HOST(mcraw_check::kDevelop, mcraw_check::kEntryDevelopRing, kBufCfa, kHost,
+                static_cast<int64_t>(4 * sizeof(int32_t)))
+  MCRAW_CK_HOST(mcraw_check::kDevelop, mcraw_check::kEntryDevelopRing, kBufMap, kHost,
+                static_cast<int64_t>(sizeof(CUtensorMap)))
+  MCRAW_CK_HOST(mcraw_check::kDevelop, mcraw_check::kEntryDevelopRing, kBufRaw, kCpAsync,
+                frames * height * width * static_cast<int64_t>(sizeof(uint16_t)))
+  alignas(64) CUtensorMap m;
+  std::memcpy(&m, map, sizeof m);
+#ifdef MCRAW_CHECKED
+  {
+    const cuuint64_t d[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(height),
+                             static_cast<cuuint64_t>(frames)};
+    const cuuint64_t st[2] = {static_cast<cuuint64_t>(2 * width),
+                              static_cast<cuuint64_t>(2 * width * height)};
+    const cuuint32_t b[3] = {kBoxW, kRows, 1};
+    CUtensorMap want;
+    std::memset(&want, 0, sizeof want);
+    const int err = encode_u16_map(&want, raw, d, st, b);
+    const unsigned char* got = static_cast<const unsigned char*>(map);
+    const unsigned char* ref = reinterpret_cast<const unsigned char*>(&want);
+    int64_t at = err != 0 ? 0 : -1;
+    for (int64_t i = 0; at < 0 && i < static_cast<int64_t>(sizeof want); ++i) {
+      if (got[i] != ref[i]) at = i;
+    }
+    if (at >= 0) {
+      mcraw_check::host_fault(check_args, mcraw_check::kDevelop, mcraw_check::kEntryDevelopRing,
+                              kBufMap, mcraw_check::kHost, at, sizeof want);
+      return 0;
+    }
+  }
+#endif
+  DevelopParams p;
+  if (!pack_params(params, cfa, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int h = static_cast<int>(height);
+  const int w = static_cast<int>(width);
+  return static_cast<int>(with_cfa(cfa, [&](auto cfa_type) {
+    using P = decltype(cfa_type);
+    return malvar != 0 ? launch_ring<P, true>(m, out, h, w, tx, ty, tiles, quantizer, p,
+                                              s MCRAW_CK_ENTRY)
+                       : launch_ring<P, false>(m, out, h, w, tx, ty, tiles, quantizer, p,
+                                               s MCRAW_CK_ENTRY);
+  }));
 }

@@ -12,7 +12,8 @@ directory) whose entry points keep today's signatures (those of commit
 e0e1669 and later). A variant is a full copy of today's ``csrc`` with an
 edit (same entry points), for a diagnostic or a candidate. Every library
 is built with the same flags. Each kernel is timed at a 4096x3072 12-bit
-frame (CUDA-event median of n launches, the 50 MB L2 flushed before each
+frame, the develop also at the grade step's batch of 8 3840x2160 frames
+(CUDA-event median of n launches, the 50 MB L2 flushed before each
 by writing 256 MB, as chip_smoke.py does, and again by reading them) in
 the order old, new, variants, the variants again in reverse, new, old:
 the modern unpack on ``encode_modern``'s payload, the legacy unpack on
@@ -25,8 +26,9 @@ the new kernel's entry zeroes its own output word, the old one's caller
 does (a fill launch, as its wrapper did). The outputs are compared: the
 unpacks element for element and the checksum by value against the plain
 version; develop by the channels that differ from the plain version and
-from the f64 model, and whether a variant's output equals the new kernel's
-bit for bit. The checksum is also timed at 16 elements: the fixed cost of
+from the f64 model (the first frame), whether a variant's output equals
+the new kernel's bit for bit, and which path (the ``develop.ring`` and
+``develop.direct`` counters) the new wrapper took. The checksum is also timed at 16 elements: the fixed cost of
 a call. Prints one JSON line per result, the card's name and power limit
 first, the ``-Xptxas -v`` lines of every build, and which kernel functions
 compile to the same SASS in the old and the new build (``cuobjdump
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from . import encode as E
+from . import observe
 from . import preview as P
 from .kernels import build
 from .kernels import checksum as C
@@ -69,17 +72,25 @@ BENCH_DEVELOP_ARGS = (
 )
 KERNELS = ("unpack_modern", "develop", "unpack_legacy", "checksum", "block_offsets")
 OFFSETS_FRAMES = (1, 8)  # the device prep's cases: one frame, the grade step's batch
+# The develop's cases (frames, height, width): a 4096x3072 frame, and the
+# grade step's batch of 8 BT.2020 UHD frames (gpubench's grade cells).
+DEVELOP_SHAPES = ((1, H, W), (8, 2160, 3840))
 
 
 def emit(**kw) -> None:
     print(json.dumps(kw), flush=True)
 
 
-def twelve_bit(rng, k: int) -> np.ndarray:
+def twelve_bit(rng, k: int, h: int = H, w: int = W) -> np.ndarray:
     """chip_smoke.py's 12-bit content: a smooth field plus noise."""
-    base = (np.sin(np.arange(W) / (97 + k))[None, :]
-            * np.cos(np.arange(H) / (61 + k))[:, None] * 1200 + 2000)
-    return (base + rng.normal(0, 30, size=(H, W))).clip(0, 4095).astype(np.uint16)
+    base = (np.sin(np.arange(w) / (97 + k))[None, :]
+            * np.cos(np.arange(h) / (61 + k))[:, None] * 1200 + 2000)
+    return (base + rng.normal(0, 30, size=(h, w))).clip(0, 4095).astype(np.uint16)
+
+
+def develop_bytes(frames: int, h: int, w: int) -> int:
+    """The develop's bytes: the uint16 plane in, the uint32 RGBA out."""
+    return frames * h * w * (2 + 4)
 
 
 def time_cuda(fn, n: int, flush_by: str = "write") -> float:
@@ -204,47 +215,71 @@ def ab_unpack_modern(libs: dict, dev, n: int) -> None:
 
 
 def ab_develop(libs: dict, dev, n: int) -> None:
-    x = torch.from_numpy(twelve_bit(np.random.default_rng(14), 0)).to(dev)
     params = D.pack_develop_params(*BENCH_DEVELOP_ARGS)
     prm = np.ascontiguousarray(params.reshape(-1))
     cfa32 = np.asarray(RGGB, np.int32)
     quantizer = D._quantizer_on(dev)
-    moved = H * W * (2 + 4)
 
     def channels(a):
-        a = a.to(torch.int64).cpu()
+        a = a.to(torch.int64)
         return torch.stack([(a >> s) & 0xFF for s in (0, 8, 16)], -1)
 
     def differ(a, b):
         d = (channels(a) - b).abs()
         return {"max_abs_err": int(d.max().item()), "channels_differ": int((d != 0).sum().item())}
 
-    for mode in D.DEMOSAICS:
-        outs = {k: torch.empty((H, W), dtype=torch.uint32, device=dev) for k in libs}
+    for frames, h, w in DEVELOP_SHAPES:
+        rng = np.random.default_rng(14)
+        x = torch.from_numpy(np.stack([twelve_bit(rng, k, h, w) for k in range(frames)]))
+        x = (x[0] if frames == 1 else x).to(dev)
+        moved = develop_bytes(frames, h, w)
+        # A build with the ring entry takes it where the wrapper would.
+        ring = D.ring_takes(x.data_ptr(), w, prm)
+        maps = {k: D.encode_tensor_map(lib, x.data_ptr(), frames, h, w)
+                for k, lib in with_entry(libs, "mcraw_develop_ring").items() if ring}
+        for mode in D.DEMOSAICS:
+            outs = {k: torch.empty(x.shape, dtype=torch.uint32, device=dev) for k in libs}
 
-        def call(name):
-            def run():
-                build.check(libs[name].mcraw_develop(
-                    x.data_ptr(), outs[name].data_ptr(), 1, H, W, prm.ctypes.data,
-                    cfa32.ctypes.data, quantizer.data_ptr(), D.DEMOSAICS.index(mode),
-                    stream()), f"{name} mcraw_develop")
-            return run
+            def call(name):
+                args = (x.data_ptr(), outs[name].data_ptr(), frames, h, w, prm.ctypes.data,
+                        cfa32.ctypes.data, quantizer.data_ptr(), D.DEMOSAICS.index(mode))
 
-        fns = in_turns(libs, call,
-                       lambda: D.develop_rgba_device(x, params, cfa=RGGB, demosaic=mode))
-        results = {k: f() for k, f in fns.items()}
-        plain = D.develop_rgba_plain(x, params, cfa=RGGB, demosaic=mode)
-        torch.cuda.synchronize()
-        got = {k: results["new"] if k == "new" else outs[k] for k in fns}
-        model = torch.from_numpy(P.develop_f64(
-            x.cpu().numpy(), *BENCH_DEVELOP_ARGS, RGGB, demosaic=mode))
-        turns(f"develop_{mode}", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
-              frame=f"{W}x{H} 12-bit", bytes=moved,
-              vs_plain={k: differ(v, channels(plain)) for k, v in got.items()},
-              vs_f64={k: differ(v, model) for k, v in got.items()},
-              plain_vs_f64=differ(plain, model), channels=3 * H * W,
-              equals_new={k: bool(torch.equal(v.to(torch.int64), got["new"].to(torch.int64)))
-                          for k, v in got.items()})
+                def run():
+                    if name in maps:
+                        err = libs[name].mcraw_develop_ring(*args, maps[name].ctypes.data,
+                                                            stream())
+                    else:
+                        err = libs[name].mcraw_develop(*args, stream())
+                    build.check(err, f"{name} develop")
+                return run
+
+            fns = in_turns(libs, call,
+                           lambda: D.develop_rgba_device(x, params, cfa=RGGB, demosaic=mode))
+            with observe.tracing() as record:
+                results = {k: f() for k, f in fns.items()}
+            plain = channels(D.develop_rgba_plain(x, params, cfa=RGGB, demosaic=mode))
+            torch.cuda.synchronize()
+            got = {k: results["new"] if k == "new" else outs[k] for k in fns}
+            # The f64 model of the first frame (a batch's others would take
+            # minutes on the host).
+            first = torch.from_numpy(P.develop_f64(
+                x.reshape(-1, h, w)[0].cpu().numpy(), *BENCH_DEVELOP_ARGS, RGGB,
+                demosaic=mode)).to(dev)
+            turns(f"develop_{mode}", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
+                  frame=f"{frames}x{w}x{h} 12-bit", frames=frames, bytes=moved,
+                  path={k: v for k, v in record.counters.items() if k.startswith("develop.")},
+                  ring_entry=sorted(maps),
+                  vs_plain={k: differ(v, plain) for k, v in got.items()},
+                  vs_f64_first_frame={k: differ(v.reshape(-1, h, w)[0], first)
+                                      for k, v in got.items()},
+                  plain_vs_f64_first_frame={
+                      "max_abs_err": int((plain.reshape(-1, h, w, 3)[0] - first).abs().max()),
+                  },
+                  channels=3 * frames * h * w,
+                  equals_new={k: bool(torch.equal(v.to(torch.int64),
+                                                  got["new"].to(torch.int64)))
+                              for k, v in got.items()})
+            del outs, results, got, plain
 
 
 def legacy_image() -> np.ndarray:

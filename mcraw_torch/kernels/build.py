@@ -16,8 +16,9 @@ through :func:`launch`.
 The checked build (``csrc/checked.cuh``) is the same sources compiled with
 one more define, ``-DMCRAW_CHECKED``, into
 ``libmcraw_torch_checked_<digest>.so``: every global load and store,
-``cp.async`` and shared-memory index of the five kernels is held to the
-extent of its buffer, and a batch frame's reads outside its own window are
+``cp.async``, TMA destination and shared-memory index of the five kernels
+is held to the extent of its buffer, as is the reach of the develop
+ring's tensor map, and a batch frame's reads outside its own window are
 counted. A process asks for it in code, before its first launch, with
 :func:`use_checked` (it needs a card; nothing selects it otherwise, and
 there is no fallback). There each :func:`launch` waits for its kernel,
@@ -160,14 +161,18 @@ def load(path: Path, checked: bool = False) -> ctypes.CDLL:
         "mcraw_develop": [p, p, i64, i64, i64, p, p, p, i32, p],
         "mcraw_block_offsets": [p, i64, p, p, i64, p],
         "mcraw_block_offsets_batch": [p, i64, i64, p, p, i64, p],
+        "mcraw_develop_ring": [p, p, i64, i64, i64, p, p, p, i32, p, p],
     }
     for name, argtypes in entries.items():
         # An earlier csrc (python -m mcraw_torch.kernel_ab) may not have
-        # the batch entries or the block offsets.
-        if hasattr(cdll, name) or not name.endswith(("_batch", "_block_offsets")):
+        # the batch entries, the block offsets or the develop ring.
+        if hasattr(cdll, name) or not name.endswith(("_batch", "_block_offsets", "_ring")):
             fn = getattr(cdll, name)
             fn.restype = ctypes.c_int
             fn.argtypes = [*argtypes, p] if checked else argtypes
+    if hasattr(cdll, "mcraw_develop_map"):  # encodes on the host: no checked argument
+        cdll.mcraw_develop_map.restype = ctypes.c_int
+        cdll.mcraw_develop_map.argtypes = [p, p, p, p, p]
     cdll.mcraw_cuda_error_string.restype = ctypes.c_char_p
     cdll.mcraw_cuda_error_string.argtypes = [ctypes.c_int]
     return cdll
@@ -239,13 +244,14 @@ ENTRIES = {
     "mcraw_checksum": "checksum",
     "mcraw_block_offsets": "block_offsets",
     "mcraw_block_offsets_batch": "block_offsets",
+    "mcraw_develop_ring": "develop",
 }
 BUFFERS = {
     "unpack_modern": ("words", "bits", "refs", "offsets", "desc", "class_index", "out",
                       "bases", "lengths", "s_desc", "s_words", "s_off", "s_cls", "s_ref"),
     "unpack_legacy": ("payload", "bits", "refs", "offsets", "out", "bases", "lengths",
                       "s_span", "s_off", "s_cls", "s_ref"),
-    "develop": ("raw", "out", "quantizer", "params", "cfa", "s_tile", "s_q"),
+    "develop": ("raw", "out", "quantizer", "params", "cfa", "s_tile", "s_q", "map", "s_ring"),
     "checksum": ("x", "out", "s_warp"),
     "block_offsets": ("bits", "offsets", "status", "s_local", "s_warp", "s_tile"),
 }

@@ -21,6 +21,15 @@ CUDA kernel (``csrc/develop.cu``) for CUDA tensors, anything else raises.
 A (B, H, W) batch develops each frame on its own: no tap reads a
 neighbouring frame.
 
+The kernel's raw values reach shared memory by one of two paths, the
+output bit for bit the same: the ring, where :func:`ring_takes` holds
+(rows a multiple of 16 bytes, a 16-byte-aligned base, raw 0 normalizing to
+0), a producer warp copying each tile's box (:data:`RING_BOX`) with the
+Tensor Memory Accelerator through a tensor map (:func:`ring_map_geometry`,
+encoded once per address and shape); else direct, each thread loading its
+values. The counters ``develop.ring`` and ``develop.direct`` of
+:mod:`mcraw_torch.observe` count the launches of each.
+
 Not ported: the streamed-table normalizer (``inv2d``), ``gamma_mode="poly"``,
 ``ablate`` and ``band_rows``, which select TPU variants and timings.
 """
@@ -49,6 +58,16 @@ SRGB_ENTRIES = (0x3F800000 >> 16) - SRGB_BUCKET_BASE + 1  # 0x3F800000 is 1.0
 # Launch counters: the kernel's launches and the plain version's calls.
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
+
+# The ring path's box of raw uint16 a 64x32 tile, innermost first
+# (columns, rows, frames): rows y0 - 2 .. y0 + 33 (the tile and its 2-pixel
+# halo) and columns x0 - 8 .. x0 + 71, 8 to the left where the halo needs
+# 2: the hardware copies a box only from a first column on a 16-byte
+# boundary, and a row of 160 bytes is a multiple of 16 (csrc/develop.cu
+# kBoxX0, kBoxW, kRows).
+RING_BOX = (80, 36, 1)
+RING_MAPS_KEPT = 64  # encoded tensor maps kept, by (address, frames, height, width)
+_MAPS: dict[tuple[int, int, int, int], np.ndarray] = {}
 
 
 def pack_develop_params(
@@ -302,6 +321,76 @@ def develop_rgba_plain(
     return pack_rgba(*out).reshape(raw.shape)
 
 
+def zero_fill_exact(params) -> bool:
+    """Whether raw 0 normalizes to 0 on every site of the parameter row:
+    every black >= 0 and every white - black, in float32 as the kernel's
+    entry subtracts, finite and at least float32's least normal number, so
+    that 1 / (white - black) is finite and > 0. Then clip((0 - black) *
+    1/(white - black), 0, 1) is 0, and a box that the hardware fills with
+    raw 0 outside the frame stages the 0 that the direct path stages there
+    (Malvar multiplies both by the same gain)."""
+    return _zero_fill_exact(_params_row(params)[:5].tobytes())
+
+
+@functools.lru_cache(maxsize=64)
+def _zero_fill_exact(black_white: bytes) -> bool:
+    p = np.frombuffer(black_white, np.float32)
+    black, diff = p[:4], p[4] - p[:4]
+    return bool(((black >= 0) & (diff >= np.finfo(np.float32).tiny) & (diff < np.inf)).all())
+
+
+def ring_takes(address: int, width: int, params) -> bool:
+    """Whether a contiguous uint16 tensor at device `address`, `width`
+    values wide, develops on the ring path: its rows a multiple of 16 bytes
+    and its base 16-byte aligned, as a tensor map asks, and
+    :func:`zero_fill_exact`. Anything else takes the direct path."""
+    return width % 8 == 0 and address % 16 == 0 and zero_fill_exact(params)
+
+
+def ring_map_geometry(frames: int, height: int, width: int) -> dict:
+    """The ring's tensor map of a contiguous (frames, height, width) uint16
+    tensor, as ``csrc/develop.cu::mcraw_develop_map`` takes it: "dims" and
+    "box" innermost first, "strides" the bytes of a row and of a frame;
+    also "box_bytes", what each copy brings, and "elements", what the map
+    spans."""
+    return {
+        "dims": (width, height, frames),
+        "strides": (2 * width, 2 * width * height),
+        "box": RING_BOX,
+        "box_bytes": 2 * int(np.prod(RING_BOX)),
+        "elements": frames * height * width,
+    }
+
+
+def encode_tensor_map(lib, address: int, frames: int, height: int, width: int) -> np.ndarray:
+    """The tensor map (128 bytes) of :func:`ring_map_geometry` over device
+    `address`, encoded by the kernel library `lib` (``build.load``'s)."""
+    g = ring_map_geometry(frames, height, width)
+    dims, strides = (np.asarray(g[k], np.int64) for k in ("dims", "strides"))
+    box = np.asarray(g["box"], np.int32)
+    tmap = np.zeros(16, np.uint64)
+    err = lib.mcraw_develop_map(tmap.ctypes.data, address, dims.ctypes.data,
+                                strides.ctypes.data, box.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"mcraw_develop_map: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {err}) for {g}")
+    return tmap
+
+
+def _tensor_map(address: int, frames: int, height: int, width: int) -> np.ndarray:
+    """:func:`encode_tensor_map` by this process's library, kept by address
+    and shape: the caching allocator hands a loop the same planes step
+    after step."""
+    key = (address, frames, height, width)
+    tmap = _MAPS.get(key)
+    if tmap is None:
+        tmap = encode_tensor_map(build.lib(), address, frames, height, width)
+        if len(_MAPS) >= RING_MAPS_KEPT:
+            _MAPS.clear()
+        _MAPS[key] = tmap
+    return tmap
+
+
 @observe.spanned("develop")
 def develop_rgba_device(
     raw: torch.Tensor, params, *, cfa, demosaic: str = "bilinear"
@@ -327,14 +416,19 @@ def develop_rgba_device(
     out = torch.empty(raw.shape, dtype=torch.uint32, device=raw.device)
     if out.numel() == 0:
         return out
+    ring = ring_takes(raw.data_ptr(), w, prm)
+    args = (raw.data_ptr(), out.data_ptr(), frames, h, w, prm.ctypes.data, cfa32.ctypes.data,
+            quantizer.data_ptr(), DEMOSAICS.index(demosaic))
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.launch(
-            "mcraw_develop", (raw, out, quantizer, prm, cfa32),
-            raw.data_ptr(), out.data_ptr(), frames, h, w, prm.ctypes.data,
-            cfa32.ctypes.data, quantizer.data_ptr(),
-            DEMOSAICS.index(demosaic), stream,
-        )
+        if ring:
+            tmap = _tensor_map(raw.data_ptr(), frames, h, w)
+            build.launch("mcraw_develop_ring",
+                         (raw, out, quantizer, prm, cfa32, None, None, tmap),
+                         *args, tmap.ctypes.data, stream)
+        else:
+            build.launch("mcraw_develop", (raw, out, quantizer, prm, cfa32), *args, stream)
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
+    observe.count("develop.ring" if ring else "develop.direct", 1)
     return out

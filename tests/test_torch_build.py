@@ -234,19 +234,23 @@ def test_checked_launch_reports_a_cuda_error(fake_checked, monkeypatch):
 
 
 def test_negative_cases_cover_every_kind_of_every_kernel():
-    """Each kernel's access kinds (develop makes no cp.async; its host reads
-    of the parameters are the host kind; the checksum and the block offsets
-    are cp.async-free too, their memsets stores) each have a negative case,
-    on a buffer of that kernel."""
+    """Each kernel's access kinds (develop's cp.async are its ring's TMA
+    copies, their reach held to raw on the host; its host reads of the
+    parameters and the tensor map are the host kind; the checksum and the
+    block offsets are cp.async-free, their memsets stores) each have a
+    negative case, on a buffer of that kernel; the develop's ring cases
+    name buffers of the ring entry."""
     kinds = {k: set() for k in build.KERNELS}
     for kernel, kind, buf, _ in bounds.NEGATIVE:
         assert buf in build.BUFFERS[kernel] and kind in build.KINDS
         kinds[kernel].add(kind)
     assert kinds == {"unpack_modern": {"load", "cp.async", "store", "shared"},
                      "unpack_legacy": {"load", "cp.async", "store", "shared"},
-                     "develop": {"load", "store", "shared", "host"},
+                     "develop": {"load", "cp.async", "store", "shared", "host"},
                      "checksum": {"load", "store", "shared"},
                      "block_offsets": {"load", "store", "shared"}}
+    assert bounds.RING_NEGATIVE <= {(k, kind, buf) for k, kind, buf, _ in bounds.NEGATIVE}
+    assert {buf for _, _, buf in bounds.RING_NEGATIVE} == {"raw", "s_ring", "map"}
 
 
 def test_bounds_without_a_card_exits_2(capsys):
@@ -325,3 +329,22 @@ def test_kernel_ab_plans_the_device_prep(monkeypatch):
     with pytest.raises(SystemExit) as e:
         kernel_ab.main(["old_csrc", "--kernels", "prep"])
     assert e.value.code == 2
+
+
+def test_kernel_ab_plans_the_develop_at_the_grade_shape(monkeypatch):
+    """kernel_ab times the develop at a 4096x3072 frame and at the grade
+    step's batch of 8 3840x2160 frames, against the bytes bound of the
+    uint16 plane in and the uint32 RGBA out; a build without the ring entry
+    (the parent's sources) is called on its direct entry."""
+    from types import SimpleNamespace
+
+    from mcraw_torch import kernel_ab
+
+    assert kernel_ab.DEVELOP_SHAPES == ((1, 3072, 4096), (8, 2160, 3840))
+    # 0.0225 ms a 4096x3072 frame, 0.01486 ms a 3840x2160 one, at 3.35 TB/s
+    for (frames, h, w), bound_ms in zip(kernel_ab.DEVELOP_SHAPES, (0.02254, 8 * 0.014856)):
+        moved = kernel_ab.develop_bytes(frames, h, w)
+        assert moved / kernel_ab.PEAK_BYTES_PER_S * 1e3 == pytest.approx(bound_ms, rel=1e-3)
+    parent = SimpleNamespace(mcraw_develop=None)
+    ring = SimpleNamespace(mcraw_develop=None, mcraw_develop_ring=None)
+    assert kernel_ab.with_entry({"parent": parent, "v": ring}, "mcraw_develop_ring") == {"v": ring}

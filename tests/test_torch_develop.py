@@ -282,3 +282,114 @@ def test_quantizer_table_layout():
     assert np.all(next_thr[:-1] >= start[:-1])
     edge = np.array([np.nan, -0.0, -1.0, 0.0, 1.0, 2.0, np.inf], np.float32)
     assert D.srgb_quantize(edge).tolist() == [0, 0, 0, 0, 255, 255, 255]
+
+
+# -- the ring path's host side: which path, and its tensor map -------------------
+
+# The card tests' shapes: the grade step's batch, a 12 MP frame, the
+# batch-edge frames (width 72), small aligned frames; and the ragged ones.
+RING_SHAPES = [(8, 2160, 3840), (1, 2160, 3840), (1, 3024, 4032), (3, 3, 72), (3, 5, 72),
+               (3, 66, 72), (1, 16, 128), (2, 40, 136), (1, 3, 64)]
+RAGGED_SHAPES = [(1, 5, 7), (1, 3, 101), (1, 37, 251), (1, 36, 250), (1, 65, 130),
+                 (3, 5, 250), (3, 66, 70)]
+
+
+@pytest.mark.parametrize("frames, height, width", RING_SHAPES + RAGGED_SHAPES)
+def test_ring_map_geometry(frames, height, width):
+    """The tensor map spans exactly the (frames, height, width) uint16
+    tensor: dims innermost first, a row's and a frame's bytes as strides
+    (multiples of 16 wherever width % 8 == 0, as the map asks), and one box
+    of a 64x32 tile, its 2-pixel halo and the 6 columns more on the left
+    that put the box's first column on a 16-byte boundary, one frame deep,
+    rows of 160 bytes."""
+    g = D.ring_map_geometry(frames, height, width)
+    assert g["dims"] == (width, height, frames)
+    assert g["strides"] == (2 * width, 2 * width * height)
+    assert g["box"] == D.RING_BOX == (8 + 64 + 8, 32 + 2 * 2, 1)
+    assert 2 * g["box"][0] % 16 == 0 and g["box_bytes"] == 2 * 80 * 36 == 5760
+    nbytes = torch.empty((frames, height, width), dtype=torch.uint16).nbytes
+    assert 2 * g["elements"] == nbytes == g["strides"][1] * frames
+    assert all(s % 16 == 0 for s in g["strides"]) == (width % 8 == 0)
+
+
+@pytest.mark.parametrize("frames, height, width", RING_SHAPES + RAGGED_SHAPES)
+@pytest.mark.parametrize("offset", [0, 2, 8, 16])
+def test_ring_takes_shape_and_alignment(frames, height, width, offset):
+    """The ring path needs width % 8 == 0 and a 16-byte-aligned base; a
+    slice 2 or 8 bytes off the boundary takes the direct path."""
+    params = D.pack_develop_params(BLACK, WHITE, NEUTRAL, FWD)
+    want = width % 8 == 0 and offset % 16 == 0
+    assert D.ring_takes((1 << 40) + offset, width, params) is want
+
+
+@pytest.mark.parametrize("black, white, takes", [
+    ((64, 60, 70, 64), 4095.0, True),
+    ((56, 60, 64, 72), 4095.0, True),
+    ((0, 0, 0, 0), 4095.0, True),
+    ((63.5, 64.25, 65, 1023), 1023.5, True),  # fractional and odd levels
+    ((-0.0, 0, 0, 0), 1.0, True),
+    ((-1, 60, 70, 64), 4095.0, False),  # raw 0 would normalize to 1/4096
+    ((64, 60, -0.5, 64), 4095.0, False),
+    ((64, 60, 70, 4095), 4095.0, False),  # white == black: 1/0
+    ((64, 60, 70, 5000), 4095.0, False),  # white < black: a negative scale
+    ((64, 60, float("nan"), 64), 4095.0, False),
+    ((64, 60, 70, 64), float("inf"), False),
+])
+def test_zero_fill_exact(black, white, takes):
+    """raw 0 normalizes to +0.0 on every site exactly where the ring path
+    is allowed; a negative black level or a scale that is not finite and
+    positive keeps the direct path, whose bounds tests stage 0 there."""
+    params = D.pack_develop_params(np.asarray(black, np.float32), white, NEUTRAL, FWD)
+    assert D.zero_fill_exact(params) is takes
+    assert D.ring_takes(1 << 40, 3840, params) is takes
+    b = torch.from_numpy(params[0, 0:4].copy())
+    with np.errstate(divide="ignore"):
+        inv = torch.from_numpy(np.float32(1.0) / (params[0, 4] - params[0, 0:4]))
+    zero = ((torch.zeros(4) - b) * inv).clamp(0.0, 1.0)  # the kernel's and plain's normalization
+    if takes:
+        assert torch.equal(zero, torch.zeros(4)) and not torch.signbit(zero).any()
+    else:  # raw 0 is not 0 on some site, or the scale is not a finite positive number
+        assert (zero != 0).any() or not (torch.isfinite(inv) & (inv > 0)).all()
+
+
+class _FakeMapLib:
+    """mcraw_develop_map on the CPU: records the geometry it was given and
+    writes 128 bytes of its own; `err` is returned."""
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def mcraw_develop_map(self, out, address, dims, strides, box):
+        import ctypes
+
+        read = lambda p, n, t: list((t * n).from_address(p))  # noqa: E731
+        self.calls.append((address, read(dims, 3, ctypes.c_int64),
+                           read(strides, 2, ctypes.c_int64), read(box, 3, ctypes.c_int32)))
+        ctypes.memmove(out, bytes(range(len(self.calls), len(self.calls) + 128)), 128)
+        return self.err
+
+
+@pytest.mark.parametrize("frames", [1, 8])
+def test_tensor_map_is_encoded_once_per_address_and_shape(frames, monkeypatch):
+    """The wrapper encodes a map from ring_map_geometry once per (address,
+    frames, height, width) and keeps at most RING_MAPS_KEPT; an encoder
+    error raises."""
+    from mcraw_torch.kernels import build
+
+    lib = _FakeMapLib()
+    monkeypatch.setattr(build, "lib", lambda: lib)
+    monkeypatch.setattr(D, "_MAPS", {})
+    a = D._tensor_map(1 << 40, frames, 2160, 3840)
+    assert D._tensor_map(1 << 40, frames, 2160, 3840) is a and len(lib.calls) == 1
+    assert a.nbytes == 128 and a.view(np.uint8)[0] == 1
+    g = D.ring_map_geometry(frames, 2160, 3840)
+    assert lib.calls[0] == (1 << 40, list(g["dims"]), list(g["strides"]), list(g["box"]))
+    D._tensor_map((1 << 40) + 256, frames, 2160, 3840)
+    D._tensor_map(1 << 40, frames, 2160, 3832)
+    assert len(lib.calls) == 3 and len(D._MAPS) == 3
+    for k in range(D.RING_MAPS_KEPT):
+        D._tensor_map((2 << 40) + 16 * k, frames, 8, 8)
+    assert len(D._MAPS) <= D.RING_MAPS_KEPT
+    monkeypatch.setattr(build, "lib", lambda: _FakeMapLib(err=1))
+    with pytest.raises(RuntimeError, match="CUresult 1"):
+        D._tensor_map(3 << 40, frames, 2160, 3840)

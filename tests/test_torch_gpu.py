@@ -380,6 +380,132 @@ def test_develop_kernel_batch_of_odd_frames(cuda, demosaic):
     assert np.abs(_channels(batched) - _channels(plain)).max() <= 1
 
 
+def _develop_path(x, params, **kw) -> tuple[torch.Tensor, str]:
+    """The develop of `x` on the card and the path it took, by the
+    develop.ring and develop.direct counters."""
+    from mcraw_torch import observe
+
+    with observe.tracing() as rec:
+        out = D.develop_rgba_device(x, params, **kw)
+        torch.cuda.synchronize()
+    paths = {k: v for k, v in rec.counters.items() if k.startswith("develop.")}
+    assert len(paths) == 1 and sum(paths.values()) == 1, paths
+    return out, next(iter(paths)).removeprefix("develop.")
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `x` whose base lies 2 bytes past a 16-byte
+    boundary: a slice of a longer buffer."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    y = buf[1 : 1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == 2 and y.is_contiguous()
+    return y
+
+
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+@pytest.mark.parametrize("shape, sensor", [((8, 2160, 3840), "bggr"), ((3024, 4032), "rggb")])
+def test_develop_ring_path_equals_direct(cuda, shape, sensor, demosaic):
+    """The grade step's batch and a 12 MP frame take the ring path; the
+    same values 2 bytes off a 16-byte boundary take the direct path; the
+    two RGBA are equal bit for bit, and within 1 LSB of plain."""
+    cfa = tuple(CFA_PATTERNS[sensor])
+    raw = np.random.default_rng(shape[-1]).integers(0, 4096, size=shape, dtype=np.uint16)
+    params = D.pack_develop_params(*DEVELOP_ARGS)
+    x = torch.from_numpy(raw).to(cuda)
+    ring, path = _develop_path(x, params, cfa=cfa, demosaic=demosaic)
+    assert path == "ring"
+    direct, path = _develop_path(_misaligned(x), params, cfa=cfa, demosaic=demosaic)
+    assert path == "direct"
+    assert torch.equal(ring.to(torch.int64), direct.to(torch.int64))
+    plain = D.develop_rgba_plain(x[:1] if x.dim() == 3 else x, params, cfa=cfa,
+                                 demosaic=demosaic)
+    assert np.abs(_channels(ring[:1] if x.dim() == 3 else ring) - _channels(plain)).max() <= 1
+
+
+@pytest.mark.parametrize("shape", [(36, 250), (37, 251), (3, 101), (5, 7), (65, 130)])
+def test_develop_direct_path_for_ragged_widths(cuda, shape):
+    """Widths that are not a multiple of 8 take the direct path."""
+    raw = np.random.default_rng(3).integers(0, 4096, size=shape, dtype=np.uint16)
+    _, path = _develop_path(torch.from_numpy(raw).to(cuda),
+                            D.pack_develop_params(*DEVELOP_ARGS), cfa=(0, 1, 1, 2))
+    assert path == "direct"
+
+
+def test_develop_direct_path_where_raw_zero_is_not_zero(cuda):
+    """A negative black level (raw 0 normalizes above 0) takes the direct
+    path, even at an aligned width that is a multiple of 8."""
+    black, white, neutral, fwd = DEVELOP_ARGS
+    params = D.pack_develop_params(np.array([-4, 60, 70, 64], np.float32), white, neutral, fwd)
+    raw = np.random.default_rng(5).integers(0, 4096, size=(40, 136), dtype=np.uint16)
+    x = torch.from_numpy(raw).to(cuda)
+    got, path = _develop_path(x, params, cfa=(2, 1, 1, 0))
+    assert path == "direct"
+    want = D.develop_rgba_plain(x, params, cfa=(2, 1, 1, 0))
+    assert np.abs(_channels(got) - _channels(want)).max() <= 1
+
+
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+@pytest.mark.parametrize("h", [3, 5, 66])
+def test_develop_ring_batch_equals_single(cuda, h, demosaic):
+    """On the ring path, a 0, a 4095 and a noise frame in one launch equal
+    three single calls bit for bit: the hardware's zero fill stops at each
+    frame's edge."""
+    w = 72
+    frames = np.stack([
+        np.zeros((h, w), np.uint16), np.full((h, w), 4095, np.uint16),
+        np.random.default_rng(h).integers(0, 4096, size=(h, w), dtype=np.uint16),
+    ])
+    params = D.pack_develop_params(*DEVELOP_ARGS)
+    x = torch.from_numpy(frames).to(cuda)
+    kw = dict(cfa=(1, 0, 2, 1), demosaic=demosaic)
+    batched, path = _develop_path(x, params, **kw)
+    assert path == "ring"
+    singles = []
+    for f in x:
+        one, path = _develop_path(f, params, **kw)
+        assert path == "ring"
+        singles.append(one)
+    assert torch.equal(batched.to(torch.int64), torch.stack(singles).to(torch.int64))
+
+
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+@pytest.mark.parametrize("sensor", ["rggb", "bggr", "grbg", "gbrg"])
+def test_develop_ring_every_cfa_within_one_lsb(cuda, sensor, demosaic):
+    """The ring path, every CFA and both demosaics, at a shape whose tiles
+    reach past the frame on every side (2 frames of 40 x 136): within 1 LSB
+    per channel of plain and of the f64 model."""
+    cfa = tuple(CFA_PATTERNS[sensor])
+    raw = np.random.default_rng(40).integers(0, 4096, size=(2, 40, 136), dtype=np.uint16)
+    params = D.pack_develop_params(*DEVELOP_ARGS)
+    x = torch.from_numpy(raw).to(cuda)
+    got, path = _develop_path(x, params, cfa=cfa, demosaic=demosaic)
+    assert path == "ring"
+    g = _channels(got)
+    assert np.abs(g - _channels(D.develop_rgba_plain(x, params, cfa=cfa,
+                                                     demosaic=demosaic))).max() <= 1
+    for k in range(2):
+        model = P.develop_f64(raw[k], *DEVELOP_ARGS, cfa, demosaic=demosaic)
+        assert np.abs(g[k] - model).max() <= 1
+
+
+def test_develop_misaligned_slice_takes_the_direct_path(cuda):
+    """A frame whose width is a multiple of 8 but whose base is 2 bytes off
+    a 16-byte boundary (a slice) takes the direct path, with the aligned
+    copy's RGBA."""
+    raw = np.random.default_rng(9).integers(0, 4096, size=(48, 256), dtype=np.uint16)
+    params = D.pack_develop_params(*DEVELOP_ARGS)
+    x = torch.from_numpy(raw).to(cuda)
+    flat = torch.cat([torch.zeros(1, dtype=torch.uint16, device=cuda), x.reshape(-1)])
+    view = flat[1:].view(48, 256)
+    assert view.data_ptr() % 16 == 2
+    got, path = _develop_path(view, params, cfa=(0, 1, 1, 2))
+    assert path == "direct"
+    want, path = _develop_path(x, params, cfa=(0, 1, 1, 2))
+    assert path == "ring"
+    assert torch.equal(got.to(torch.int64), want.to(torch.int64))
+
+
 def test_preview_on_card(cuda):
     """A modern and a legacy frame through preview_frame_rgba on the card:
     one develop launch each, no plain call, within 1 LSB of the f64 model."""
