@@ -30,6 +30,9 @@ failure exits non-zero and prints no result:
    small size; the small ones also against the f64 model; a (3, 5, 250),
    a (2, 3072, 4096) and an (8, 2160, 3840) batch, the grade step's, with
    a 4095 and a 0 frame among its smooth ones, bit-equal to single calls;
+   that batch again with a row for each frame and the four CFAs in turn,
+   the multiview step's, on the ring and on the direct path, bit-equal to
+   single calls with each frame's own row and CFA;
    by the ``develop.ring`` / ``develop.direct`` counters, each case on the
    path its shape gives: the ring where the width is a multiple of 8 and
    the black levels >= 0, else direct); each batched
@@ -80,7 +83,8 @@ failure exits non-zero and prints no result:
      of its source image; one develop launch per call, no plain call, no
      height <= 2 develop; ``preview_clip(d, batch_frames=2)`` gives the
      same RGBA (device checksum) as ``preview_frame_rgba`` for every frame,
-     with one unpack launch per run (the legacy frame splits them).
+     with one unpack and one develop launch per run (the legacy frame
+     splits them; the develop takes a row for each frame).
    - export: ``mcraw_torch.clip.export_clip(Decoder(clip, device="cuda"),
      prefetch=4, writers=4)`` on each decode clip: every DNG byte-identical
      to ``dng_bytes`` of its source image, one unpack launch of the clip's
@@ -779,6 +783,52 @@ def uhd_batch(rng) -> np.ndarray:
     return np.stack(frames)
 
 
+def frame_rows(frames: int) -> tuple[np.ndarray, np.ndarray]:
+    """(frames, 128) rows and (frames, 4) CFAs of a multiview step: frame
+    f's black levels DEVELOP_ARGS's plus f, its own neutral and forward
+    matrix, the four Bayer patterns in turn."""
+    black, white, neutral, fwd = DEVELOP_ARGS
+    rows = np.concatenate([D.pack_develop_params(
+        black + f, white, neutral * np.float32(1 + 0.03 * f),
+        fwd * np.float32(1 - 0.02 * f)) for f in range(frames)])
+    return rows, np.array([D.BAYER_CFAS[f % 4] for f in range(frames)], np.int32)
+
+
+def develop_rows_check(raw: np.ndarray, demosaic: str, what: str) -> int:
+    """A batch with a row and a CFA for each frame in one launch, on the
+    ring and (a copy 2 bytes off alignment) on the direct path: both bit
+    for bit one launch a frame with its own row and CFA, within 1 LSB of the
+    plain version frame by frame; the max error against it."""
+    x = torch.from_numpy(raw).to(DEV)
+    rows, cfas = frame_rows(len(raw))
+    rows_d, cfas_d = torch.from_numpy(rows).to(DEV), torch.from_numpy(cfas).to(DEV)
+    buf = torch.empty(x.numel() + 1, dtype=torch.uint16, device=DEV)
+    off = buf[1:].view(x.shape)
+    off.copy_(x)
+    singles = torch.stack([D.develop_rgba_device(x[f], rows[f], cfa=tuple(cfas[f]),
+                                                 demosaic=demosaic) for f in range(len(raw))])
+    err = 0
+    for src, path in ((x, "ring"), (off, "direct")):
+        with observe.tracing() as rec:
+            got = D.develop_rgba_device(src, rows_d, cfa=cfas_d, demosaic=demosaic)
+        counters = {k: v for k, v in rec.counters.items() if k.startswith("develop.")}
+        check(counters == {f"develop.{path}": 1, "develop.frame_rows": len(raw)},
+              f"develop {what} {demosaic}: counters {counters}")
+        check(torch.equal(got.to(torch.int64), singles.to(torch.int64)),
+              f"develop {what} {demosaic} ({path}) != single calls")
+    g = rgba_channels(got, f"develop {what}")
+    for f in range(len(raw)):
+        plain = D.develop_rgba_plain(x[f], rows[f], cfa=tuple(cfas[f]), demosaic=demosaic)
+        e, _ = channel_diff(g[f], rgba_channels(plain, f"develop plain {what}"))
+        err = max(err, e)
+    torch.cuda.synchronize()
+    check(err <= 1, f"develop {what} {demosaic} vs plain: err {err}")
+    emit("kernels", kernel="develop", case=what, shape=list(raw.shape), demosaic=demosaic,
+         cfas=cfas.tolist(), paths=["ring", "direct"], equals_single_calls=True,
+         max_abs_err=err)
+    return err
+
+
 def phase_kernels_develop(rng) -> int:
     err = 0
     bggr = tuple(CFA_PATTERNS["bggr"])
@@ -815,6 +865,8 @@ def phase_kernels_develop(rng) -> int:
         develop_singles_check(torch.from_numpy(uhd).to(DEV),
                               D.pack_develop_params(*DEVELOP_ARGS), bggr, demosaic,
                               "grade batch", "ring")
+        # The multiview step: eight rows and the four CFAs in one launch.
+        err = max(err, develop_rows_check(uhd, demosaic, "multiview batch"))
     return err
 
 
@@ -1201,9 +1253,10 @@ def phase_develop_path(clip: Path, model: DevelopModel) -> dict:
                 if demosaic == "bilinear"}
     check(dict(clip_sums) == bilinear and [ts for ts, _ in clip_sums] == frames,
           f"preview_clip checksums {clip_sums} != preview_frame_rgba {bilinear}")
-    # DEVELOP_FRAMES (7, 7, 7, 6) in chunks of 2: runs (0, 1), (2), (3).
+    # DEVELOP_FRAMES (7, 7, 7, 6) in chunks of 2: runs (0, 1), (2), (3),
+    # each decoded and developed (a row a frame) in one launch.
     want_clip = {"unpack_modern": 2, "unpack_legacy": 1, "checksum": len(frames),
-                 "develop": len(frames), "block_offsets": 2}
+                 "develop": 3, "block_offsets": 2}
     check(clip_launches == want_clip,
           f"preview_clip: launch counts {clip_launches}, expected {want_clip}")
     check(not any(clip_plain.values()), f"preview_clip: plain calls {clip_plain}")

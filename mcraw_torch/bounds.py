@@ -11,7 +11,8 @@ one, ``kernels/build.py::use_checked``):
 - :data:`NEGATIVE`: for each kernel and each kind of access it makes
   (global load, ``cp.async``, store, shared index; develop's host reads of
   its parameters and tensor map, and the reach of that map, whose TMA
-  copies are the develop's ``cp.async``; the block offsets' memset of
+  copies are the develop's ``cp.async``; its per-frame launch's loads of
+  each frame's row and CFA; the block offsets' memset of
   their status scratch, a store from the host), a clean launch with one
   buffer's checked extent understated (``build.understate``), which must
   fault on that buffer and count a fault of that kind;
@@ -75,7 +76,9 @@ OFFSETS_BLOCKS = 2 * O.TILE + 5  # two full tiles and a partial one
 # path: the ring entry holds its tensor map's reach on raw to raw's extent
 # on the host (a cp.async fault, no launch) and reads its 128-byte map;
 # s_ring, cut by more than its size, faults at every copy into it and
-# every read of it.
+# every read of it. The cases of ROWS_NEGATIVE launch the per-frame
+# develop (DEVELOP_ROWS, on the ring): rows cut to end 4 bytes inside the
+# last frame's 17 floats, cfas by the last frame's last channel.
 NEGATIVE = (
     ("unpack_modern", "load", "bits", 2),
     ("unpack_modern", "cp.async", "words", None),
@@ -92,6 +95,8 @@ NEGATIVE = (
     ("develop", "cp.async", "raw", 2),
     ("develop", "shared", "s_ring", 1 << 20),
     ("develop", "host", "map", 8),
+    ("develop", "load", "rows", None),
+    ("develop", "load", "cfas", 4),
     ("checksum", "load", "x", 2),
     ("checksum", "store", "out", 5),
     ("checksum", "shared", "s_warp", 4),
@@ -102,6 +107,8 @@ NEGATIVE = (
 )
 RING_NEGATIVE = {("develop", "cp.async", "raw"), ("develop", "shared", "s_ring"),
                  ("develop", "host", "map")}
+ROWS_NEGATIVE = {("develop", "load", "rows"), ("develop", "load", "cfas")}
+DEVELOP_ROWS = (3, 37, 256)  # a batch of frames, each with its own row and CFA
 # kernel -> bytes off every batch frame's checked window.
 WINDOWS = {"unpack_modern": 512, "unpack_legacy": 64}
 
@@ -189,6 +196,17 @@ def _legacy_batch(rng, dev, past_end: bool):
         payload, bases, lengths, *rest, height=h, width=w)
 
 
+def _frame_rows(frames: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """(frames, 128) rows and (frames, 4) CFAs on `dev`: DEVELOP_PARAMS with
+    each frame's black levels shifted (frame 1's first below 0, so that its
+    raw 0 does not normalize to 0) and the four Bayer patterns in turn."""
+    black, white, neutral, fwd = DEVELOP_PARAMS
+    rows = np.concatenate([D.pack_develop_params(black + (-68 if f == 1 else 2 * f), white,
+                                                 neutral, fwd) for f in range(frames)])
+    cfas = np.array([D.BAYER_CFAS[f % 4] for f in range(frames)], np.int32)
+    return torch.from_numpy(rows).to(dev), torch.from_numpy(cfas).to(dev)
+
+
 def _inputs(dev) -> tuple[dict, dict]:
     """input -> (kernel, a call that launches it once on a clean frame):
     the negative cases' inputs, one a kernel and "develop ring"; and
@@ -202,17 +220,22 @@ def _inputs(dev) -> tuple[dict, dict]:
     raw = torch.from_numpy(_image(rng, *DEVELOP)).to(dev)
     ring = torch.from_numpy(_image(rng, *DEVELOP_RING)).to(dev)
     params = D.pack_develop_params(*DEVELOP_PARAMS)
+    batch = torch.from_numpy(_image(rng, DEVELOP_ROWS[0] * DEVELOP_ROWS[1], DEVELOP_ROWS[2])
+                             .reshape(DEVELOP_ROWS)).to(dev)
+    rows, cfas = _frame_rows(DEVELOP_ROWS[0], dev)
     x = torch.from_numpy(_image(rng, 256, 256)).to(dev)
     bits = torch.from_numpy(rng.integers(0, 1 << 16, size=OFFSETS_BLOCKS, dtype=np.uint16))
     bits = bits.to(dev)
     last = int(U.block_offsets(modern.bits, modern_tables(dev))[-1])
     cuts = {("unpack_modern", "words"): 4 * modern.words.numel() - last // 16 * 16,
-            ("develop", "params"): params.nbytes - 64}
+            ("develop", "params"): params.nbytes - 64,
+            ("develop", "rows"): rows.nbytes - 4 * ((len(rows) - 1) * rows.shape[1] + 16)}
     return {
         "unpack_modern": ("unpack_modern", lambda: U.unpack_modern(modern, mw, mh)),
         "unpack_legacy": ("unpack_legacy", lambda: L.unpack_legacy(legacy, lw, lh)),
         "develop": ("develop", lambda: D.develop_rgba_device(raw, params, cfa=BGGR)),
         "develop ring": ("develop", lambda: D.develop_rgba_device(ring, params, cfa=BGGR)),
+        "develop rows": ("develop", lambda: D.develop_rgba_device(batch, rows, cfa=cfas)),
         "checksum": ("checksum", lambda: C.device_checksum(x)),
         "block_offsets": ("block_offsets", lambda: O.block_offsets_device(bits)),
     }, cuts
@@ -245,6 +268,16 @@ def clean_cases(dev) -> list[tuple[str, str, Callable[[], torch.Tensor]]]:
     params = D.pack_develop_params(*DEVELOP_PARAMS)
     frames = torch.from_numpy(_image(rng, 3 * 5, 250).reshape(3, 5, 250)).to(dev)
     ring = torch.from_numpy(_image(rng, 3 * 66, 1024).reshape(3, 66, 1024)).to(dev)
+    rows, cfas = _frame_rows(4, dev)
+    ragged = torch.from_numpy(_image(rng, 4 * 5, 250).reshape(4, 5, 250)).to(dev)
+    boxes = torch.from_numpy(_image(rng, 4 * 66, 1024).reshape(4, 66, 1024)).to(dev)
+    for demosaic in D.DEMOSAICS:
+        cases.append((f"develop rows (4, 5, 250) {demosaic}", "develop",
+                      lambda m=demosaic: D.develop_rgba_device(ragged, rows, cfa=cfas,
+                                                               demosaic=m)))
+        cases.append((f"develop rows ring (4, 66, 1024) {demosaic}", "develop",
+                      lambda m=demosaic: D.develop_rgba_device(boxes, rows, cfa=cfas,
+                                                               demosaic=m)))
     for demosaic in D.DEMOSAICS:
         cases.append((f"develop (3, 5, 250) {demosaic}", "develop",
                       lambda m=demosaic: D.develop_rgba_device(frames, params, cfa=BGGR,
@@ -281,7 +314,8 @@ def negative(dev) -> tuple[list, dict, list]:
     for kernel, kind, buf, cut in NEGATIVE:
         cut = cuts[kernel, buf] if cut is None else cut
         row = {"kernel": kernel, "kind": kind, "buffer": buf, "bytes_cut": cut, "fired": False}
-        launch = inputs["develop ring" if (kernel, kind, buf) in RING_NEGATIVE else kernel][1]
+        launch = inputs["develop ring" if (kernel, kind, buf) in RING_NEGATIVE else
+                        "develop rows" if (kernel, kind, buf) in ROWS_NEGATIVE else kernel][1]
         try:
             with build.understate(kernel, **{buf: cut}):
                 launch()

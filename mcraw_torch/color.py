@@ -183,3 +183,103 @@ def interpolated_matrices(container_meta, neutral):
     xy = neutral_to_xy(neutral, cm1, cm2)
     g = _interp_weight(cct_from_xy(xy))
     return g * fm1 + (1.0 - g) * fm2, g * cm1 + (1.0 - g) * cm2, g
+
+
+# -- many white points at once --------------------------------------------------
+#
+# The functions above, element for element over arrays: the same float64
+# operations in the same order, so that each element equals the scalar
+# function's result bit for bit (tests/test_torch_multiview.py). A player
+# develops a frame of each clip a tick, each at its own as-shot neutral.
+
+
+def _cct_from_uv(u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """:func:`cct_from_xy` of each (u, v): Robertson's walk, every element
+    ending where its own walk ends."""
+    cct = np.full(u.shape, np.nan)
+    done = np.zeros(u.shape, bool)
+    last = len(_ROBERTSON) - 1
+    for i in range(1, len(_ROBERTSON)):
+        ri, ui, vi, ti = _ROBERTSON[i]
+        du, dv = u - ui, v - vi
+        dt = (dv - du * ti) / np.sqrt(1.0 + ti * ti)
+        if i == 1:
+            first = dt <= 0.0
+            cct[first] = 1e6 / max(_ROBERTSON[0, 0], 1e-9) if _ROBERTSON[0, 0] else 1e38
+            done |= first
+        hit = ~done & ((dt <= 0.0) | (i == last))
+        if hit.any():
+            rp, up, vp, tp = _ROBERTSON[i - 1]
+            dtp = ((v[hit] - vp) - (u[hit] - up) * tp) / np.sqrt(1.0 + tp * tp)
+            denom = dtp - dt[hit]
+            f = np.zeros(denom.shape)
+            nz = denom != 0.0
+            f[nz] = dtp[nz] / denom[nz]
+            f = np.minimum(np.maximum(f, 0.0), 1.0)
+            cct[hit] = 1e6 / np.maximum(rp + f * (ri - rp), 1e-9)
+            done |= hit
+        if done.all():
+            break
+    return cct
+
+
+def _interp_weights(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """:func:`_interp_weight` (:func:`cct_from_xy` (x, y)) of each white
+    point."""
+    d = 1.5 - x + 6.0 * y
+    cct = _cct_from_uv(2.0 * x / d, 3.0 * y / d)
+    lo, hi = sorted((CCT_ILLUM1, CCT_ILLUM2))
+    cct = np.minimum(np.maximum(cct, lo), hi)
+    g = (1.0 / cct - 1.0 / CCT_ILLUM2) / (1.0 / CCT_ILLUM1 - 1.0 / CCT_ILLUM2)
+    return np.minimum(np.maximum(g, 0.0), 1.0)
+
+
+def neutral_to_xy_batch(neutrals, cm1, cm2) -> np.ndarray:
+    """(n, 2) :func:`neutral_to_xy` of n neutrals (n, 3), each with its own
+    cm1, cm2 (n, 3, 3): the fixed point for all of them at once, each
+    element stopping where its own iteration stops."""
+    neutrals = np.asarray(neutrals, np.float64).reshape(-1, 3)
+    cm1 = np.asarray(cm1, np.float64).reshape(-1, 3, 3)
+    cm2 = np.asarray(cm2, np.float64).reshape(-1, 3, 3)
+    n = len(neutrals)
+    last = np.empty((n, 2))
+    last[:] = _D50_XY
+    out = last.copy()
+    live = np.arange(n)
+    for _ in range(30):
+        if not len(live):
+            return out
+        g = _interp_weights(last[live, 0], last[live, 1])[:, None, None]
+        m = g * cm1[live] + (1.0 - g) * cm2[live]
+        try:
+            xyz = np.linalg.solve(m, neutrals[live][:, :, None])[:, :, 0]
+        except np.linalg.LinAlgError:  # a singular matrix: the scalar function's own way
+            for k in live:
+                out[k] = neutral_to_xy(neutrals[k], cm1[k], cm2[k])
+            return out
+        s = xyz[:, 0] + xyz[:, 1] + xyz[:, 2]
+        bad = (s <= 0.0) | ~np.isfinite(s)
+        nxt = np.empty((len(live), 2))
+        nxt[:] = _D50_XY
+        ok = ~bad
+        nxt[ok, 0] = xyz[ok, 0] / s[ok]
+        nxt[ok, 1] = xyz[ok, 1] / s[ok]
+        step = np.abs(nxt[:, 0] - last[live, 0]) + np.abs(nxt[:, 1] - last[live, 1])
+        conv = step < 1e-7
+        out[live[conv]] = nxt[conv]
+        last[live] = nxt
+        out[live[~conv]] = nxt[~conv]
+        live = live[~conv]
+    return out
+
+
+def interpolated_forward_batch(neutrals, cm1, cm2, fm1, fm2) -> np.ndarray:
+    """(n, 3, 3) forward matrices of :func:`interpolated_matrices` for n
+    frames, each with its own neutral and its clip's matrices (all (n, 3)
+    or (n, 3, 3), float64): the matrices interpolated at each white point,
+    bit for bit the scalar function's."""
+    xy = neutral_to_xy_batch(neutrals, cm1, cm2)
+    g = _interp_weights(xy[:, 0], xy[:, 1])[:, None, None]
+    fm1 = np.asarray(fm1, np.float64).reshape(-1, 3, 3)
+    fm2 = np.asarray(fm2, np.float64).reshape(-1, 3, 3)
+    return g * fm1 + (1.0 - g) * fm2

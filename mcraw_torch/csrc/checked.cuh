@@ -73,6 +73,8 @@ enum Entry : int {
   kEntryBlockOffsets,
   kEntryBlockOffsetsBatch,
   kEntryDevelopRing,
+  kEntryDevelopRows,
+  kEntryDevelopRowsRing,
 };
 enum Kind : int { kLoad = 0, kCpAsync, kStore, kShared, kHost, kKinds };
 // The record: kRecordWords int64 (kernels/build.py RECORD).

@@ -39,6 +39,13 @@
 //     while it develops the current one. A tile whose staged rectangle lies
 //     inside its frame (all but the border tiles) takes a path without
 //     bounds tests.
+// - A launch takes one parameter row and one CFA for all its frames (by
+//   value: the CFA a template argument, the parameters constants of the
+//   instructions), or a row and a CFA for each frame (FrameRows, in device
+//   memory; the mcraw_develop_rows* entries): a block then reads a frame's
+//   row when its walk reaches the frame and develops the frame's tiles in
+//   the loop of the frame's CFA, so each frame's output is bit for bit
+//   that of a one-row launch of the frame alone.
 // - Integer <-> float conversions issue at 1/8 of the float rate on this
 //   card, so there are none per value: a raw value becomes a float by a
 //   byte permute and an exact subtract, a bucket index is read off the
@@ -96,7 +103,8 @@ namespace {
 
 // The buffers of the checked build (kernels/build.py BUFFERS), in order:
 // the entry's buffers (params, cfa and the ring's tensor map in host
-// memory), then the kernels' shared arrays.
+// memory), then the kernels' shared arrays, then the per-frame launch's
+// row and CFA blocks (device memory).
 enum Buffer : int {
   kBufRaw,
   kBufOut,
@@ -107,6 +115,8 @@ enum Buffer : int {
   kBufSQ,
   kBufMap,
   kBufSRing,
+  kBufRows,
+  kBufCfas,
 };
 
 constexpr int kTileW = 64;                 // output pixels per block, across
@@ -144,6 +154,11 @@ constexpr int kStagePitch = (kBoxBytes + 127) / 128 * 128;
 constexpr int kRingStages = 4;
 constexpr int kRingBlocks = 3;                      // blocks an SM
 constexpr int kRingThreads = kThreads + 32;         // the developing warps and the producer
+// Blocks an SM of a per-frame launch (both paths): 2, not 3, leaves
+// registers for the frame's parameters (at 3, with 72 registers, both
+// paths spill: a UHD batch of 8 took 0.325-0.341 ms against 0.266 for one
+// row; at 2, 0.277-0.285; python -m mcraw_torch.kernel_ab on an H100).
+constexpr int kRowsBlocks = 2;
 constexpr int64_t kRingBytes = int64_t{kRingStages} * kStagePitch;
 // A ring block's dynamic shared memory: the ring, the float tile, the
 // quantizer, the barriers.
@@ -161,6 +176,24 @@ struct DevelopParams {
   float gain[3];       // 1 / as_shot_neutral, per channel (bilinear)
   float m[9];          // XYZ(D50)->sRGB @ forward matrix, row-major
 };  // by value (__grid_constant__): static indices compile to constant loads
+
+// A per-frame launch's parameters, in device memory: frame f's row of
+// kernels/develop.py::pack_develop_params at rows + f * row_stride floats
+// and its CFA (4 int32 channels) at cfas + f * cfa_stride: a row and a CFA
+// of each frame's own (rows_fit).
+struct FrameRows {
+  const float* rows;
+  const int32_t* cfas;
+  int64_t row_stride, cfa_stride;
+};
+
+constexpr int kRowFloats = 17;  // b0..b3, white, g0..g2, m00..m22
+
+// Whether the strides give each of `frames` frames a row and a CFA of its
+// own (a launch of one frame reads only the first).
+inline bool rows_fit(int64_t frames, int64_t row_stride, int64_t cfa_stride) {
+  return frames == 1 || (row_stride >= kRowFloats && cfa_stride >= 4);
+}
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -196,6 +229,18 @@ struct Cfa {
     return C0 == c ? 0 : (C1 == c ? 1 : (C2 == c ? 2 : 3));
   }
 };
+
+// The Bayer pattern of 4 channels (0 R, 1 G, 2 B, row-major over the 2x2
+// sites): 0 rggb, 1 bggr, 2 grbg, 3 gbrg, -1 another pattern.
+__host__ __device__ __forceinline__ int bayer_index(const int32_t* cfa) {
+  switch (((cfa[0] * 3 + cfa[1]) * 3 + cfa[2]) * 3 + cfa[3]) {
+    case ((0 * 3 + 1) * 3 + 1) * 3 + 2: return 0;
+    case ((2 * 3 + 1) * 3 + 1) * 3 + 0: return 1;
+    case ((1 * 3 + 0) * 3 + 2) * 3 + 1: return 2;
+    case ((1 * 3 + 2) * 3 + 0) * 3 + 1: return 3;
+    default: return -1;
+  }
+}
 
 // The window w[6][8] of a thread: rows y - 2 .. y + 3 and columns
 // x - 2 .. x + 5 around its first output (y, x), both even. Output
@@ -393,6 +438,133 @@ __device__ __forceinline__ void develop_tile(const DevelopParams& p, const float
   }
 }
 
+// -- where a tile's parameters come from ----------------------------------------
+
+// A frame whose CFA is not a Bayer pattern: its tiles are written as 0.
+struct NoCfa {};
+
+// Writes 0 over the thread's two 2x2 quads of the tile at (y0, x0).
+__device__ __forceinline__ void clear_tile(uint32_t* __restrict__ frame_out, int y0, int x0,
+                                           int height, int width MCRAW_CK_PARAM) {
+  const int x = x0 + 4 * static_cast<int>(threadIdx.x % kThreadsX);
+  const int y = y0 + 2 * static_cast<int>(threadIdx.x / kThreadsX);
+#pragma unroll
+  for (int oy = 0; oy < 2; ++oy) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (y + oy < height && x + e < width) {
+        MCRAW_ST(kBufOut, frame_out + static_cast<int64_t>(y + oy) * width + x, e, 0u);
+      }
+    }
+  }
+}
+
+// The staged tile at (y0, x0) developed with CFA P (cleared for NoCfa).
+template <class P, bool kMalvar>
+__device__ __forceinline__ void develop_or_clear(const DevelopParams& p,
+                                                 const float (*tile)[kRowW],
+                                                 uint32_t* __restrict__ frame_out, int y0,
+                                                 int x0, int height, int width,
+                                                 const uint2* q MCRAW_CK_PARAM) {
+  if constexpr (std::is_same_v<P, NoCfa>) {
+    clear_tile(frame_out, y0, x0, height, width MCRAW_CK);
+  } else {
+    develop_tile<P, kMalvar>(p, tile, tile, kTileBytes, frame_out, y0, x0, height, width,
+                             q MCRAW_CK);
+  }
+}
+
+// A block's tiles and their parameters: walk(tile, tiles, frame_of, step)
+// calls step(P{}, params) once a tile, tile += gridDim.x, while tile <
+// tiles; frame_of() is the frame of the next tile.
+//
+// One row for the launch: the kernel's by-value parameters and the CFA P,
+// a template argument.
+template <class P>
+struct OneRow {
+  const DevelopParams& row;
+
+  // The host takes the ring for one row only where raw 0 normalizes to 0.
+  __device__ __forceinline__ constexpr bool masked(int, int, int, int) const { return false; }
+  template <class FrameOf, class Step>
+  __device__ __forceinline__ void walk(int& tile, int tiles, FrameOf&&,
+                                       Step&& step MCRAW_CK_PARAM) const {
+    while (tile < tiles) step(P{}, row);
+  }
+};
+
+// A row for each frame (FrameRows): the block's walk goes a frame at a
+// time (the tiles are frame-major); at each frame it reads the frame's row
+// and CFA, makes the parameters as pack_params makes the one-row launch's,
+// and walks the frame's tiles in a loop of the CFA's own instantiation,
+// picked by a branch uniform over the block, the parameters fixed in it.
+// They are registers there, where the one-row launch's are constants: the
+// per-frame kernels take kRowsBlocks blocks an SM, so that they do not
+// spill.
+struct PerFrame {
+  const FrameRows& rows;
+  int cfa = -1;           // 0 rggb, 1 bggr, 2 grbg, 3 gbrg; -1 another pattern
+  bool zero_fill = true;  // raw 0 normalizes to 0 on every site
+  DevelopParams row;
+
+  __device__ __forceinline__ void at(int f MCRAW_CK_PARAM) {
+    const int64_t r0 = f * rows.row_stride, c0 = f * rows.cfa_stride;
+    float v[kRowFloats];
+#pragma unroll
+    for (int i = 0; i < kRowFloats; ++i) v[i] = MCRAW_LDG(kBufRows, rows.rows, r0 + i);
+    int32_t c[4];
+    bool valid = true, exact = true;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[k] = MCRAW_LDG(kBufCfas, rows.cfas, c0 + k);
+      valid = valid && c[k] >= 0 && c[k] <= 2;
+    }
+    const float white = v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float diff = white - v[k];
+      // kernels/develop.py::zero_fill_exact
+      exact = exact && v[k] >= 0.f && diff >= 1.17549435e-38f && diff < __int_as_float(0x7F800000);
+      row.black[k] = v[k];
+      row.inv_scale[k] = 1.f / diff;
+      row.gain_site[k] = c[k] == 0 ? v[5] : (c[k] == 1 ? v[6] : v[7]);
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) row.gain[ch] = v[5 + ch];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) row.m[i] = v[8 + i];
+    cfa = valid ? bayer_index(c) : -1;
+    zero_fill = exact;
+  }
+  // Whether the ring must stage the tile at (y0, x0) with bounds tests:
+  // the frame's raw 0 does not normalize to 0 and the tile's box reaches
+  // past the frame, where the hardware fills raw 0.
+  __device__ __forceinline__ bool masked(int y0, int x0, int height, int width) const {
+    return !zero_fill && (y0 < kHalo || x0 < kHalo || y0 + kTileH + kHalo > height ||
+                          x0 + kTileW + kHalo > width);
+  }
+  template <class FrameOf, class Step>
+  __device__ __forceinline__ void walk(int& tile, int tiles, FrameOf&& frame_of,
+                                       Step&& step MCRAW_CK_PARAM) {
+    while (tile < tiles) {
+      const int f = frame_of();
+      at(f MCRAW_CK);
+      auto run = [&](auto cfa) {
+        do {
+          step(cfa, row);
+        } while (tile < tiles && frame_of() == f);
+      };
+      switch (cfa) {
+        case 0: run(Cfa<0, 1, 1, 2>{}); break;
+        case 1: run(Cfa<2, 1, 1, 0>{}); break;
+        case 2: run(Cfa<1, 0, 2, 1>{}); break;
+        case 3: run(Cfa<1, 2, 0, 1>{}); break;
+        default: run(NoCfa{}); break;
+      }
+    }
+  }
+};
+
 // A block's walk over tiles blockIdx.x, + gridDim.x, ... (frame-major,
 // then rows of tiles): it steps its (frame, tile row, tile column) by the
 // grid's (rows, columns), so no division is left in the loop but at a
@@ -545,15 +717,15 @@ __device__ __forceinline__ void stage_tile(const DevelopParams& p, int y0, int x
 
 // A persistent grid: each block walks tiles blockIdx.x, + gridDim.x, ...
 // (frame-major, then rows of tiles), loading the next tile's raw values
-// while it develops the current one. The quantizer table (in device
-// memory) is copied to shared memory once.
-template <class P, bool kMalvar>
-__global__ void __launch_bounds__(kThreads, 3)
-    develop_kernel(const uint16_t* __restrict__ raw, uint32_t* __restrict__ out, int height,
-                   int width, int tiles_x, int tiles_y, int tiles,
-                   const uint2* __restrict__ quantizer,
-                   const __grid_constant__ DevelopParams p MCRAW_CK_KERNEL_PARAM) {
-  MCRAW_CK_KERNEL_INIT
+// while it develops the current one, with each tile's parameters from
+// `rows` (OneRow or PerFrame). The quantizer table (in device memory) is
+// copied to shared memory once.
+template <bool kMalvar, class Rows>
+__device__ __forceinline__ void develop_direct(const uint16_t* __restrict__ raw,
+                                               uint32_t* __restrict__ out, int height,
+                                               int width, int tiles_x, int tiles_y, int tiles,
+                                               const uint2* __restrict__ quantizer,
+                                               Rows& rows MCRAW_CK_PARAM) {
   __shared__ __align__(16) float s_tile[kRows][kRowW];
   __shared__ uint2 s_q[kQuantizer];
 
@@ -585,7 +757,9 @@ __global__ void __launch_bounds__(kThreads, 3)
   uint2 cur[kQuadSteps];
   TileAt t = at();
   load(t, cur);
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  int tile = blockIdx.x;
+  auto step = [&](auto cfa, const DevelopParams& p) {
+    using P = decltype(cfa);
     if (t.interior) {
       stage_tile<kMalvar, true>(p, t.y0, t.x0, height, width, sy, sx, cur, s_tile MCRAW_CK);
     } else {
@@ -598,10 +772,38 @@ __global__ void __launch_bounds__(kThreads, 3)
       t = at();
       load(t, cur);
     }
-    develop_tile<P, kMalvar>(p, s_tile, s_tile, kTileBytes, out + frame * plane, y0, x0,
-                             height, width, s_q MCRAW_CK);
+    develop_or_clear<P, kMalvar>(p, s_tile, out + frame * plane, y0, x0, height, width,
+                                 s_q MCRAW_CK);
     __syncthreads();  // the tile is restaged next
-  }
+    tile += gridDim.x;
+  };
+  rows.walk(tile, tiles, [&] { return t.f; }, step MCRAW_CK);
+}
+
+// The direct path with one row for the launch, of CFA P.
+template <class P, bool kMalvar>
+__global__ void __launch_bounds__(kThreads, 3)
+    develop_kernel(const uint16_t* __restrict__ raw, uint32_t* __restrict__ out, int height,
+                   int width, int tiles_x, int tiles_y, int tiles,
+                   const uint2* __restrict__ quantizer,
+                   const __grid_constant__ DevelopParams p MCRAW_CK_KERNEL_PARAM) {
+  MCRAW_CK_KERNEL_INIT
+  OneRow<P> rows{p};
+  develop_direct<kMalvar>(raw, out, height, width, tiles_x, tiles_y, tiles, quantizer,
+                          rows MCRAW_CK);
+}
+
+// The direct path with a row and a CFA for each frame.
+template <bool kMalvar>
+__global__ void __launch_bounds__(kThreads, kRowsBlocks)
+    develop_kernel(const uint16_t* __restrict__ raw, uint32_t* __restrict__ out, int height,
+                   int width, int tiles_x, int tiles_y, int tiles,
+                   const uint2* __restrict__ quantizer,
+                   const __grid_constant__ FrameRows frame_rows MCRAW_CK_KERNEL_PARAM) {
+  MCRAW_CK_KERNEL_INIT
+  PerFrame rows{frame_rows};
+  develop_direct<kMalvar>(raw, out, height, width, tiles_x, tiles_y, tiles, quantizer,
+                          rows MCRAW_CK);
 }
 
 // -- the ring path ---------------------------------------------------------------
@@ -661,18 +863,30 @@ __device__ __forceinline__ void developers_sync() {
 // Normalizes one ring stage (the box's raw uint16, rows of kBoxW, staged
 // column 0 at box column kBoxX0 - kHalo) into the float tile: every value
 // as stage_tile normalizes one inside its frame. The box holds raw 0
-// outside the frame, and the host takes this path only where raw 0
+// outside the frame. A one-row launch takes this path only where raw 0
 // normalizes to 0 on every site, so that is what is staged there, as on
-// the direct path.
-template <bool kMalvar>
+// the direct path; kMasked (a per-frame launch's frame where it does not,
+// at a tile whose box reaches past the frame) stages 0 there by bounds
+// tests against the tile at (y0, x0), as stage_tile does.
+template <bool kMalvar, bool kMasked = false>
 __device__ __forceinline__ void stage_ring(const DevelopParams& p, const uint16_t* stage,
                                            const void* ring_base, const int (&sy)[kQuadSteps],
                                            const int (&sx)[kQuadSteps],
-                                           float (*tile)[kRowW] MCRAW_CK_PARAM) {
-  constexpr bool in[4] = {true, true, true, true};
+                                           float (*tile)[kRowW], int y0, int x0, int height,
+                                           int width MCRAW_CK_PARAM) {
 #pragma unroll
   for (int k = 0; k < kQuadSteps; ++k) {
     if (sy[k] >= kRows) break;
+    bool in[4] = {true, true, true, true};
+    if constexpr (kMasked) {
+      const int gy = y0 - kHalo + sy[k];
+      const int gx = x0 - kHalo + sx[k];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        in[e] = static_cast<unsigned>(gy) < static_cast<unsigned>(height) &&
+                static_cast<unsigned>(gx + e) < static_cast<unsigned>(width);
+      }
+    }
     // 4-byte aligned: two pairs
     const uint32_t* pairs = reinterpret_cast<const uint32_t*>(
         stage + sy[k] * kBoxW + (kBoxX0 - kHalo) + sx[k]);
@@ -695,13 +909,12 @@ namespace ring {
 // developing warps have released it; they wait on the stage's full
 // barrier, normalize it into the float tile, release the stage, meet at
 // their own barrier, develop the tile and meet again before restaging it.
-template <class P, bool kMalvar>
-__global__ void __launch_bounds__(kRingThreads, kRingBlocks)
-    develop_kernel(const __grid_constant__ CUtensorMap map, uint32_t* __restrict__ out,
-                   int height, int width, int tiles_x, int tiles_y, int tiles,
-                   const uint2* __restrict__ quantizer,
-                   const __grid_constant__ DevelopParams p MCRAW_CK_KERNEL_PARAM) {
-  MCRAW_CK_KERNEL_INIT
+// Each tile's parameters come from `rows` (OneRow or PerFrame).
+template <bool kMalvar, class Rows>
+__device__ __forceinline__ void develop_ring(const CUtensorMap& map, uint32_t* __restrict__ out,
+                                             int height, int width, int tiles_x, int tiles_y,
+                                             int tiles, const uint2* __restrict__ quantizer,
+                                             Rows& rows MCRAW_CK_PARAM) {
   extern __shared__ __align__(128) unsigned char s_smem[];
   uint16_t* s_ring = reinterpret_cast<uint16_t*>(s_smem);
   auto s_tile = reinterpret_cast<float (*)[kRowW]>(s_smem + kRingBytes);
@@ -754,49 +967,110 @@ __global__ void __launch_bounds__(kRingThreads, kRingBlocks)
   staged_places(sy, sx);
   int stage = 0;
   uint32_t phase = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  int tile = blockIdx.x;
+  auto step = [&](auto cfa, const DevelopParams& p) {
+    using P = decltype(cfa);
     bar_wait(full + stage, phase);
-    stage_ring<kMalvar>(p, s_ring + stage * (kStagePitch / 2), s_ring, sy, sx,
-                        s_tile MCRAW_CK);
+    const uint16_t* box = s_ring + stage * (kStagePitch / 2);
+    if (rows.masked(walk.y0(), walk.x0(), height, width)) {
+      stage_ring<kMalvar, true>(p, box, s_ring, sy, sx, s_tile, walk.y0(), walk.x0(), height,
+                                width MCRAW_CK);
+    } else {
+      stage_ring<kMalvar>(p, box, s_ring, sy, sx, s_tile, 0, 0, 0, 0 MCRAW_CK);
+    }
     bar_arrive(empty + stage);
     developers_sync();  // every value of the float tile is staged
-    develop_tile<P, kMalvar>(p, s_tile, s_tile, kTileBytes, out + walk.f * plane, walk.y0(),
-                             walk.x0(), height, width, s_q MCRAW_CK);
+    develop_or_clear<P, kMalvar>(p, s_tile, out + walk.f * plane, walk.y0(), walk.x0(), height,
+                                 width, s_q MCRAW_CK);
     walk.advance();
     developers_sync();  // every thread is past the tile, which is restaged next
     if (++stage == kRingStages) {
       stage = 0;
       phase ^= 1;
     }
-  }
+    tile += gridDim.x;
+  };
+  rows.walk(tile, tiles, [&] { return walk.f; }, step MCRAW_CK);
+}
+
+// The ring with one row for the launch, of CFA P.
+template <class P, bool kMalvar>
+__global__ void __launch_bounds__(kRingThreads, kRingBlocks)
+    develop_kernel(const __grid_constant__ CUtensorMap map, uint32_t* __restrict__ out,
+                   int height, int width, int tiles_x, int tiles_y, int tiles,
+                   const uint2* __restrict__ quantizer,
+                   const __grid_constant__ DevelopParams p MCRAW_CK_KERNEL_PARAM) {
+  MCRAW_CK_KERNEL_INIT
+  OneRow<P> rows{p};
+  develop_ring<kMalvar>(map, out, height, width, tiles_x, tiles_y, tiles, quantizer,
+                        rows MCRAW_CK);
+}
+
+// The ring with a row and a CFA for each frame.
+template <bool kMalvar>
+__global__ void __launch_bounds__(kRingThreads, kRowsBlocks)
+    develop_kernel(const __grid_constant__ CUtensorMap map, uint32_t* __restrict__ out,
+                   int height, int width, int tiles_x, int tiles_y, int tiles,
+                   const uint2* __restrict__ quantizer,
+                   const __grid_constant__ FrameRows frame_rows MCRAW_CK_KERNEL_PARAM) {
+  MCRAW_CK_KERNEL_INIT
+  PerFrame rows{frame_rows};
+  develop_ring<kMalvar>(map, out, height, width, tiles_x, tiles_y, tiles, quantizer,
+                        rows MCRAW_CK);
 }
 
 }  // namespace ring
 
 // -- the entries -----------------------------------------------------------------
 
+// A launch's kernels, direct and ring: one row of CFA P (the argument a
+// DevelopParams), or a row and a CFA for each frame (P FrameCfa, the
+// argument a FrameRows).
+struct FrameCfa {};
+
 template <class P, bool kMalvar>
-cudaError_t launch_direct(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x,
-                          int tiles_y, int tiles, const uint2* quantizer,
-                          const DevelopParams& p, cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, develop_kernel<P, kMalvar>, kThreads,
-                                                0);
-  const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
-  const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);  // tiles < 2^31
-  develop_kernel<P, kMalvar><<<grid, kThreads, 0, s>>>(
-      raw, out, h, w, tiles_x, tiles_y, tiles, quantizer,
-      p MCRAW_CK_LAUNCH(mcraw_check::kDevelop, mcraw_check::kEntryDevelop));
-  return cudaGetLastError();
+auto direct_kernel() {
+  if constexpr (std::is_same_v<P, FrameCfa>) {
+    return develop_kernel<kMalvar>;
+  } else {
+    return develop_kernel<P, kMalvar>;
+  }
 }
 
 template <class P, bool kMalvar>
+auto ring_kernel() {
+  if constexpr (std::is_same_v<P, FrameCfa>) {
+    return ring::develop_kernel<kMalvar>;
+  } else {
+    return ring::develop_kernel<P, kMalvar>;
+  }
+}
+
+template <class P, bool kMalvar, class Arg>
+cudaError_t launch_direct(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x,
+                          int tiles_y, int tiles, const uint2* quantizer, const Arg& arg,
+                          cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
+  const auto kernel = direct_kernel<P, kMalvar>();
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);  // tiles < 2^31
+  kernel<<<grid, kThreads, 0, s>>>(
+      raw, out, h, w, tiles_x, tiles_y, tiles, quantizer,
+      arg MCRAW_CK_LAUNCH(mcraw_check::kDevelop,
+                          (std::is_same_v<P, FrameCfa> ? mcraw_check::kEntryDevelopRows
+                                                       : mcraw_check::kEntryDevelop)));
+  return cudaGetLastError();
+}
+
+template <class P, bool kMalvar, class Arg>
 cudaError_t launch_ring(const CUtensorMap& map, uint32_t* out, int h, int w, int tiles_x,
-                        int tiles_y, int tiles, const uint2* quantizer, const DevelopParams& p,
+                        int tiles_y, int tiles, const uint2* quantizer, const Arg& arg,
                         cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
   constexpr int64_t smem_bytes = kRingSmemBytes;
+  const auto kernel = ring_kernel<P, kMalvar>();
   // The persistent grid on each device, 0 until the first launch there,
   // which also lets the kernel have its dynamic shared memory.
   static int caps[kMaxDevices];
@@ -805,19 +1079,19 @@ cudaError_t launch_ring(const CUtensorMap& map, uint32_t* out, int h, int w, int
   int cap = dev < kMaxDevices ? caps[dev] : 0;
   if (cap == 0) {
     int sms = 0, per_sm = 0;
-    cudaFuncSetAttribute(ring::develop_kernel<P, kMalvar>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem_bytes));
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring::develop_kernel<P, kMalvar>,
-                                                  kRingThreads, smem_bytes);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRingThreads, smem_bytes);
     cap = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
     if (dev < kMaxDevices) caps[dev] = cap;
   }
   const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);
-  ring::develop_kernel<P, kMalvar><<<grid, kRingThreads, smem_bytes, s>>>(
+  kernel<<<grid, kRingThreads, smem_bytes, s>>>(
       map, out, h, w, tiles_x, tiles_y, tiles, quantizer,
-      p MCRAW_CK_LAUNCH(mcraw_check::kDevelop, mcraw_check::kEntryDevelopRing));
+      arg MCRAW_CK_LAUNCH(mcraw_check::kDevelop,
+                          (std::is_same_v<P, FrameCfa> ? mcraw_check::kEntryDevelopRowsRing
+                                                       : mcraw_check::kEntryDevelopRing)));
   return cudaGetLastError();
 }
 
@@ -840,17 +1114,12 @@ bool pack_params(const float* params, const int32_t* cfa, DevelopParams* p) {
 // for another pattern.
 template <class Launch>
 cudaError_t with_cfa(const int32_t* cfa, Launch&& launch) {
-  switch (((cfa[0] * 3 + cfa[1]) * 3 + cfa[2]) * 3 + cfa[3]) {
-    case ((0 * 3 + 1) * 3 + 1) * 3 + 2:  // rggb
-      return launch(Cfa<0, 1, 1, 2>{});
-    case ((2 * 3 + 1) * 3 + 1) * 3 + 0:  // bggr
-      return launch(Cfa<2, 1, 1, 0>{});
-    case ((1 * 3 + 0) * 3 + 2) * 3 + 1:  // grbg
-      return launch(Cfa<1, 0, 2, 1>{});
-    case ((1 * 3 + 2) * 3 + 0) * 3 + 1:  // gbrg
-      return launch(Cfa<1, 2, 0, 1>{});
-    default:
-      return cudaErrorInvalidValue;
+  switch (bayer_index(cfa)) {
+    case 0: return launch(Cfa<0, 1, 1, 2>{});
+    case 1: return launch(Cfa<2, 1, 1, 0>{});
+    case 2: return launch(Cfa<1, 0, 2, 1>{});
+    case 3: return launch(Cfa<1, 2, 0, 1>{});
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -964,6 +1233,37 @@ extern "C" int mcraw_develop_map(void* map, const void* base, const int64_t* dim
   return err;
 }
 
+#ifdef MCRAW_CHECKED
+namespace {
+
+// The checked build's test of a ring entry's map: it must be the map that
+// mcraw_develop_map encodes from raw and its shape; else a host fault on
+// map, and false.
+bool map_matches(const void* map, const uint16_t* raw, int64_t frames, int64_t height,
+                 int64_t width, int entry, mcraw_check::Args* check_args) {
+  const cuuint64_t d[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(height),
+                           static_cast<cuuint64_t>(frames)};
+  const cuuint64_t st[2] = {static_cast<cuuint64_t>(2 * width),
+                            static_cast<cuuint64_t>(2 * width * height)};
+  const cuuint32_t b[3] = {kBoxW, kRows, 1};
+  CUtensorMap want;
+  std::memset(&want, 0, sizeof want);
+  const int err = encode_u16_map(&want, raw, d, st, b);
+  const unsigned char* got = static_cast<const unsigned char*>(map);
+  const unsigned char* ref = reinterpret_cast<const unsigned char*>(&want);
+  int64_t at = err != 0 ? 0 : -1;
+  for (int64_t i = 0; at < 0 && i < static_cast<int64_t>(sizeof want); ++i) {
+    if (got[i] != ref[i]) at = i;
+  }
+  if (at < 0) return true;
+  mcraw_check::host_fault(check_args, mcraw_check::kDevelop, entry, kBufMap,
+                          mcraw_check::kHost, at, sizeof want);
+  return false;
+}
+
+}  // namespace
+#endif
+
 // As mcraw_develop, on the ring path, with `map` (host memory, 128 bytes)
 // the tensor map of `raw` that mcraw_develop_map encoded: the caller takes
 // this entry only where width % 8 == 0, raw is 16-byte aligned and raw 0
@@ -993,26 +1293,9 @@ extern "C" int mcraw_develop_ring(const uint16_t* raw, uint32_t* out, int64_t fr
   alignas(64) CUtensorMap m;
   std::memcpy(&m, map, sizeof m);
 #ifdef MCRAW_CHECKED
-  {
-    const cuuint64_t d[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(height),
-                             static_cast<cuuint64_t>(frames)};
-    const cuuint64_t st[2] = {static_cast<cuuint64_t>(2 * width),
-                              static_cast<cuuint64_t>(2 * width * height)};
-    const cuuint32_t b[3] = {kBoxW, kRows, 1};
-    CUtensorMap want;
-    std::memset(&want, 0, sizeof want);
-    const int err = encode_u16_map(&want, raw, d, st, b);
-    const unsigned char* got = static_cast<const unsigned char*>(map);
-    const unsigned char* ref = reinterpret_cast<const unsigned char*>(&want);
-    int64_t at = err != 0 ? 0 : -1;
-    for (int64_t i = 0; at < 0 && i < static_cast<int64_t>(sizeof want); ++i) {
-      if (got[i] != ref[i]) at = i;
-    }
-    if (at >= 0) {
-      mcraw_check::host_fault(check_args, mcraw_check::kDevelop, mcraw_check::kEntryDevelopRing,
-                              kBufMap, mcraw_check::kHost, at, sizeof want);
-      return 0;
-    }
+  if (!map_matches(map, raw, frames, height, width, mcraw_check::kEntryDevelopRing,
+                   check_args)) {
+    return 0;
   }
 #endif
   DevelopParams p;
@@ -1027,4 +1310,74 @@ extern "C" int mcraw_develop_ring(const uint16_t* raw, uint32_t* out, int64_t fr
                        : launch_ring<P, false>(m, out, h, w, tx, ty, tiles, quantizer, p,
                                                s MCRAW_CK_ENTRY);
   }));
+}
+
+// As mcraw_develop, with a row and a CFA for each frame, in device memory:
+// frame f's pack_develop_params row (at least 17 floats) at rows + f *
+// row_stride floats, its 4 int32 channels at cfas + f * cfa_stride
+// (rows_fit, else cudaErrorInvalidValue). Each frame's output is bit
+// for bit mcraw_develop's of that frame alone with its own row and CFA. A
+// frame whose CFA is not one of the four Bayer patterns is not developed:
+// the caller checks the CFAs it uploads. The checked build holds each
+// frame's reads of both blocks to their extents.
+extern "C" int mcraw_develop_rows(const uint16_t* raw, uint32_t* out, int64_t frames,
+                                  int64_t height, int64_t width, const float* rows,
+                                  int64_t row_stride, const int32_t* cfas, int64_t cfa_stride,
+                                  const uint2* quantizer, int32_t malvar,
+                                  void* stream MCRAW_CK_ENTRY_PARAM) {
+  if (frames <= 0 || height <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
+  int tx = 0, ty = 0, tiles = 0;
+  if (!tiling(frames, height, width, &tx, &ty, &tiles) ||
+      !rows_fit(frames, row_stride, cfa_stride)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const FrameRows r{rows, cfas, row_stride, cfa_stride};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int h = static_cast<int>(height);
+  const int w = static_cast<int>(width);
+  return static_cast<int>(
+      malvar != 0
+          ? launch_direct<FrameCfa, true>(raw, out, h, w, tx, ty, tiles, quantizer, r,
+                                          s MCRAW_CK_ENTRY)
+          : launch_direct<FrameCfa, false>(raw, out, h, w, tx, ty, tiles, quantizer, r,
+                                           s MCRAW_CK_ENTRY));
+}
+
+// As mcraw_develop_rows, on the ring path, with `map` as for
+// mcraw_develop_ring (width % 8 == 0 and raw 16-byte aligned, else
+// cudaErrorInvalidValue). It takes any row: a frame whose raw 0 does not
+// normalize to 0 stages its border tiles with bounds tests.
+extern "C" int mcraw_develop_rows_ring(const uint16_t* raw, uint32_t* out, int64_t frames,
+                                       int64_t height, int64_t width, const float* rows,
+                                       int64_t row_stride, const int32_t* cfas,
+                                       int64_t cfa_stride, const uint2* quantizer,
+                                       int32_t malvar, const void* map,
+                                       void* stream MCRAW_CK_ENTRY_PARAM) {
+  if (frames <= 0 || height <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
+  int tx = 0, ty = 0, tiles = 0;
+  if (!tiling(frames, height, width, &tx, &ty, &tiles) || width % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(raw) % 16 != 0 || !rows_fit(frames, row_stride, cfa_stride)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  MCRAW_CK_HOST(mcraw_check::kDevelop, mcraw_check::kEntryDevelopRowsRing, kBufMap, kHost,
+                static_cast<int64_t>(sizeof(CUtensorMap)))
+  MCRAW_CK_HOST(mcraw_check::kDevelop, mcraw_check::kEntryDevelopRowsRing, kBufRaw, kCpAsync,
+                frames * height * width * static_cast<int64_t>(sizeof(uint16_t)))
+  alignas(64) CUtensorMap m;
+  std::memcpy(&m, map, sizeof m);
+#ifdef MCRAW_CHECKED
+  if (!map_matches(map, raw, frames, height, width, mcraw_check::kEntryDevelopRowsRing,
+                   check_args)) {
+    return 0;
+  }
+#endif
+  const FrameRows r{rows, cfas, row_stride, cfa_stride};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int h = static_cast<int>(height);
+  const int w = static_cast<int>(width);
+  return static_cast<int>(
+      malvar != 0 ? launch_ring<FrameCfa, true>(m, out, h, w, tx, ty, tiles, quantizer, r,
+                                                s MCRAW_CK_ENTRY)
+                  : launch_ring<FrameCfa, false>(m, out, h, w, tx, ty, tiles, quantizer, r,
+                                                 s MCRAW_CK_ENTRY));
 }

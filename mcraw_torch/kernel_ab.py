@@ -13,6 +13,8 @@ e0e1669 and later). A variant is a full copy of today's ``csrc`` with an
 edit (same entry points), for a diagnostic or a candidate. Every library
 is built with the same flags. Each kernel is timed at a 4096x3072 12-bit
 frame, the develop also at the grade step's batch of 8 3840x2160 frames
+(and there with a row and a CFA for each frame, beside the one-row launch
+of the same frames, where a build has the per-frame entry)
 (CUDA-event median of n launches, the 50 MB L2 flushed before each
 by writing 256 MB, as chip_smoke.py does, and again by reading them) in
 the order old, new, variants, the variants again in reverse, new, old:
@@ -32,7 +34,8 @@ the new kernel's bit for bit, and which path (the ``develop.ring`` and
 a call. Prints one JSON line per result, the card's name and power limit
 first, the ``-Xptxas -v`` lines of every build, and which kernel functions
 compile to the same SASS in the old and the new build (``cuobjdump
--sass``, each function's name without its anonymous-namespace hash).
+-sass``, each function's name without its anonymous-namespace hash), with
+the instruction counts of those that do not.
 Needs one card.
 """
 
@@ -282,6 +285,76 @@ def ab_develop(libs: dict, dev, n: int) -> None:
             del outs, results, got, plain
 
 
+def frame_rows(frames: int, seed: int = 19) -> tuple[np.ndarray, np.ndarray]:
+    """(frames, 128) rows and (frames, 4) CFAs of a multiview step: each
+    frame its own black levels in [56, 72], neutral and forward matrix, the
+    four Bayer patterns in turn."""
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([D.pack_develop_params(
+        rng.integers(56, 73, 4).astype(np.float32), 4095.0,
+        np.array([rng.uniform(0.4, 0.9), 1.0, rng.uniform(0.4, 0.9)], np.float32),
+        (np.diag([0.9642, 1.0, 0.8249]) + rng.normal(0, 0.05, (3, 3))).astype(np.float32))
+        for _ in range(frames)])
+    cfas = np.array([D.BAYER_CFAS[f % 4] for f in range(frames)], np.int32)
+    return rows, cfas
+
+
+def ab_develop_rows(libs: dict, dev, n: int) -> None:
+    """The per-frame develop at the grade step's batch (8 UHD frames, a row
+    and a CFA each), timed beside the one-row launch of the same frames
+    (row 0, CFA 0 for all) in the same turns; each output held to single
+    calls with each frame's own row and CFA."""
+    frames, h, w = DEVELOP_SHAPES[-1]
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(np.stack([twelve_bit(rng, k, h, w) for k in range(frames)])).to(dev)
+    rows, cfas = frame_rows(frames)
+    rows_d, cfas_d = torch.from_numpy(rows).to(dev), torch.from_numpy(cfas).to(dev)
+    moved = develop_bytes(frames, h, w) + frames * (rows.shape[1] * 4 + 16)
+    quantizer = D._quantizer_on(dev)
+    tmap = D.encode_tensor_map(build.lib(), x.data_ptr(), frames, h, w)
+    for mode in D.DEMOSAICS:
+        singles = torch.stack([D.develop_rgba_device(x[f], rows[f], cfa=tuple(cfas[f]),
+                                                     demosaic=mode) for f in range(frames)])
+        rows_libs = with_entry(libs, "mcraw_develop_rows_ring")
+        outs = {k: torch.empty(x.shape, dtype=torch.uint32, device=dev) for k in rows_libs}
+
+        def call(name):
+            maps = D.encode_tensor_map(libs[name], x.data_ptr(), frames, h, w)
+
+            def run():
+                build.check(libs[name].mcraw_develop_rows_ring(
+                    x.data_ptr(), outs[name].data_ptr(), frames, h, w, rows_d.data_ptr(),
+                    rows_d.stride(0), cfas_d.data_ptr(), cfas_d.stride(0),
+                    quantizer.data_ptr(), D.DEMOSAICS.index(mode), maps.ctypes.data,
+                    stream()), f"{name} develop rows")
+            return run
+
+        one = torch.empty(x.shape, dtype=torch.uint32, device=dev)
+        prm, cfa0 = np.ascontiguousarray(rows[0]), np.asarray(cfas[0], np.int32)
+
+        def one_row():
+            build.check(build.lib().mcraw_develop_ring(
+                x.data_ptr(), one.data_ptr(), frames, h, w, prm.ctypes.data, cfa0.ctypes.data,
+                quantizer.data_ptr(), D.DEMOSAICS.index(mode), tmap.ctypes.data, stream()),
+                "one row")
+
+        fns = {"new": lambda: D.develop_rgba_device(x, rows_d, cfa=cfas_d, demosaic=mode),
+               "one_row": one_row,
+               **{k: call(k) for k in rows_libs if k not in ("new", "old")}}
+        with observe.tracing() as record:
+            results = {k: f() for k, f in fns.items()}
+        torch.cuda.synchronize()
+        got = {k: results["new"] if k == "new" else outs.get(k, one) for k in fns}
+        turns(f"develop_rows_{mode}", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
+              frame=f"{frames}x{w}x{h} 12-bit, a row and a CFA each", frames=frames,
+              bytes=moved,
+              path={k: v for k, v in record.counters.items() if k.startswith("develop.")},
+              equals_single_calls={k: bool(torch.equal(v.to(torch.int64),
+                                                       singles.to(torch.int64)))
+                                   for k, v in got.items() if k != "one_row"})
+        del outs, results, got, singles
+
+
 def legacy_image() -> np.ndarray:
     """chip_smoke.py's first legacy frame."""
     return twelve_bit(np.random.default_rng(12), 0)
@@ -404,7 +477,9 @@ def main(argv=None) -> int:
     new = sass_functions(build.library_path())
     emit(sass={"functions_old": len(old), "functions_new": len(new),
                "identical": sum(old.get(k) == v for k, v in new.items()),
-               "differ": sorted(k for k, v in new.items() if old.get(k) != v)})
+               "differ": sorted(k for k, v in new.items() if old.get(k) != v),
+               "instructions_old_new": {k: [len(old.get(k, [])), len(v)]
+                                        for k, v in sorted(new.items()) if old.get(k) != v}})
     for spec in args.variant:
         name, csrc = spec.split("=", 1)
         out_dir = build.BUILD_DIR / f"ab_{name}"
@@ -415,6 +490,7 @@ def main(argv=None) -> int:
         ab_unpack_modern(libs, dev, args.n)
     if "develop" in kernels:
         ab_develop(libs, dev, args.n)
+        ab_develop_rows(libs, dev, args.n)
     if "unpack_legacy" in kernels:
         ab_unpack_legacy(libs, dev, args.n)
     if "checksum" in kernels:

@@ -162,11 +162,15 @@ def load(path: Path, checked: bool = False) -> ctypes.CDLL:
         "mcraw_block_offsets": [p, i64, p, p, i64, p],
         "mcraw_block_offsets_batch": [p, i64, i64, p, p, i64, p],
         "mcraw_develop_ring": [p, p, i64, i64, i64, p, p, p, i32, p, p],
+        "mcraw_develop_rows": [p, p, i64, i64, i64, p, i64, p, i64, p, i32, p],
+        "mcraw_develop_rows_ring": [p, p, i64, i64, i64, p, i64, p, i64, p, i32, p, p],
     }
     for name, argtypes in entries.items():
         # An earlier csrc (python -m mcraw_torch.kernel_ab) may not have
-        # the batch entries, the block offsets or the develop ring.
-        if hasattr(cdll, name) or not name.endswith(("_batch", "_block_offsets", "_ring")):
+        # the batch entries, the block offsets, the develop ring or the
+        # per-frame develop.
+        if hasattr(cdll, name) or not name.endswith(("_batch", "_block_offsets", "_ring",
+                                                      "_rows")):
             fn = getattr(cdll, name)
             fn.restype = ctypes.c_int
             fn.argtypes = [*argtypes, p] if checked else argtypes
@@ -245,13 +249,16 @@ ENTRIES = {
     "mcraw_block_offsets": "block_offsets",
     "mcraw_block_offsets_batch": "block_offsets",
     "mcraw_develop_ring": "develop",
+    "mcraw_develop_rows": "develop",
+    "mcraw_develop_rows_ring": "develop",
 }
 BUFFERS = {
     "unpack_modern": ("words", "bits", "refs", "offsets", "desc", "class_index", "out",
                       "bases", "lengths", "s_desc", "s_words", "s_off", "s_cls", "s_ref"),
     "unpack_legacy": ("payload", "bits", "refs", "offsets", "out", "bases", "lengths",
                       "s_span", "s_off", "s_cls", "s_ref"),
-    "develop": ("raw", "out", "quantizer", "params", "cfa", "s_tile", "s_q", "map", "s_ring"),
+    "develop": ("raw", "out", "quantizer", "params", "cfa", "s_tile", "s_q", "map", "s_ring",
+                "rows", "cfas"),
     "checksum": ("x", "out", "s_warp"),
     "block_offsets": ("bits", "offsets", "status", "s_local", "s_warp", "s_tile"),
 }

@@ -19,16 +19,21 @@ kernel's arithmetic and order of operations; :func:`develop_rgba_device`
 is the wrapper: the plain version only for CPU tensors, the hand-written
 CUDA kernel (``csrc/develop.cu``) for CUDA tensors, anything else raises.
 A (B, H, W) batch develops each frame on its own: no tap reads a
-neighbouring frame.
+neighbouring frame. It takes one parameter row and one CFA for every
+frame, or a row and a CFA for each frame (:func:`develop_rgba_device`'s
+per-frame form, counted by ``develop.frame_rows``): each frame's output is
+then bit for bit that of the frame alone with its own row and CFA.
 
 The kernel's raw values reach shared memory by one of two paths, the
 output bit for bit the same: the ring, where :func:`ring_takes` holds
 (rows a multiple of 16 bytes, a 16-byte-aligned base, raw 0 normalizing to
-0), a producer warp copying each tile's box (:data:`RING_BOX`) with the
+0; a per-frame launch needs the first two alone, :func:`ring_fits`), a
+producer warp copying each tile's box (:data:`RING_BOX`) with the
 Tensor Memory Accelerator through a tensor map (:func:`ring_map_geometry`,
 encoded once per address and shape); else direct, each thread loading its
 values. The counters ``develop.ring`` and ``develop.direct`` of
-:mod:`mcraw_torch.observe` count the launches of each.
+:mod:`mcraw_torch.observe` count the launches of each, ``develop.frame_rows``
+the frames developed with a row of their own (on either device).
 
 Not ported: the streamed-table normalizer (``inv2d``), ``gamma_mode="poly"``,
 ``ablate`` and ``band_rows``, which select TPU variants and timings.
@@ -339,12 +344,20 @@ def _zero_fill_exact(black_white: bytes) -> bool:
     return bool(((black >= 0) & (diff >= np.finfo(np.float32).tiny) & (diff < np.inf)).all())
 
 
-def ring_takes(address: int, width: int, params) -> bool:
+def ring_fits(address: int, width: int) -> bool:
     """Whether a contiguous uint16 tensor at device `address`, `width`
-    values wide, develops on the ring path: its rows a multiple of 16 bytes
-    and its base 16-byte aligned, as a tensor map asks, and
-    :func:`zero_fill_exact`. Anything else takes the direct path."""
-    return width % 8 == 0 and address % 16 == 0 and zero_fill_exact(params)
+    values wide, can be read through a tensor map: its rows a multiple of
+    16 bytes and its base 16-byte aligned. A per-frame launch then takes
+    the ring (its kernel stages a frame whose raw 0 does not normalize to 0
+    with bounds tests at the border)."""
+    return width % 8 == 0 and address % 16 == 0
+
+
+def ring_takes(address: int, width: int, params) -> bool:
+    """Whether a one-row launch of such a tensor develops on the ring path:
+    :func:`ring_fits` and :func:`zero_fill_exact`. Anything else takes the
+    direct path."""
+    return ring_fits(address, width) and zero_fill_exact(params)
 
 
 def ring_map_geometry(frames: int, height: int, width: int) -> dict:
@@ -391,44 +404,118 @@ def _tensor_map(address: int, frames: int, height: int, width: int) -> np.ndarra
     return tmap
 
 
+def per_frame(cfa) -> bool:
+    """Whether `cfa` gives a CFA for each frame: an (F, 4) array or
+    tensor, not one 4-sequence."""
+    return (cfa.dim() if isinstance(cfa, torch.Tensor) else np.ndim(cfa)) == 2
+
+
+def _frame_blocks(raw: torch.Tensor, rows, cfas) -> tuple[torch.Tensor, torch.Tensor]:
+    """(F, N >= 17) float32 rows and (F, 4) int32 CFAs on raw's device,
+    each of unit stride along a row, F the frames of raw. A block given on
+    the host is checked (every CFA a Bayer pattern) and copied to the
+    device; one already there is taken as it is."""
+    frames = raw.shape[0] if raw.dim() == 3 else 1
+    blocks = []
+    for block, dtype, width in ((rows, torch.float32, N_PARAMS), (cfas, torch.int32, 4)):
+        t = block if isinstance(block, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(block, dtype=np.float32 if dtype == torch.float32 else np.int32))
+        if t.dim() != 2 or t.shape[0] != frames or t.shape[1] < width:
+            raise ValueError(f"a per-frame develop of {frames} frame(s) takes ({frames}, >= "
+                             f"{width}) rows and CFAs, got {tuple(t.shape)}")
+        if t.device.type != raw.device.type:
+            if dtype == torch.int32:
+                bad = [tuple(c) for c in t[:, :4].tolist() if tuple(c) not in BAYER_CFAS]
+                if bad:
+                    raise ValueError(f"cfa must be one of the Bayer patterns {BAYER_CFAS}, "
+                                     f"got {bad[0]}")
+            t = t.to(raw.device)
+        if t.dtype != dtype or t.stride(1) != 1 or (frames > 1 and t.stride(0) < width):
+            t = t.to(dtype).contiguous()
+        blocks.append(t)
+    return blocks[0], blocks[1]
+
+
+def _develop_frames_plain(raw: torch.Tensor, rows, cfas, demosaic: str) -> torch.Tensor:
+    """The per-frame develop on the CPU: each frame through
+    :func:`develop_rgba_plain` with its own row and CFA."""
+    _check(raw, BAYER_CFAS[0], demosaic)
+    frames = raw if raw.dim() == 3 else raw[None]
+    rows, cfas = _frame_blocks(frames, rows, cfas)
+    rows, cfas = rows.numpy(), cfas.numpy()
+    out = [develop_rgba_plain(f, rows[i], cfa=tuple(int(c) for c in cfas[i][:4]),
+                              demosaic=demosaic)
+           for i, f in enumerate(frames)]
+    stacked = torch.stack(out) if out else torch.empty(frames.shape, dtype=torch.uint32)
+    return stacked.reshape(raw.shape)
+
+
 @observe.spanned("develop")
 def develop_rgba_device(
     raw: torch.Tensor, params, *, cfa, demosaic: str = "bilinear"
 ) -> torch.Tensor:
     """Develop (H, W) or (B, H, W) uint16 Bayer to uint32 RGBA8888.
 
-    params: the host (1, 128) float32 row of :func:`pack_develop_params`;
-    cfa: one of :data:`BAYER_CFAS`; demosaic: "bilinear" or "malvar".
-    CUDA tensors launch the kernel on the current stream (the parameters
-    go in by value, no copy to the device); CPU tensors take
-    :func:`develop_rgba_plain`; any other device raises."""
+    params, cfa: the host (1, 128) float32 row of
+    :func:`pack_develop_params` and one of :data:`BAYER_CFAS`, for every
+    frame; or, per frame, (B, >= 17) rows and (B, 4) int32 CFAs, tensors
+    or arrays: on the host they are checked and copied to raw's device, on
+    it they are read as they are (a CFA there that is not a Bayer pattern
+    leaves its frame undeveloped).
+    demosaic: "bilinear" or "malvar". CUDA tensors launch the kernel on
+    the current stream (one row goes in by value, no copy to the device);
+    CPU tensors take :func:`develop_rgba_plain`, frame by frame for
+    per-frame rows; any other device raises."""
     global KERNEL_LAUNCHES
+    each = per_frame(cfa)
     if raw.device.type == "cpu":
+        if each:
+            out = _develop_frames_plain(raw, params, cfa, demosaic)
+            observe.count("develop.frame_rows", out.shape[0] if out.dim() == 3 else 1)
+            return out
         return develop_rgba_plain(raw, params, cfa=cfa, demosaic=demosaic)
     if raw.device.type != "cuda":
         raise ValueError(f"no develop kernel for device {raw.device}")
-    _check(raw, cfa, demosaic)
+    _check(raw, BAYER_CFAS[0] if each else cfa, demosaic)
     raw = raw.contiguous()
-    prm = _params_row(params)
-    cfa32 = np.asarray(cfa, dtype=np.int32)
     quantizer = _quantizer_on(raw.device)
     frames, h, w = (raw.shape if raw.dim() == 3 else (1, *raw.shape))
     out = torch.empty(raw.shape, dtype=torch.uint32, device=raw.device)
     if out.numel() == 0:
         return out
-    ring = ring_takes(raw.data_ptr(), w, prm)
-    args = (raw.data_ptr(), out.data_ptr(), frames, h, w, prm.ctypes.data, cfa32.ctypes.data,
-            quantizer.data_ptr(), DEMOSAICS.index(demosaic))
+    malvar = DEMOSAICS.index(demosaic)
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if ring:
-            tmap = _tensor_map(raw.data_ptr(), frames, h, w)
-            build.launch("mcraw_develop_ring",
-                         (raw, out, quantizer, prm, cfa32, None, None, tmap),
-                         *args, tmap.ctypes.data, stream)
+        if each:
+            prm, cfas = _frame_blocks(raw, params, cfa)
+            ring = ring_fits(raw.data_ptr(), w)
+            args = (raw.data_ptr(), out.data_ptr(), frames, h, w,
+                    prm.data_ptr(), prm.stride(0), cfas.data_ptr(), cfas.stride(0),
+                    quantizer.data_ptr(), malvar)
+            buffers = (raw, out, quantizer, None, None, None, None)
+            if ring:
+                tmap = _tensor_map(raw.data_ptr(), frames, h, w)
+                build.launch("mcraw_develop_rows_ring", (*buffers, tmap, None, prm, cfas),
+                             *args, tmap.ctypes.data, stream)
+            else:
+                build.launch("mcraw_develop_rows", (*buffers, None, None, prm, cfas), *args,
+                             stream)
         else:
-            build.launch("mcraw_develop", (raw, out, quantizer, prm, cfa32), *args, stream)
+            prm = _params_row(params)
+            cfa32 = np.asarray(cfa, dtype=np.int32)
+            ring = ring_takes(raw.data_ptr(), w, prm)
+            args = (raw.data_ptr(), out.data_ptr(), frames, h, w, prm.ctypes.data,
+                    cfa32.ctypes.data, quantizer.data_ptr(), malvar)
+            if ring:
+                tmap = _tensor_map(raw.data_ptr(), frames, h, w)
+                build.launch("mcraw_develop_ring",
+                             (raw, out, quantizer, prm, cfa32, None, None, tmap),
+                             *args, tmap.ctypes.data, stream)
+            else:
+                build.launch("mcraw_develop", (raw, out, quantizer, prm, cfa32), *args, stream)
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
     observe.count("develop.ring" if ring else "develop.direct", 1)
+    if each:
+        observe.count("develop.frame_rows", frames)
     return out

@@ -18,6 +18,14 @@ The forward matrix is interpolated between the container's two
 illuminants at the as-shot white point (:mod:`mcraw_torch.color`, the
 port's copy of ``mcraw.color``).
 
+Frames of one geometry develop in one launch, each with its own clip's
+and its own frame's metadata: :func:`frame_develop_rows` makes the
+frames' parameter rows and CFAs (their white points solved in one batch)
+and :func:`develop_frames_rgba` develops the frames with them.
+:func:`preview_clip` plays one clip so, a batch a launch;
+:func:`preview_clips` plays several clips in sync, a tick a launch, with
+the rows of every frame made when it starts.
+
 The NumPy part of this module is a copy of the JAX package's f64 model
 (:func:`develop_f64`) and its constants, made with the same operations in
 the same order: ``mcraw.preview`` imports JAX, and the model is the ground
@@ -27,11 +35,13 @@ holds the copy equal to the original.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from . import observe
-from .color import interpolated_matrices
+from .color import interpolated_forward_batch, interpolated_matrices
 from .kernels.develop import (
     develop_rgba_device,
     pack_develop_params,
@@ -40,6 +50,7 @@ from .kernels.develop import (
     srgb_code_f64,
 )
 from .metadata import ContainerMetadata, FrameMetadata
+from .parallel import SHARE_GEOMETRY
 
 # XYZ (D50) -> linear sRGB (D65), Bradford-adapted.
 _XYZ_D50_TO_SRGB = np.array(
@@ -313,19 +324,183 @@ def preview_frame(decoder, timestamp: int,
     return rgba_to_rgb(preview_frame_rgba(decoder, timestamp, demosaic=demosaic))
 
 
+# -- a row for each frame ------------------------------------------------------
+
+ROW_WORDS = 128  # pack_develop_params's row
+
+
+class FrameRows(NamedTuple):
+    """Frames' develop parameters on a device: (F, 128) float32 rows of
+    :func:`~mcraw_torch.kernels.develop.pack_develop_params` and (F, 4)
+    int32 CFAs, a frame each."""
+
+    rows: torch.Tensor
+    cfas: torch.Tensor
+
+    def frames(self, lo: int, hi: int) -> "FrameRows":
+        """Frames [lo, hi): views of these, no copy."""
+        return FrameRows(self.rows[lo:hi], self.cfas[lo:hi])
+
+
+class _Clip(NamedTuple):
+    """What a clip's container metadata gives each of its frames' rows."""
+
+    black: np.ndarray
+    white: np.float32
+    cfa: np.ndarray  # (4,) int32
+    matrices: tuple | None  # (cm1, cm2, fm1, fm2) float64; None: fm1 alone
+    fm1: np.ndarray
+
+
+def _clip(meta) -> _Clip:
+    """The parsed container metadata `meta` (a ContainerMetadata or its JSON)."""
+    cm = meta if isinstance(meta, ContainerMetadata) else ContainerMetadata(meta)
+    fm1 = np.asarray(cm.forward_matrix(1), np.float64).reshape(3, 3)
+    matrices = None if _single_illuminant(cm) else tuple(
+        np.asarray(m, np.float64).reshape(3, 3)
+        for m in (cm.color_matrix(1), cm.color_matrix(2), fm1, cm.forward_matrix(2)))
+    return _Clip(np.asarray(cm.black_level), np.float32(cm.white_level),
+                 np.frombuffer(cm.cfa_pattern, np.uint8).astype(np.int32), matrices, fm1)
+
+
+def _single_illuminant(cm: ContainerMetadata) -> bool:
+    """Whether the container lacks the second matrix set, so that
+    :func:`interpolated_matrices` takes forwardMatrix1 alone."""
+    raw = cm.raw
+    return not (isinstance(raw, dict) and "colorMatrix1" in raw and "colorMatrix2" in raw
+                and "forwardMatrix2" in raw)
+
+
+def frame_develop_rows(container_metas, frame_metas, device="cpu") -> FrameRows:
+    """The develop parameters of F frames, each from its own clip's container
+    metadata and its own frame metadata (ContainerMetadata / FrameMetadata
+    or their JSON), on `device`: row f is :func:`pack_develop_params` of the
+    clip's black and white levels, the frame's as-shot neutral and the
+    forward matrix interpolated at it (:func:`interpolated_matrices`), bit
+    for bit, and CFA f the clip's ``sensorArrangment``.
+
+    Every white point is solved in one batch
+    (:func:`~mcraw_torch.color.interpolated_forward_batch`), whose cost is
+    mostly its iterations, not its frames: so a player makes the rows of
+    all it opens at once (a clip, the clips of a multicam shot) and takes
+    a step's with :meth:`FrameRows.frames`. The span
+    ``develop.frame_params`` times the call; the counter
+    ``color.white_solves`` counts the white points solved. On a card the
+    rows and CFAs go in one copy from pinned memory, queued on the current
+    stream."""
+    with observe.span("develop.frame_params"):
+        container_metas = list(container_metas)  # held, so that no id is reused
+        parsed: dict[int, _Clip] = {}  # by the argument: a shot repeats its clips'
+        clips = []
+        for c in container_metas:
+            if id(c) not in parsed:
+                parsed[id(c)] = _clip(c)
+            clips.append(parsed[id(c)])
+        neutrals = [np.asarray((f if isinstance(f, FrameMetadata) else FrameMetadata(f))
+                               .as_shot_neutral) for f in frame_metas]
+        if len(clips) != len(neutrals):
+            raise ValueError(f"{len(clips)} container metadata for {len(neutrals)} frames")
+        solve = [i for i, c in enumerate(clips) if c.matrices is not None]
+        fwd = {}
+        if solve:
+            mats = [np.stack([clips[i].matrices[j] for i in solve]) for j in range(4)]
+            fwd = dict(zip(solve, interpolated_forward_batch(
+                np.stack([neutrals[i] for i in solve]), *mats)))
+            observe.count("color.white_solves", len(solve))
+        device = torch.device(device)
+        host = torch.empty((len(clips), ROW_WORDS + 4), dtype=torch.int32,
+                           pin_memory=device.type == "cuda")
+        words = host.numpy()
+        for i, c in enumerate(clips):
+            f = fwd[i] if i in fwd else c.fm1
+            words[i, :ROW_WORDS] = pack_develop_params(
+                c.black, np.asarray(c.white), neutrals[i], f.astype(np.float32))[0].view(np.int32)
+            words[i, ROW_WORDS:] = c.cfa
+        if device.type != "cpu":
+            host = host.to(device, non_blocking=True)
+        return FrameRows(host[:, :ROW_WORDS].view(torch.float32), host[:, ROW_WORDS:])
+
+
+def develop_frames_rgba(planes: torch.Tensor, rows, cfas,
+                        demosaic: str = "bilinear") -> torch.Tensor:
+    """(F, H, W) uint16 Bayer planes -> (F, H, W) uint32 RGBA8888 in one
+    launch of the develop kernel (its plain version on the CPU), frame f
+    with row f and CFA f (:func:`frame_develop_rows`'s): bit for bit each
+    frame developed alone with its own row and CFA."""
+    return develop_rgba_device(planes, rows, cfa=cfas, demosaic=demosaic)
+
+
+def _batch_rgba(imgs: torch.Tensor, metas: list, cms: list, demosaic: str,
+                rows: FrameRows | None = None) -> torch.Tensor:
+    """A decoded batch (F, H, W), frame f of container metadata cms[f] and
+    frame JSON metas[f], developed to (F, H, W) RGBA: one per-frame launch
+    where the kernel takes the geometry (with `rows`, the frames' made
+    already, else made here), else frame by frame."""
+    if _fused_eligible(imgs.shape[-2], imgs.shape[-1]):
+        if rows is None:
+            rows = frame_develop_rows(cms, metas, imgs.device)
+        return develop_frames_rgba(imgs, rows.rows, rows.cfas, demosaic=demosaic)
+    return torch.stack([_frame_rgba(img, FrameMetadata(m), cm, tuple(cm.cfa_pattern),
+                                    demosaic=demosaic)
+                        for img, m, cm in zip(imgs, metas, cms)])
+
+
 def preview_clip(decoder, timestamps=None, batch_frames: int = 8,
                  demosaic: str = "bilinear"):
     """Playback: yields (timestamp, (H, W) uint32 RGBA8888 on the device)
     for each frame in order, decoding in batched launches of up to
     `batch_frames` frames (``decoder.decode_batch_iter``) and developing
-    each frame of a batch with its own parameters."""
+    each batch in one launch, each frame with its own parameters
+    (:func:`frame_develop_rows` of the batch)."""
     if timestamps is None:
         timestamps = decoder.frames
     cm = ContainerMetadata(decoder.container_metadata)
-    cfa = tuple(cm.cfa_pattern)
     i = 0
     for imgs, metas in decoder.decode_batch_iter(timestamps, chunk_frames=batch_frames):
-        for img, meta in zip(imgs, metas):
-            yield timestamps[i], _frame_rgba(img, FrameMetadata(meta), cm, cfa,
-                                             demosaic=demosaic)
+        for rgba in _batch_rgba(imgs, metas, [cm] * len(metas), demosaic):
+            yield timestamps[i], rgba
             i += 1
+
+
+def preview_clips(decoders, timestamps=None, demosaic: str = "bilinear"):
+    """Multiview playback of several clips of one codec and raster in sync:
+    yields ([each clip's timestamp], (C, H, W) uint32 RGBA8888 on the first
+    decoder's device) a tick, the tick's frame of every clip decoded in one
+    batch (clip-major within the tick, as ``parallel.decode_clips``
+    interleaves them) and developed in one launch, each frame with its own
+    clip's and frame's metadata. The rows of every frame played are made
+    here, at the call, in one :func:`frame_develop_rows` of each frame's
+    metadata (read without its payload); a tick takes its slice.
+    `timestamps`: a list of each clip's, or None for every frame of each.
+    Unequal frame counts, mixed codecs and mixed rasters raise ValueError,
+    as ``decode_clips`` does."""
+    if timestamps is None:
+        timestamps = [d.frames for d in decoders]
+    if len(timestamps) != len(decoders):
+        raise ValueError(f"{len(timestamps)} timestamp lists for {len(decoders)} clips")
+    if len({len(ts) for ts in timestamps}) != 1:
+        raise ValueError("clips must contribute equal frame counts")
+    cms = [ContainerMetadata(d.container_metadata) for d in decoders]
+    ticks = list(zip(*timestamps))
+    rows = frame_develop_rows(cms * len(ticks),
+                              [d._reader.frame_payload(t)[1] for tick in ticks
+                               for d, t in zip(decoders, tick)],
+                              decoders[0].device if decoders else "cpu")
+    return _play_ticks(decoders, ticks, cms, rows, demosaic)
+
+
+def _play_ticks(decoders, ticks, cms, rows: FrameRows, demosaic: str):
+    from .pipeline import _uncompress_error_text
+
+    c = len(decoders)
+    for t, tick in enumerate(ticks):
+        frames = [d._checked_frame(ts) for d, ts in zip(decoders, tick)]
+        if len({modern for *_, modern in frames}) != 1:
+            raise ValueError("mixed codecs across clips")
+        if len({(fm.width, fm.height) for _, _, fm, _ in frames}) != 1:
+            raise ValueError(SHARE_GEOMETRY)
+        _, _, fm, modern = frames[0]
+        with _uncompress_error_text(modern):
+            imgs = decoders[0]._decode_payloads([p for p, *_ in frames], fm, modern, None)
+        yield list(tick), _batch_rgba(imgs, [meta for _, meta, *_ in frames], cms, demosaic,
+                                      rows.frames(t * c, (t + 1) * c))

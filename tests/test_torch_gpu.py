@@ -445,6 +445,121 @@ def test_develop_direct_path_where_raw_zero_is_not_zero(cuda):
     assert np.abs(_channels(got) - _channels(want)).max() <= 1
 
 
+def _frame_rows(frames: int, zero_fill: bool = True) -> tuple[np.ndarray, np.ndarray]:
+    """(frames, 128) rows, each frame's own black levels, neutral and
+    forward matrix, and (frames, 4) CFAs, the four Bayer patterns in turn;
+    without `zero_fill`, frame 1's first black level is below 0."""
+    black, white, neutral, fwd = DEVELOP_ARGS
+    rows = np.concatenate([D.pack_develop_params(
+        black + (-68 if f == 1 and not zero_fill else f), white,
+        neutral * np.float32(1 + 0.05 * f), fwd * np.float32(1 - 0.03 * f))
+        for f in range(frames)])
+    return rows, np.array([D.BAYER_CFAS[f % 4] for f in range(frames)], np.int32)
+
+
+def _rows_path(x, rows, cfas, **kw) -> tuple[torch.Tensor, str]:
+    """The per-frame develop of `x` on the card and the path it took; one
+    launch, with a row for each frame."""
+    from mcraw_torch import observe
+
+    with observe.tracing() as rec:
+        out = D.develop_rgba_device(x, rows, cfa=cfas, **kw)
+        torch.cuda.synchronize()
+    c = {k: v for k, v in rec.counters.items() if k.startswith("develop.")}
+    assert c.pop("develop.frame_rows") == x.shape[0] and len(c) == 1 and sum(c.values()) == 1, c
+    return out, next(iter(c)).removeprefix("develop.")
+
+
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+@pytest.mark.parametrize("shape, zero_fill", [((8, 2160, 3840), True), ((4, 66, 1024), False),
+                                              ((3, 37, 250), True), ((2, 5, 64), False)])
+def test_develop_rows_ring_and_direct_equal_single_calls(cuda, shape, zero_fill, demosaic):
+    """A row and a CFA for each frame, in one launch: on the ring (an
+    aligned width that is a multiple of 8, even for a frame whose raw 0
+    does not normalize to 0) and on the direct path, bit for bit single
+    calls with each frame's own row and CFA."""
+    raw = np.random.default_rng(shape[-1]).integers(0, 4096, size=shape, dtype=np.uint16)
+    if shape[0] == 8:
+        raw[1], raw[3] = 4095, 0
+    x = torch.from_numpy(raw).to(cuda)
+    rows, cfas = _frame_rows(shape[0], zero_fill)
+    singles = torch.stack([D.develop_rgba_device(x[f], rows[f], cfa=tuple(cfas[f]),
+                                                 demosaic=demosaic) for f in range(shape[0])])
+    rows_d, cfas_d = torch.from_numpy(rows).to(cuda), torch.from_numpy(cfas).to(cuda)
+    got, path = _rows_path(x, rows_d, cfas_d, demosaic=demosaic)
+    assert path == ("ring" if shape[-1] % 8 == 0 else "direct")
+    assert torch.equal(got.to(torch.int64), singles.to(torch.int64))
+    direct, path = _rows_path(_misaligned(x), rows, cfas, demosaic=demosaic)
+    assert path == "direct"
+    assert torch.equal(direct.to(torch.int64), singles.to(torch.int64))
+
+
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+def test_develop_rows_of_one_row_equal_the_one_row_launch(cuda, demosaic):
+    """One row and CFA repeated for every frame, as a block and as an
+    expanded view, give the one-row launch's RGBA; a per-frame launch takes
+    a row for each frame, so one row for three frames raises, and the C
+    entry refuses rows that overlap."""
+    from mcraw_torch.kernels import build
+
+    raw = np.random.default_rng(9).integers(0, 4096, size=(3, 66, 1024), dtype=np.uint16)
+    x = torch.from_numpy(raw).to(cuda)
+    rows, cfas = _frame_rows(3)
+    want = D.develop_rgba_device(x, rows[2], cfa=tuple(cfas[2]), demosaic=demosaic)
+    rep, _ = _rows_path(x, np.repeat(rows[2:3], 3, 0), np.repeat(cfas[2:3], 3, 0),
+                        demosaic=demosaic)
+    row_d, cfa_d = torch.from_numpy(rows[2:3]).to(cuda), torch.from_numpy(cfas[2:3]).to(cuda)
+    view, _ = _rows_path(x, row_d.expand(3, -1), cfa_d.expand(3, -1), demosaic=demosaic)
+    assert torch.equal(rep, want) and torch.equal(view, want)
+    with pytest.raises(ValueError, match="per-frame develop of 3"):
+        D.develop_rgba_device(x, row_d, cfa=cfa_d, demosaic=demosaic)
+    out = torch.empty(x.shape, dtype=torch.uint32, device=cuda)
+    rc = build.lib().mcraw_develop_rows(
+        x.data_ptr(), out.data_ptr(), 3, 66, 1024, row_d.data_ptr(), 0, cfa_d.data_ptr(), 0,
+        D._quantizer_on(cuda).data_ptr(), D.DEMOSAICS.index(demosaic),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 1  # cudaErrorInvalidValue
+
+
+def test_develop_rows_checks_host_cfas_and_leaves_a_device_non_bayer_frame_zero(cuda):
+    """A CFA given on the host that is not a Bayer pattern raises; one
+    already on the card leaves its frame's RGBA 0 and develops the others."""
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 4096, size=(2, 40, 136), dtype=np.uint16)).to(cuda)
+    rows, cfas = _frame_rows(2)
+    bad = cfas.copy()
+    bad[1] = (0, 0, 1, 2)
+    with pytest.raises(ValueError, match="Bayer"):
+        D.develop_rgba_device(x, rows, cfa=bad)
+    got, _ = _rows_path(x, torch.from_numpy(rows).to(cuda), torch.from_numpy(bad).to(cuda))
+    assert int(got[1].to(torch.int64).abs().sum()) == 0
+    assert torch.equal(got[0], D.develop_rgba_device(x[0], rows[0], cfa=tuple(cfas[0])))
+
+
+def test_frame_develop_rows_on_the_card_equal_the_host_rows(cuda):
+    """The rows and CFAs that frame_develop_rows copies to the card equal
+    the ones it makes on the host, and develop as them."""
+    cms, fms = [], []
+    for k, sensor in enumerate(CFA_PATTERNS):
+        cm = example_container_metadata(sensor=sensor, black_level=(60 + k, 61, 62, 63),
+                                        white_level=4095.0)
+        cm.update(colorMatrix1=[0.79, -0.23, -0.07, -0.43, 1.32, 0.05, -0.07, 0.18, 0.54],
+                  colorMatrix2=[0.92, -0.31, -0.01, -0.50, 1.42, 0.08, -0.04, 0.22, 0.42])
+        cms.append(cm)
+        fm = example_frame_metadata(136, 40)
+        fm["asShotNeutral"] = [0.45 + 0.1 * k, 1.0, 0.8 - 0.1 * k]
+        fms.append(fm)
+    host = P.frame_develop_rows(cms, fms)
+    dev = P.frame_develop_rows(cms, fms, cuda)
+    assert dev.rows.device.type == "cuda" and torch.equal(dev.rows.cpu(), host.rows)
+    assert torch.equal(dev.cfas.cpu(), host.cfas)
+    x = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 4096, size=(4, 40, 136), dtype=np.uint16))
+    got = P.develop_frames_rgba(x.to(cuda), dev.rows, dev.cfas)
+    want = P.develop_frames_rgba(x, host.rows, host.cfas)
+    assert np.abs(_channels(got) - _channels(want)).max() <= 1
+
+
 @pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
 @pytest.mark.parametrize("h", [3, 5, 66])
 def test_develop_ring_batch_equals_single(cuda, h, demosaic):
