@@ -90,7 +90,7 @@ NEGATIVE = (
     ("unpack_legacy", "shared", "s_off", 8),
     ("develop", "load", "raw", 2),
     ("develop", "store", "out", 4),
-    ("develop", "shared", "s_q", 8),
+    ("develop", "shared", "s_q", 4),
     ("develop", "host", "params", None),
     ("develop", "cp.async", "raw", 2),
     ("develop", "shared", "s_ring", 1 << 20),

@@ -63,13 +63,17 @@
 //   monotone in lin, so it is the count of thresholds thr[1..255] (float32,
 //   computed on the host in float64) at or below lin. Over buckets even in
 //   log2 lin, 128 an octave, the curve climbs less than one code a bucket,
-//   so a bucket holds at most one threshold (checked on the host): the code
-//   is the bucket's base plus one compare, from one 8-byte entry
-//   (threshold, base). No logf, expf or division is left per pixel. The
-//   table (1666 entries, 13 KB) is copied from device memory into shared
-//   memory once per block. Log buckets, not 4096 even ones of [0, 1]: a
-//   warp's 32 lookups then fall in fewer, closer entries, and fewer of
-//   them collide in a shared-memory bank.
+//   so a bucket holds at most one threshold (checked on the host), and a
+//   bucket is a run of floats with the same high 16 bits: lin reaches the
+//   bucket's threshold when its low 16 bits reach the threshold's. So each
+//   bucket is one 4-byte word, encoded on the host (kernels/develop.py
+//   quantizer_table), and the code is the high half of one integer add of
+//   that word and lin's low 16 bits; two byte permutes pack the three codes
+//   and the alpha. No logf, expf, division or float compare is left per
+//   pixel. The table (1666 words, 6.7 KB) is copied from device memory into
+//   shared memory once per block. Log buckets, not 4096 even ones of
+//   [0, 1]: a warp's 32 lookups then fall in fewer, closer entries, and
+//   fewer of them collide in a shared-memory bank.
 // - Clips are two NaN-propagating min/max instructions (the one before the
 //   quantizer maps NaN to 0).
 //
@@ -137,7 +141,7 @@ constexpr int kQuantizer = (0x3F800000 >> 16) - kBucketBase + 1;
 
 static_assert(kRowW % 4 == 0, "rows must stay 16-byte aligned");
 constexpr int64_t kTileBytes = sizeof(float) * kRows * kRowW;
-constexpr int64_t kQuantizerBytes = sizeof(uint2) * kQuantizer;
+constexpr int64_t kQuantizerBytes = sizeof(uint32_t) * kQuantizer;
 
 // The ring path (kernels/develop.py RING_BOX): a tile's raw box is kRows
 // rows of kBoxW uint16, one frame deep. It starts kBoxX0 columns left of
@@ -346,35 +350,44 @@ __device__ __forceinline__ void malvar(const float (&w)[6][8], float (&rgb)[3]) 
   rgb[2] = clip01(cm == 2 ? mid : (cm == 1 ? (hcm == 2 ? k2 : k3) : k4));
 }
 
-// The code round(255 * srgb(lin)) of lin in [0, 1]: q[k] = (the next
-// threshold's bits, the code at the bucket's start) of bucket k, read off
-// lin's exponent and top 7 mantissa bits (an arithmetic shift: -0.0 is
-// negative and lands in bucket 0). No float-to-int conversion, which
-// issues at 1/8 of the float rate.
-__device__ __forceinline__ uint32_t quantize(float lin, const uint2* q MCRAW_CK_PARAM) {
-  const int k = max(__float_as_int(lin) >> 16, kBucketBase) - kBucketBase;
-  const uint2 e = MCRAW_SLDN(kBufSQ, q, kQuantizerBytes, q, k);
-  return e.y + (__uint_as_float(e.x) <= lin ? 1u : 0u);
+// The code round(255 * srgb(lin)) of lin in [0, 1], in byte 2 of the
+// returned word (byte 3 is 0). Bucket k is read off lin's exponent and top
+// 7 mantissa bits (an arithmetic shift: -0.0 is negative and lands in
+// bucket 0, with every lin below 2^-13); q[k] = (base << 16) + (0x10000 -
+// T), base the code at the bucket's start and T the low 16 bits of the one
+// threshold inside it (base << 16 where it holds none, as bucket 0 never
+// does). Inside a bucket lin's high 16 bits are fixed, so adding its low 16
+// bits L carries one into the code exactly when L >= T, when lin reaches
+// the threshold. No float-to-int conversion, which issues at 1/8 of the
+// float rate, and no float compare.
+__device__ __forceinline__ uint32_t quantize(float lin, const uint32_t* q MCRAW_CK_PARAM) {
+  const int bits = __float_as_int(lin);
+  const int k = max(bits >> 16, kBucketBase) - kBucketBase;  // the - goes into the load's offset
+  return MCRAW_SLDN(kBufSQ, q, kQuantizerBytes, q, k) + (static_cast<uint32_t>(bits) & 0xFFFFu);
 }
 
+// R | G << 8 | B << 16 | 0xFF << 24 from the three quantize words: two byte
+// permutes take each code's byte 2; B's word, whose byte 3 is 0, gets the
+// alpha by the add that makes it.
 __device__ __forceinline__ uint32_t emit(const DevelopParams& p, const float (&rgb)[3],
-                                         const uint2* q MCRAW_CK_PARAM) {
-  uint32_t packed = 0xFF000000u;
+                                         const uint32_t* q MCRAW_CK_PARAM) {
+  uint32_t code[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     const float lin = add(add(mul(p.m[3 * r], rgb[0]), mul(p.m[3 * r + 1], rgb[1])),
                           mul(p.m[3 * r + 2], rgb[2]));
     // clip to [0, 1], NaN to 0 (fmaxf returns the number): the quantizer's
     // index stays inside its table.
-    packed |= quantize(fminf(fmaxf(lin, 0.f), 1.f), q MCRAW_CK) << (8 * r);
+    code[r] = quantize(fminf(fmaxf(lin, 0.f), 1.f), q MCRAW_CK);
   }
-  return packed;
+  const uint32_t rg = __byte_perm(code[0], code[1], 0x0062);  // R in byte 0, G in byte 1
+  return __byte_perm(rg, code[2] + 0xFF000000u, 0x7610);
 }
 
 template <class P, bool kMalvar, bool kEdge, int OY, int OX>
 __device__ __forceinline__ uint32_t pixel(const DevelopParams& p, const float (&w)[6][8],
                                           int y, int x, int height, int width,
-                                          const uint2* q MCRAW_CK_PARAM) {
+                                          const uint32_t* q MCRAW_CK_PARAM) {
   float rgb[3];
   if constexpr (kMalvar) {
     malvar<P, OY, OX>(w, rgb);
@@ -388,7 +401,7 @@ template <class P, bool kMalvar, bool kEdge, int OY>
 __device__ __forceinline__ void store_row(const DevelopParams& p, const float (&w)[6][8],
                                           uint32_t* __restrict__ frame_out, int y, int x,
                                           int height, int width,
-                                          const uint2* q MCRAW_CK_PARAM) {
+                                          const uint32_t* q MCRAW_CK_PARAM) {
   if (y + OY >= height) return;
   const uint32_t v0 = pixel<P, kMalvar, kEdge, OY, 0>(p, w, y, x, height, width, q MCRAW_CK);
   const uint32_t v1 = pixel<P, kMalvar, kEdge, OY, 1>(p, w, y, x, height, width, q MCRAW_CK);
@@ -413,7 +426,7 @@ __device__ __forceinline__ void develop_tile(const DevelopParams& p, const float
                                              const void* tiles, int64_t tiles_bytes,
                                              uint32_t* __restrict__ frame_out, int y0, int x0,
                                              int height, int width,
-                                             const uint2* q MCRAW_CK_PARAM) {
+                                             const uint32_t* q MCRAW_CK_PARAM) {
   const int qx = threadIdx.x % kThreadsX;
   const int qy = threadIdx.x / kThreadsX;
   const int x = x0 + 4 * qx;
@@ -465,7 +478,7 @@ __device__ __forceinline__ void develop_or_clear(const DevelopParams& p,
                                                  const float (*tile)[kRowW],
                                                  uint32_t* __restrict__ frame_out, int y0,
                                                  int x0, int height, int width,
-                                                 const uint2* q MCRAW_CK_PARAM) {
+                                                 const uint32_t* q MCRAW_CK_PARAM) {
   if constexpr (std::is_same_v<P, NoCfa>) {
     clear_tile(frame_out, y0, x0, height, width MCRAW_CK);
   } else {
@@ -568,16 +581,18 @@ struct PerFrame {
 // A block's walk over tiles blockIdx.x, + gridDim.x, ... (frame-major,
 // then rows of tiles): it steps its (frame, tile row, tile column) by the
 // grid's (rows, columns), so no division is left in the loop but at a
-// frame change. 32-bit index math: the host keeps tiles < 2^31.
+// frame change. 32-bit index math: the host keeps tiles < 2^31. The steps
+// (gridDim.x in rows and columns of tiles) are kernel arguments, made by
+// the launch: read from the constant bank, they hold no register, where
+// the ring's one-row kernels (72 registers a thread at 3 blocks an SM)
+// spilled 4 to 12 bytes with them made in the kernel.
 struct TileWalk {
   int f, ty, tx;
   int tiles_x, tiles_y, step_x, step_y;
 
-  __device__ __forceinline__ TileWalk(int tiles_x_, int tiles_y_)
-      : tiles_x(tiles_x_), tiles_y(tiles_y_) {
+  __device__ __forceinline__ TileWalk(int tiles_x_, int tiles_y_, int step_x_, int step_y_)
+      : tiles_x(tiles_x_), tiles_y(tiles_y_), step_x(step_x_), step_y(step_y_) {
     const int per_frame = tiles_x * tiles_y;
-    step_y = static_cast<int>(gridDim.x) / tiles_x;
-    step_x = static_cast<int>(gridDim.x) - step_y * tiles_x;
     f = static_cast<int>(blockIdx.x) / per_frame;
     ty = (static_cast<int>(blockIdx.x) - f * per_frame) / tiles_x;
     tx = static_cast<int>(blockIdx.x) - f * per_frame - ty * tiles_x;
@@ -724,10 +739,11 @@ template <bool kMalvar, class Rows>
 __device__ __forceinline__ void develop_direct(const uint16_t* __restrict__ raw,
                                                uint32_t* __restrict__ out, int height,
                                                int width, int tiles_x, int tiles_y, int tiles,
-                                               const uint2* __restrict__ quantizer,
+                                               int step_x, int step_y,
+                                               const uint32_t* __restrict__ quantizer,
                                                Rows& rows MCRAW_CK_PARAM) {
   __shared__ __align__(16) float s_tile[kRows][kRowW];
-  __shared__ uint2 s_q[kQuantizer];
+  __shared__ uint32_t s_q[kQuantizer];
 
   const int tid = threadIdx.x;
   for (int i = tid; i < kQuantizer; i += kThreads) {
@@ -738,7 +754,7 @@ __device__ __forceinline__ void develop_direct(const uint16_t* __restrict__ raw,
   int sy[kQuadSteps], sx[kQuadSteps];
   staged_places(sy, sx);
 
-  TileWalk walk(tiles_x, tiles_y);
+  TileWalk walk(tiles_x, tiles_y, step_x, step_y);
   auto at = [&]() {
     const int y0 = walk.y0(), x0 = walk.x0();
     const bool interior = paired && y0 >= kHalo && x0 >= kHalo &&
@@ -784,12 +800,13 @@ __device__ __forceinline__ void develop_direct(const uint16_t* __restrict__ raw,
 template <class P, bool kMalvar>
 __global__ void __launch_bounds__(kThreads, 3)
     develop_kernel(const uint16_t* __restrict__ raw, uint32_t* __restrict__ out, int height,
-                   int width, int tiles_x, int tiles_y, int tiles,
-                   const uint2* __restrict__ quantizer,
+                   int width, int tiles_x, int tiles_y, int tiles, int step_x, int step_y,
+                   const uint32_t* __restrict__ quantizer,
                    const __grid_constant__ DevelopParams p MCRAW_CK_KERNEL_PARAM) {
   MCRAW_CK_KERNEL_INIT
   OneRow<P> rows{p};
-  develop_direct<kMalvar>(raw, out, height, width, tiles_x, tiles_y, tiles, quantizer,
+  develop_direct<kMalvar>(raw, out, height, width, tiles_x, tiles_y, tiles, step_x, step_y,
+                          quantizer,
                           rows MCRAW_CK);
 }
 
@@ -797,12 +814,13 @@ __global__ void __launch_bounds__(kThreads, 3)
 template <bool kMalvar>
 __global__ void __launch_bounds__(kThreads, kRowsBlocks)
     develop_kernel(const uint16_t* __restrict__ raw, uint32_t* __restrict__ out, int height,
-                   int width, int tiles_x, int tiles_y, int tiles,
-                   const uint2* __restrict__ quantizer,
+                   int width, int tiles_x, int tiles_y, int tiles, int step_x, int step_y,
+                   const uint32_t* __restrict__ quantizer,
                    const __grid_constant__ FrameRows frame_rows MCRAW_CK_KERNEL_PARAM) {
   MCRAW_CK_KERNEL_INIT
   PerFrame rows{frame_rows};
-  develop_direct<kMalvar>(raw, out, height, width, tiles_x, tiles_y, tiles, quantizer,
+  develop_direct<kMalvar>(raw, out, height, width, tiles_x, tiles_y, tiles, step_x, step_y,
+                          quantizer,
                           rows MCRAW_CK);
 }
 
@@ -913,12 +931,13 @@ namespace ring {
 template <bool kMalvar, class Rows>
 __device__ __forceinline__ void develop_ring(const CUtensorMap& map, uint32_t* __restrict__ out,
                                              int height, int width, int tiles_x, int tiles_y,
-                                             int tiles, const uint2* __restrict__ quantizer,
+                                             int tiles, int step_x, int step_y,
+                                             const uint32_t* __restrict__ quantizer,
                                              Rows& rows MCRAW_CK_PARAM) {
   extern __shared__ __align__(128) unsigned char s_smem[];
   uint16_t* s_ring = reinterpret_cast<uint16_t*>(s_smem);
   auto s_tile = reinterpret_cast<float (*)[kRowW]>(s_smem + kRingBytes);
-  uint2* s_q = reinterpret_cast<uint2*>(s_smem + kRingBytes + kTileBytes);
+  uint32_t* s_q = reinterpret_cast<uint32_t*>(s_smem + kRingBytes + kTileBytes);
   uint64_t* full =
       reinterpret_cast<uint64_t*>(s_smem + kRingBytes + kTileBytes + kQuantizerBytes);
   uint64_t* empty = full + kRingStages;
@@ -932,7 +951,7 @@ __device__ __forceinline__ void develop_ring(const CUtensorMap& map, uint32_t* _
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  TileWalk walk(tiles_x, tiles_y);
+  TileWalk walk(tiles_x, tiles_y, step_x, step_y);
 
   if (tid >= kThreads) {  // the producer warp: one lane issues every copy
     if (tid == kThreads) {
@@ -997,12 +1016,14 @@ __device__ __forceinline__ void develop_ring(const CUtensorMap& map, uint32_t* _
 template <class P, bool kMalvar>
 __global__ void __launch_bounds__(kRingThreads, kRingBlocks)
     develop_kernel(const __grid_constant__ CUtensorMap map, uint32_t* __restrict__ out,
-                   int height, int width, int tiles_x, int tiles_y, int tiles,
-                   const uint2* __restrict__ quantizer,
+                   int height, int width, int tiles_x, int tiles_y, int tiles, int step_x,
+                   int step_y,
+                   const uint32_t* __restrict__ quantizer,
                    const __grid_constant__ DevelopParams p MCRAW_CK_KERNEL_PARAM) {
   MCRAW_CK_KERNEL_INIT
   OneRow<P> rows{p};
-  develop_ring<kMalvar>(map, out, height, width, tiles_x, tiles_y, tiles, quantizer,
+  develop_ring<kMalvar>(map, out, height, width, tiles_x, tiles_y, tiles, step_x, step_y,
+                        quantizer,
                         rows MCRAW_CK);
 }
 
@@ -1010,12 +1031,14 @@ __global__ void __launch_bounds__(kRingThreads, kRingBlocks)
 template <bool kMalvar>
 __global__ void __launch_bounds__(kRingThreads, kRowsBlocks)
     develop_kernel(const __grid_constant__ CUtensorMap map, uint32_t* __restrict__ out,
-                   int height, int width, int tiles_x, int tiles_y, int tiles,
-                   const uint2* __restrict__ quantizer,
+                   int height, int width, int tiles_x, int tiles_y, int tiles, int step_x,
+                   int step_y,
+                   const uint32_t* __restrict__ quantizer,
                    const __grid_constant__ FrameRows frame_rows MCRAW_CK_KERNEL_PARAM) {
   MCRAW_CK_KERNEL_INIT
   PerFrame rows{frame_rows};
-  develop_ring<kMalvar>(map, out, height, width, tiles_x, tiles_y, tiles, quantizer,
+  develop_ring<kMalvar>(map, out, height, width, tiles_x, tiles_y, tiles, step_x, step_y,
+                        quantizer,
                         rows MCRAW_CK);
 }
 
@@ -1048,7 +1071,7 @@ auto ring_kernel() {
 
 template <class P, bool kMalvar, class Arg>
 cudaError_t launch_direct(const uint16_t* raw, uint32_t* out, int h, int w, int tiles_x,
-                          int tiles_y, int tiles, const uint2* quantizer, const Arg& arg,
+                          int tiles_y, int tiles, const uint32_t* quantizer, const Arg& arg,
                           cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
   const auto kernel = direct_kernel<P, kMalvar>();
   int dev = 0, sms = 0, per_sm = 0;
@@ -1057,8 +1080,10 @@ cudaError_t launch_direct(const uint16_t* raw, uint32_t* out, int h, int w, int 
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);  // tiles < 2^31
+  const int step_y = static_cast<int>(grid) / tiles_x;
+  const int step_x = static_cast<int>(grid) - step_y * tiles_x;
   kernel<<<grid, kThreads, 0, s>>>(
-      raw, out, h, w, tiles_x, tiles_y, tiles, quantizer,
+      raw, out, h, w, tiles_x, tiles_y, tiles, step_x, step_y, quantizer,
       arg MCRAW_CK_LAUNCH(mcraw_check::kDevelop,
                           (std::is_same_v<P, FrameCfa> ? mcraw_check::kEntryDevelopRows
                                                        : mcraw_check::kEntryDevelop)));
@@ -1067,7 +1092,7 @@ cudaError_t launch_direct(const uint16_t* raw, uint32_t* out, int h, int w, int 
 
 template <class P, bool kMalvar, class Arg>
 cudaError_t launch_ring(const CUtensorMap& map, uint32_t* out, int h, int w, int tiles_x,
-                        int tiles_y, int tiles, const uint2* quantizer, const Arg& arg,
+                        int tiles_y, int tiles, const uint32_t* quantizer, const Arg& arg,
                         cudaStream_t s MCRAW_CK_ENTRY_PARAM) {
   constexpr int64_t smem_bytes = kRingSmemBytes;
   const auto kernel = ring_kernel<P, kMalvar>();
@@ -1087,8 +1112,10 @@ cudaError_t launch_ring(const CUtensorMap& map, uint32_t* out, int h, int w, int
     if (dev < kMaxDevices) caps[dev] = cap;
   }
   const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);
+  const int step_y = static_cast<int>(grid) / tiles_x;
+  const int step_x = static_cast<int>(grid) - step_y * tiles_x;
   kernel<<<grid, kRingThreads, smem_bytes, s>>>(
-      map, out, h, w, tiles_x, tiles_y, tiles, quantizer,
+      map, out, h, w, tiles_x, tiles_y, tiles, step_x, step_y, quantizer,
       arg MCRAW_CK_LAUNCH(mcraw_check::kDevelop,
                           (std::is_same_v<P, FrameCfa> ? mcraw_check::kEntryDevelopRowsRing
                                                        : mcraw_check::kEntryDevelopRing)));
@@ -1182,13 +1209,13 @@ int encode_u16_map(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[
 // direct path. params: host pointer to pack_develop_params's row (at least
 // 17 floats); cfa: host pointer to 4 int32 channels, one of the four Bayer
 // patterns (both copied into the kernel's by-value argument); quantizer:
-// device pointer to the kQuantizer (threshold bits, code) pairs of
-// develop.quantizer_table; malvar: 0 bilinear, 1 Malvar. Returns
+// device pointer to the kQuantizer words of develop.quantizer_table;
+// malvar: 0 bilinear, 1 Malvar. Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a size the kernel cannot index or another CFA.
 extern "C" int mcraw_develop(const uint16_t* raw, uint32_t* out, int64_t frames,
                              int64_t height, int64_t width, const float* params,
-                             const int32_t* cfa, const uint2* quantizer, int32_t malvar,
+                             const int32_t* cfa, const uint32_t* quantizer, int32_t malvar,
                              void* stream MCRAW_CK_ENTRY_PARAM) {
   if (frames <= 0 || height <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   int tx = 0, ty = 0, tiles = 0;
@@ -1274,7 +1301,7 @@ bool map_matches(const void* map, const uint16_t* raw, int64_t frames, int64_t h
 // the one this entry encodes from those numbers (a host fault on map).
 extern "C" int mcraw_develop_ring(const uint16_t* raw, uint32_t* out, int64_t frames,
                                   int64_t height, int64_t width, const float* params,
-                                  const int32_t* cfa, const uint2* quantizer, int32_t malvar,
+                                  const int32_t* cfa, const uint32_t* quantizer, int32_t malvar,
                                   const void* map, void* stream MCRAW_CK_ENTRY_PARAM) {
   if (frames <= 0 || height <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   int tx = 0, ty = 0, tiles = 0;
@@ -1323,7 +1350,7 @@ extern "C" int mcraw_develop_ring(const uint16_t* raw, uint32_t* out, int64_t fr
 extern "C" int mcraw_develop_rows(const uint16_t* raw, uint32_t* out, int64_t frames,
                                   int64_t height, int64_t width, const float* rows,
                                   int64_t row_stride, const int32_t* cfas, int64_t cfa_stride,
-                                  const uint2* quantizer, int32_t malvar,
+                                  const uint32_t* quantizer, int32_t malvar,
                                   void* stream MCRAW_CK_ENTRY_PARAM) {
   if (frames <= 0 || height <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
   int tx = 0, ty = 0, tiles = 0;
@@ -1350,7 +1377,7 @@ extern "C" int mcraw_develop_rows(const uint16_t* raw, uint32_t* out, int64_t fr
 extern "C" int mcraw_develop_rows_ring(const uint16_t* raw, uint32_t* out, int64_t frames,
                                        int64_t height, int64_t width, const float* rows,
                                        int64_t row_stride, const int32_t* cfas,
-                                       int64_t cfa_stride, const uint2* quantizer,
+                                       int64_t cfa_stride, const uint32_t* quantizer,
                                        int32_t malvar, const void* map,
                                        void* stream MCRAW_CK_ENTRY_PARAM) {
   if (frames <= 0 || height <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());

@@ -28,9 +28,11 @@ the new kernel's entry zeroes its own output word, the old one's caller
 does (a fill launch, as its wrapper did). The outputs are compared: the
 unpacks element for element and the checksum by value against the plain
 version; develop by the channels that differ from the plain version and
-from the f64 model (the first frame), whether a variant's output equals
-the new kernel's bit for bit, and which path (the ``develop.ring`` and
-``develop.direct`` counters) the new wrapper took. The checksum is also timed at 16 elements: the fixed cost of
+from the f64 model (the first frame), whether each build's output (the
+old one's and the variants') equals the new kernel's bit for bit, each
+build reading the quantizer table of its own layout (:func:`quantizer_for`),
+and which path (the ``develop.ring`` and ``develop.direct`` counters) the
+new wrapper took. The checksum is also timed at 16 elements: the fixed cost of
 a call. Prints one JSON line per result, the card's name and power limit
 first, the ``-Xptxas -v`` lines of every build, and which kernel functions
 compile to the same SASS in the old and the new build (``cuobjdump
@@ -217,11 +219,23 @@ def ab_unpack_modern(libs: dict, dev, n: int) -> None:
           exact={k: bool(torch.equal(v.to(torch.int32), want)) for k, v in got.items()})
 
 
-def ab_develop(libs: dict, dev, n: int) -> None:
+def quantizer_for(csrc: Path, dev) -> torch.Tensor:
+    """The quantizer table that `csrc`'s develop.cu reads, on `dev`: a
+    word a bucket (``develop.quantizer_table``), or, in a csrc older than
+    that layout (its table of ``uint2``), the bucket's (next threshold's
+    float32 bits, base) pair."""
+    if "sizeof(uint2) * kQuantizer" not in (csrc / "develop.cu").read_text():
+        return D._quantizer_on(dev)
+    next_thr, base = D.srgb_quantizer()
+    pairs = np.stack([next_thr.view(np.int32), base.astype(np.int32)], -1)
+    return torch.from_numpy(pairs).to(dev)
+
+
+def ab_develop(libs: dict, tables: dict, dev, n: int) -> None:
+    """`tables`: each library's quantizer table (:func:`quantizer_for`)."""
     params = D.pack_develop_params(*BENCH_DEVELOP_ARGS)
     prm = np.ascontiguousarray(params.reshape(-1))
     cfa32 = np.asarray(RGGB, np.int32)
-    quantizer = D._quantizer_on(dev)
 
     def channels(a):
         a = a.to(torch.int64)
@@ -245,7 +259,7 @@ def ab_develop(libs: dict, dev, n: int) -> None:
 
             def call(name):
                 args = (x.data_ptr(), outs[name].data_ptr(), frames, h, w, prm.ctypes.data,
-                        cfa32.ctypes.data, quantizer.data_ptr(), D.DEMOSAICS.index(mode))
+                        cfa32.ctypes.data, tables[name].data_ptr(), D.DEMOSAICS.index(mode))
 
                 def run():
                     if name in maps:
@@ -299,18 +313,19 @@ def frame_rows(frames: int, seed: int = 19) -> tuple[np.ndarray, np.ndarray]:
     return rows, cfas
 
 
-def ab_develop_rows(libs: dict, dev, n: int) -> None:
+def ab_develop_rows(libs: dict, tables: dict, dev, n: int) -> None:
     """The per-frame develop at the grade step's batch (8 UHD frames, a row
     and a CFA each), timed beside the one-row launch of the same frames
-    (row 0, CFA 0 for all) in the same turns; each output held to single
-    calls with each frame's own row and CFA."""
+    (row 0, CFA 0 for all) in the same turns, each library with its own
+    quantizer table (`tables`); each output held to single calls with each
+    frame's own row and CFA, and to the new kernel's bit for bit."""
     frames, h, w = DEVELOP_SHAPES[-1]
     rng = np.random.default_rng(14)
     x = torch.from_numpy(np.stack([twelve_bit(rng, k, h, w) for k in range(frames)])).to(dev)
     rows, cfas = frame_rows(frames)
     rows_d, cfas_d = torch.from_numpy(rows).to(dev), torch.from_numpy(cfas).to(dev)
     moved = develop_bytes(frames, h, w) + frames * (rows.shape[1] * 4 + 16)
-    quantizer = D._quantizer_on(dev)
+    quantizer = D._quantizer_on(dev)  # the current build's, for the one-row launch
     tmap = D.encode_tensor_map(build.lib(), x.data_ptr(), frames, h, w)
     for mode in D.DEMOSAICS:
         singles = torch.stack([D.develop_rgba_device(x[f], rows[f], cfa=tuple(cfas[f]),
@@ -325,7 +340,7 @@ def ab_develop_rows(libs: dict, dev, n: int) -> None:
                 build.check(libs[name].mcraw_develop_rows_ring(
                     x.data_ptr(), outs[name].data_ptr(), frames, h, w, rows_d.data_ptr(),
                     rows_d.stride(0), cfas_d.data_ptr(), cfas_d.stride(0),
-                    quantizer.data_ptr(), D.DEMOSAICS.index(mode), maps.ctypes.data,
+                    tables[name].data_ptr(), D.DEMOSAICS.index(mode), maps.ctypes.data,
                     stream()), f"{name} develop rows")
             return run
 
@@ -338,9 +353,10 @@ def ab_develop_rows(libs: dict, dev, n: int) -> None:
                 quantizer.data_ptr(), D.DEMOSAICS.index(mode), tmap.ctypes.data, stream()),
                 "one row")
 
-        fns = {"new": lambda: D.develop_rgba_device(x, rows_d, cfa=cfas_d, demosaic=mode),
+        fns = {**({"old": call("old")} if "old" in rows_libs else {}),
+               "new": lambda: D.develop_rgba_device(x, rows_d, cfa=cfas_d, demosaic=mode),
                "one_row": one_row,
-               **{k: call(k) for k in rows_libs if k not in ("new", "old")}}
+               **{k: call(k) for k in rows_libs if k != "old"}}
         with observe.tracing() as record:
             results = {k: f() for k, f in fns.items()}
         torch.cuda.synchronize()
@@ -351,7 +367,9 @@ def ab_develop_rows(libs: dict, dev, n: int) -> None:
               path={k: v for k, v in record.counters.items() if k.startswith("develop.")},
               equals_single_calls={k: bool(torch.equal(v.to(torch.int64),
                                                        singles.to(torch.int64)))
-                                   for k, v in got.items() if k != "one_row"})
+                                   for k, v in got.items() if k != "one_row"},
+              equals_new={k: bool(torch.equal(v.to(torch.int64), got["new"].to(torch.int64)))
+                          for k, v in got.items() if k != "one_row"})
         del outs, results, got, singles
 
 
@@ -471,6 +489,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     build.lib()
     libs = {"old": build.load(build.build(args.old_csrc, build.BUILD_DIR / "ab_old"))}
+    tables = {"old": quantizer_for(args.old_csrc, dev)}
     emit(ptxas_new=ptxas_lines(build.CSRC, build.BUILD_DIR),
          ptxas_old=ptxas_lines(args.old_csrc, build.BUILD_DIR / "ab_old"))
     old = sass_functions(build.library_path(args.old_csrc, build.BUILD_DIR / "ab_old"))
@@ -484,13 +503,14 @@ def main(argv=None) -> int:
         name, csrc = spec.split("=", 1)
         out_dir = build.BUILD_DIR / f"ab_{name}"
         libs[name] = build.load(build.build(Path(csrc), out_dir))
+        tables[name] = quantizer_for(Path(csrc), dev)
         emit(variant=name, ptxas=ptxas_lines(Path(csrc), out_dir))
 
     if "unpack_modern" in kernels:
         ab_unpack_modern(libs, dev, args.n)
     if "develop" in kernels:
-        ab_develop(libs, dev, args.n)
-        ab_develop_rows(libs, dev, args.n)
+        ab_develop(libs, tables, dev, args.n)
+        ab_develop_rows(libs, tables, dev, args.n)
     if "unpack_legacy" in kernels:
         ab_unpack_legacy(libs, dev, args.n)
     if "checksum" in kernels:

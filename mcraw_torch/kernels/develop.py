@@ -134,13 +134,15 @@ def srgb_bucket_starts() -> np.ndarray:
 
 @functools.cache
 def srgb_quantizer() -> tuple[np.ndarray, np.ndarray]:
-    """The kernel's quantizer: (next_thr, base), (SRGB_ENTRIES,) float32
-    and uint8, base[k] the code at bucket k's start and next_thr[k] =
-    thr[base[k] + 1] of :func:`srgb_thresholds`. Buckets are even in log2
-    lin, 128 an octave, so the lin of one warp's neighbouring pixels fall
-    in few, nearby entries; the curve climbs at most ~78 codes an octave
-    (at lin = 1), so a bucket holds at most one threshold, and [0, 2^-13)
-    none (code 1 starts at 1.52e-4): this raises if one held two."""
+    """The kernel's quantizer buckets: (next_thr, base), (SRGB_ENTRIES,)
+    float32 and uint8, base[k] the code at bucket k's start and next_thr[k]
+    = thr[base[k] + 1] of :func:`srgb_thresholds`, the one threshold that
+    can lie inside the bucket. Buckets are even in log2 lin, 128 an octave,
+    so the lin of one warp's neighbouring pixels fall in few, nearby
+    entries; the curve climbs at most ~78 codes an octave (at lin = 1), so
+    a bucket holds at most one threshold, and [0, 2^-13) none (code 1
+    starts at 1.52e-4): this raises if one held two, or bucket 0 one.
+    :func:`quantizer_table` encodes them for the kernel."""
     thr = srgb_thresholds()
     start = srgb_bucket_starts()
     last = np.append(np.nextafter(start[1:], np.float32(0)), np.float32(1.0))
@@ -148,25 +150,38 @@ def srgb_quantizer() -> tuple[np.ndarray, np.ndarray]:
     top = np.searchsorted(thr[1:256], last, side="right")
     if np.any(top - base > 1):
         raise AssertionError("an sRGB quantizer bucket holds two thresholds")
+    if top[0] != base[0]:
+        raise AssertionError("the sRGB quantizer's bucket 0 holds a threshold")
     return np.ascontiguousarray(thr[base + 1]), base.astype(np.uint8)
 
 
-def srgb_quantize(lin) -> np.ndarray:
-    """The kernel's quantizer in NumPy: the code of float32 lin, clipped to
-    [0, 1] first (NaN gives 0), its bucket's base plus one if lin reaches
-    the bucket's next threshold."""
-    lin = np.nan_to_num(np.clip(np.asarray(lin, np.float32), 0, 1))
-    next_thr, base = srgb_quantizer()
-    bits = lin.view(np.int32).astype(np.int64) >> 16  # -0.0 is negative here
-    k = np.maximum(bits, SRGB_BUCKET_BASE) - SRGB_BUCKET_BASE
-    return base[k].astype(np.int64) + (next_thr[k] <= lin)
-
-
 def quantizer_table() -> np.ndarray:
-    """(SRGB_ENTRIES, 2) int32, the kernel's form of :func:`srgb_quantizer`:
-    per entry the float32 bits of next_thr, then base."""
+    """(SRGB_ENTRIES,) int32, the kernel's form of :func:`srgb_quantizer`:
+    one word a bucket, (base << 16) + (0x10000 - T) where the bucket holds
+    a threshold whose float32 bits' low 16 are T, else base << 16. A
+    bucket k >= 1 is the floats whose high 16 bits are SRGB_BUCKET_BASE +
+    k, so its threshold lies inside it exactly when the threshold's high 16
+    bits are those; then for a lin of the bucket with low 16 bits L,
+    (word + L) >> 16 is base + (L >= T), base + (lin >= threshold).
+    6,664 bytes."""
     next_thr, base = srgb_quantizer()
-    return np.stack([next_thr.view(np.int32), base.astype(np.int32)], -1)
+    bits = next_thr.view(np.int32).astype(np.int64)
+    inside = (bits >> 16) == SRGB_BUCKET_BASE + np.arange(SRGB_ENTRIES)
+    inside[0] = False  # bucket 0 gathers every high half up to its own; no threshold
+    word = (base.astype(np.int64) << 16) + np.where(inside, 0x10000 - (bits & 0xFFFF), 0)
+    return word.astype(np.int32)
+
+
+def srgb_quantize(lin) -> np.ndarray:
+    """The kernel's quantizer in NumPy, its integer rule step for step: lin
+    clipped to [0, 1] in float32 (NaN gives 0), its bits; the bucket, the
+    bits' high 16 (an arithmetic shift: -0.0 is negative) floored at
+    SRGB_BUCKET_BASE, less it; the code, the high half of the bucket's
+    :func:`quantizer_table` word plus the bits' low 16. int64 codes."""
+    lin = np.nan_to_num(np.clip(np.asarray(lin, np.float32), 0, 1))
+    bits = lin.view(np.int32).astype(np.int64)
+    k = np.maximum(bits >> 16, SRGB_BUCKET_BASE) - SRGB_BUCKET_BASE
+    return (quantizer_table()[k].astype(np.int64) + (bits & 0xFFFF)) >> 16
 
 
 _QUANTIZER: dict[str, torch.Tensor] = {}
@@ -253,15 +268,32 @@ def develop_rgba_plain(
     raw: (H, W) or (B, H, W) uint16; params: the host row of
     :func:`pack_develop_params`. Returns uint32 RGBA8888 of raw's shape.
 
-    float32 throughout, with the kernel's order of operations: the taps of
-    each sum added in the same order, products and sums rounded one at a
-    time. Shifts are zero padding + slices per frame; there is no conv2d
-    and no matmul, so TF32 cannot enter on the card. The transcendentals
-    are torch's, so kernel and plain version may still differ by one LSB at
-    a rounding boundary."""
+    float32 throughout, with the kernel's order of operations
+    (:func:`develop_lin_plain`), then the sRGB curve in float32. The
+    transcendentals are torch's, where the kernel's curve is the exact
+    quantizer (:func:`srgb_quantize`), so kernel and plain version may
+    still differ by one LSB at a rounding boundary."""
     global PLAIN_CALLS
     with build.COUNTER_LOCK:
         PLAIN_CALLS += 1
+    out = []
+    for lin in develop_lin_plain(raw, params, cfa=cfa, demosaic=demosaic):
+        curve = 1.055 * torch.exp(torch.log(lin.clamp_min(1e-12)) / 2.4) - 0.055
+        srgb = torch.where(lin <= 0.0031308, 12.92 * lin, curve)
+        out.append(torch.round(srgb.clamp(0.0, 1.0) * 255.0))
+    return pack_rgba(*out)
+
+
+def develop_lin_plain(
+    raw: torch.Tensor, params, *, cfa, demosaic: str = "bilinear"
+) -> torch.Tensor:
+    """The develop's linear sRGB before the curve, in plain torch on raw's
+    device: (3, *raw.shape) float32, each channel clipped to [0, 1], the
+    kernel's own values. The taps of each sum are added in the kernel's
+    order and products and sums round one at a time. Shifts are zero
+    padding + slices per frame; there is no conv2d and no matmul, so TF32
+    cannot enter on the card. The kernel's RGBA is :func:`srgb_quantize`
+    of these, channel for channel."""
     _check(raw, cfa, demosaic)
     cfa = tuple(int(c) for c in cfa)
     p = [float(v) for v in _params_row(params)[:N_PARAMS]]
@@ -270,7 +302,7 @@ def develop_rgba_plain(
     _, h, w = frames.shape
     dev = raw.device
     if h == 0 or w == 0:
-        return torch.empty(raw.shape, dtype=torch.uint32, device=dev)
+        return torch.empty((3, *raw.shape), dtype=torch.float32, device=dev)
 
     inv_sc = [float(np.float32(1.0) / (wf - np.float32(bk))) for bk in b]
     bl = site_map(torch.tensor(b, device=dev), h, w)
@@ -316,14 +348,9 @@ def develop_rgba_plain(
                 num = 2.0 * v[0] + v[1] + v[-1]
             rgb.append((num * inv[c] * g[c]).clamp(0.0, 1.0))
 
-    out = []
-    for r in range(3):
-        lin = m[3 * r] * rgb[0] + m[3 * r + 1] * rgb[1] + m[3 * r + 2] * rgb[2]
-        lin = lin.clamp(0.0, 1.0)
-        curve = 1.055 * torch.exp(torch.log(lin.clamp_min(1e-12)) / 2.4) - 0.055
-        srgb = torch.where(lin <= 0.0031308, 12.92 * lin, curve)
-        out.append(torch.round(srgb.clamp(0.0, 1.0) * 255.0))
-    return pack_rgba(*out).reshape(raw.shape)
+    lin = [(m[3 * r] * rgb[0] + m[3 * r + 1] * rgb[1] + m[3 * r + 2] * rgb[2]).clamp(0.0, 1.0)
+           for r in range(3)]
+    return torch.stack(lin).reshape(3, *raw.shape)
 
 
 def zero_fill_exact(params) -> bool:

@@ -348,3 +348,24 @@ def test_kernel_ab_plans_the_develop_at_the_grade_shape(monkeypatch):
     parent = SimpleNamespace(mcraw_develop=None)
     ring = SimpleNamespace(mcraw_develop=None, mcraw_develop_ring=None)
     assert kernel_ab.with_entry({"parent": parent, "v": ring}, "mcraw_develop_ring") == {"v": ring}
+
+
+def test_kernel_ab_gives_each_build_the_quantizer_table_of_its_sources(tmp_path):
+    """kernel_ab hands each build the table its develop.cu reads: today's
+    sources a word a bucket (develop.quantizer_table), sources of the
+    8-byte layout the bucket's (next threshold's bits, base) pair."""
+    import numpy as np
+
+    from mcraw_torch import kernel_ab
+    from mcraw_torch.kernels import develop as D
+
+    words = kernel_ab.quantizer_for(build.CSRC, "cpu")
+    assert words.dtype == torch.int32 and words.shape == (D.SRGB_ENTRIES,)
+    assert np.array_equal(words.numpy(), D.quantizer_table())
+    (tmp_path / "develop.cu").write_text(
+        "constexpr int64_t kQuantizerBytes = sizeof(uint2) * kQuantizer;\n")
+    pairs = kernel_ab.quantizer_for(tmp_path, "cpu").numpy()
+    next_thr, base = D.srgb_quantizer()
+    assert pairs.dtype == np.int32 and pairs.shape == (D.SRGB_ENTRIES, 2)
+    assert np.array_equal(pairs[:, 0].view(np.float32), next_thr)
+    assert np.array_equal(pairs[:, 1], base)

@@ -266,22 +266,89 @@ def test_quantizer_exact_on_a_dense_sample():
 
 
 def test_quantizer_table_layout():
-    """The kernel's (SRGB_ENTRIES, 2) int32 table: next threshold's bits,
-    base code; a bucket starts where lin's bits >> 16 step, each bucket
-    holds at most one threshold; NaN and -0.0 give 0, 1.0 gives 255."""
+    """The kernel's table: one int32 word a bucket, 6,664 bytes; a bucket
+    starts where lin's bits >> 16 step and holds at most one threshold;
+    (word + L) >> 16, L the low 16 bits of lin's float32 bits, is the
+    bucket's base at its start and base + 1 from its threshold on, where
+    its word's low half is 0x10000 less the threshold's low half; NaN and
+    -0.0 give 0, 1.0 gives 255."""
     tab = D.quantizer_table()
     next_thr, base = D.srgb_quantizer()
-    assert tab.shape == (D.SRGB_ENTRIES, 2) and tab.dtype == np.int32
-    assert np.array_equal(tab[:, 0].view(np.float32), next_thr)
-    assert np.array_equal(tab[:, 1], base)
+    assert tab.shape == (D.SRGB_ENTRIES,) and tab.dtype == np.int32 and tab.nbytes == 6664
     start = D.srgb_bucket_starts()
     assert start[1] == np.float32(2.0 ** -13) and start[-1] == 1.0
     assert np.all(np.diff(start) > 0)
     assert np.array_equal(base, D.srgb_code_f64(start))
     assert base[0] == 0 and base[-1] == 255 and next_thr[-1] == np.inf
     assert np.all(next_thr[:-1] >= start[:-1])
+    word = tab.astype(np.int64)
+    low = lambda f: f.view(np.int32).astype(np.int64) & 0xFFFF  # noqa: E731
+    assert np.array_equal((word + low(start)) >> 16, base)
+    end = np.append(np.nextafter(start[1:], np.float32(0)), np.float32(1.0))
+    inside = next_thr <= end
+    assert inside.sum() == 255 and not inside[0]  # every threshold, none in bucket 0
+    t = next_thr[inside]
+    assert np.array_equal((word[inside] + low(t)) >> 16, base[inside].astype(np.int64) + 1)
+    assert np.array_equal(word[inside] & 0xFFFF, (0x10000 - low(t)) & 0xFFFF)
+    assert np.array_equal(word[~inside], base[~inside].astype(np.int64) << 16)
     edge = np.array([np.nan, -0.0, -1.0, 0.0, 1.0, 2.0, np.inf], np.float32)
     assert D.srgb_quantize(edge).tolist() == [0, 0, 0, 0, 255, 255, 255]
+
+
+# Every bucket, in groups: bucket 0 ([0, 2^-13) and -0.0), the thirteen
+# octaves 2^-13 .. 1 of 128 buckets each, and 1.0's bucket.
+BUCKET_GROUPS = [(0, 1)] + [(1 + 128 * o, 129 + 128 * o) for o in range(13)] + [(1665, 1666)]
+
+
+@pytest.mark.parametrize("first, stop", BUCKET_GROUPS)
+def test_quantizer_exact_over_every_bucket(first, stop):
+    """In each bucket of [first, stop): its first float, its last, and its
+    threshold with the threshold's predecessor take srgb_code_f64's code.
+    A bucket holds at most one threshold and the code is monotone, so the
+    code is constant from the bucket's start up to the threshold's
+    predecessor and from the threshold to the bucket's end: these four
+    cover every float32 in [0, 1]."""
+    assert D.SRGB_ENTRIES == BUCKET_GROUPS[-1][1]
+    start = D.srgb_bucket_starts()
+    end = np.append(np.nextafter(start[1:], np.float32(0)), np.float32(1.0))
+    next_thr, _ = D.srgb_quantizer()
+    k = np.arange(first, stop)
+    thr = next_thr[k][next_thr[k] <= end[k]]
+    pred = np.nextafter(thr, np.float32(0))
+    lin = np.concatenate([start[k], end[k], thr, pred]).astype(np.float32)
+    if first == 0:
+        lin = np.append(lin, np.float32(-0.0))
+    assert np.array_equal(D.srgb_quantize(lin), D.srgb_code_f64(lin))
+    # The constant runs: the code at a bucket's start holds up to the
+    # threshold's predecessor (or the bucket's end), and the threshold's up
+    # to the end.
+    has = next_thr[k] <= end[k]
+    upto = np.where(has, np.nextafter(next_thr[k], np.float32(0)), end[k])
+    assert np.array_equal(D.srgb_code_f64(upto), D.srgb_code_f64(start[k]))
+    assert np.array_equal(D.srgb_code_f64(end[k][has]), D.srgb_code_f64(thr))
+
+
+@pytest.mark.parametrize("demosaic", MODES)
+@pytest.mark.parametrize("sensor", SENSORS)
+def test_exact_quantizer_of_plain_lin_within_one_lsb_of_f64(sensor, demosaic):
+    """develop_lin_plain is the plain version before its curve, (3, ...)
+    float32 in [0, 1]; its exact codes (the kernel's RGBA, which the card
+    tests hold bit for bit) are within 1 LSB of the f64 model and of the
+    plain version's float32 curve, and never farther from the model."""
+    cfa = tuple(CFA_PATTERNS[sensor])
+    raw = np.random.default_rng(len(sensor) * 7 + len(demosaic)).integers(
+        0, 4096, size=(2, 21, 38), dtype=np.uint16)
+    params = D.pack_develop_params(BLACK, WHITE, NEUTRAL, FWD)
+    lin = D.develop_lin_plain(torch.from_numpy(raw), params, cfa=cfa, demosaic=demosaic)
+    assert lin.dtype == torch.float32 and lin.shape == (3, *raw.shape)
+    assert bool(((lin >= 0) & (lin <= 1)).all())
+    exact = np.moveaxis(D.srgb_quantize(lin.numpy()), 0, -1)
+    got, _ = channels(plain(raw, cfa, demosaic, params))
+    assert np.abs(exact - got).max() <= 1
+    for f in range(raw.shape[0]):
+        model = P.develop_f64(raw[f], BLACK, WHITE, NEUTRAL, FWD, cfa, demosaic=demosaic)
+        assert np.abs(exact[f] - model).max() <= 1
+        assert (exact[f] != model).sum() <= (got[f] != model).sum()
 
 
 # -- the ring path's host side: which path, and its tensor map -------------------

@@ -621,6 +621,54 @@ def test_develop_misaligned_slice_takes_the_direct_path(cuda):
     assert torch.equal(got.to(torch.int64), want.to(torch.int64))
 
 
+def _exact_rgba(x: torch.Tensor, rows: np.ndarray, cfas: np.ndarray, demosaic: str):
+    """The RGBA every develop form must give bit for bit: the exact sRGB
+    quantizer (srgb_quantize, the count of thresholds at or below lin) of
+    the plain version's float32 lin on the card, each frame with its row
+    and CFA. The kernel computes that lin step for step, so this holds
+    the quantizer's rule itself: the exact code of every lin."""
+    frames = []
+    for f in range(x.shape[0]):
+        lin = D.develop_lin_plain(x[f], rows[f], cfa=tuple(cfas[f]), demosaic=demosaic)
+        codes = [torch.from_numpy(D.srgb_quantize(c.cpu().numpy())) for c in lin]
+        frames.append(D.pack_rgba(*codes))
+    return torch.stack(frames).to(torch.int64)
+
+
+# The grade step's batch (a saturated and a black frame among its 8), the
+# shapes above whose tiles reach past the frame, and the ragged ones.
+EXACT_SHAPES = [(8, 2160, 3840), (1, 16, 128), (2, 5, 64), (3, 37, 250), (4, 66, 1024),
+                (1, 5, 7), (1, 3, 101), (1, 65, 130), (1, 37, 251)]
+
+
+@pytest.mark.parametrize("demosaic", ["bilinear", "malvar"])
+@pytest.mark.parametrize("each", [False, True], ids=["one_row", "row_a_frame"])
+@pytest.mark.parametrize("shape", EXACT_SHAPES)
+def test_develop_every_form_gives_the_exact_code_of_its_lin(cuda, shape, each, demosaic):
+    """Ring and direct, one row and a row a frame, bilinear and Malvar:
+    every channel is the exact quantizer's code of the plain version's lin
+    (the rule of every build of the kernel since the quantizer was exact),
+    so each form's RGBA is bit for bit what it was."""
+    raw = np.random.default_rng(shape[-1] + 1).integers(0, 4096, size=shape, dtype=np.uint16)
+    if shape[0] == 8:
+        raw[1], raw[3] = 4095, 0
+    x = torch.from_numpy(raw).to(cuda)
+    rows, cfas = _frame_rows(shape[0])
+    if not each:
+        rows, cfas = np.repeat(rows[:1], shape[0], 0), np.repeat(cfas[:1], shape[0], 0)
+    want = _exact_rgba(x, rows, cfas, demosaic)
+    paths = []
+    for y in (x, _misaligned(x)):
+        if each:
+            got, path = _rows_path(y, rows, cfas, demosaic=demosaic)
+        else:
+            got, path = _develop_path(y, rows[0], cfa=tuple(cfas[0]), demosaic=demosaic)
+        paths.append(path)
+        differ = int((got.cpu().to(torch.int64) != want).sum())
+        assert differ == 0, f"{path}: {differ} pixels differ"
+    assert paths == ["ring" if shape[-1] % 8 == 0 else "direct", "direct"]
+
+
 def test_preview_on_card(cuda):
     """A modern and a legacy frame through preview_frame_rgba on the card:
     one develop launch each, no plain call, within 1 LSB of the f64 model."""
