@@ -37,7 +37,7 @@ failure exits non-zero and prints no result:
    path its shape gives: the ring where the width is a multiple of 8 and
    the black levels >= 0, else direct); each batched
    unpack (one launch with a frame axis) element-exact against its plain
-   batched version and against one single-frame launch per frame: F = 3 4K
+   batched version and against one launch per frame alone: F = 3 4K
    frames of the decode clips (modern 12-bit, worst case, all-16; legacy
    12-bit, 12-bit, 16-bit), synthetic batches at widths 4000 and 4090
    (modern), 4000 and 33 (legacy), a short encodedHeight, and a frame whose
@@ -170,7 +170,8 @@ failure exits non-zero and prints no result:
    On M: ``load_frame_sharded`` against ``load_frame_device`` per 4K
    frame of each codec, ``decode_batch(mesh=M)`` against ``decode_batch()``
    per frame (modern, F = 8), and the CUDA-event time of the four band
-   launches against one single-frame launch (their outputs held equal).
+   launches against one launch of the whole frame (their outputs held
+   equal).
 
 The line before last is ``{"kernels": [...]}``: one entry per TPU kernel
 of the repo (eight; the routed ones carry the numbers of the CUDA kernel
@@ -600,7 +601,7 @@ def synthetic_modern_batch(rng, ty: int, tx: int, contents, past_end=None):
 
 def encoded_modern_batch(payloads, h: int, w: int):
     """The batched host prep, upload and device prep of encoded payloads,
-    and each frame's single-frame inputs (its own slot of the buffer)."""
+    and each frame's own inputs (its own slot of the buffer)."""
     dev = U.stage_modern_batch(Staging(DEV), payloads, w, h)
     offs = U.block_offsets(dev.bits, modern_tables(DEV))
     batch = (dev.words, dev.bases, dev.lengths, dev.bits, dev.refs, offs)
@@ -629,7 +630,8 @@ def encoded_legacy_batch(payloads, h: int, w: int):
 
 def batch_check(name: str, batched, plain, single, frames, batch, kw, what: str) -> int:
     """One batched launch against its plain batched version and against a
-    single-frame launch per frame, element for element; the max error."""
+    launch per frame of its own inputs alone (`single`, its batch of one),
+    element for element; the max error."""
     launches = COUNTED[name].KERNEL_LAUNCHES
     got = batched(*batch, **kw)
     torch.cuda.synchronize()
@@ -648,7 +650,7 @@ def batch_check(name: str, batched, plain, single, frames, batch, kw, what: str)
 
 def phase_kernels_batch(rng, payloads, lpayloads) -> dict:
     """Each batched unpack (one launch with a frame axis) against its plain
-    batched version and against a single-frame launch per frame: F = 3 4K
+    batched version and against a launch per frame alone: F = 3 4K
     frames of the decode clips (modern: 12-bit, worst case, all-16; legacy:
     12-bit, 12-bit, 16-bit), synthetic batches at widths 4000 and 4090
     (modern) or 4000 and 33 (legacy), a short encodedHeight, and a frame
@@ -2040,14 +2042,14 @@ def medians(split: dict) -> dict:
 
 
 def phase_times(payload: np.ndarray, card: str) -> dict:
-    dev = U.stage_modern(Staging(DEV), payload, W, H)
+    dev = U.stage_modern(Staging(DEV), payload, W, H)  # the batch of one
     offs = U.block_offsets(dev.bits, modern_tables(DEV))
     kw = dict(ty=dev.tiles_y, tx=dev.tiles_x, height=H, width=W)
-    args = (dev.words, dev.bits, dev.refs, offs)
-    img = U.decode_modern_device(*args, **kw)
+    args = (dev.words, dev.bases, dev.lengths, dev.bits, dev.refs, offs)
+    img = U.decode_modern_batch_device(*args, **kw)[0]
     t = {
-        "unpack_ms": time_cuda(lambda: U.decode_modern_device(*args, **kw)),
-        "unpack_plain_ms": time_cuda(lambda: U.decode_modern_plain(*args, **kw)),
+        "unpack_ms": time_cuda(lambda: U.decode_modern_batch_device(*args, **kw)),
+        "unpack_plain_ms": time_cuda(lambda: U.decode_modern_batch_plain(*args, **kw)),
         "checksum_ms": time_cuda(lambda: C.device_checksum(img)),
         "checksum_plain_ms": time_cuda(lambda: C.checksum_plain(img)),
         "checksum_library_ms": library_sum_ms(img),
@@ -2078,7 +2080,8 @@ def phase_times(payload: np.ndarray, card: str) -> dict:
         of = U.block_offsets(dv.bits, modern_tables(DEV))
         torch.cuda.synchronize()
         t3 = clock()
-        U.decode_modern_device(dv.words, dv.bits, dv.refs, of, **kw)
+        U.decode_modern_batch_device(dv.words, dv.bases, dv.lengths, dv.bits, dv.refs, of,
+                                     **kw)
         torch.cuda.synchronize()
         t4 = clock()
         U.decode_modern_frame(payload, W, H, kept)
@@ -2125,11 +2128,11 @@ def phase_times_legacy(payload: np.ndarray, card: str) -> dict:
     """The legacy kernel and its plain version at a 4K 12-bit frame, and
     the legacy load_frame_device split."""
     nblk = L.num_blocks(W, H)
-    dev = L.stage_legacy(Staging(DEV), payload, W, H)
+    dev = L.stage_legacy(Staging(DEV), payload, W, H)  # the batch of one
     kw = dict(height=H, width=W)
     t = {
-        "unpack_legacy_ms": time_cuda(lambda: L.decode_legacy_device(*dev, **kw)),
-        "unpack_legacy_plain_ms": time_cuda(lambda: L.decode_legacy_plain(*dev, **kw)),
+        "unpack_legacy_ms": time_cuda(lambda: L.decode_legacy_batch_device(*dev, **kw)),
+        "unpack_legacy_plain_ms": time_cuda(lambda: L.decode_legacy_batch_plain(*dev, **kw)),
     }
     moved = len(payload) + 2 * H * W + nblk * (4 + 2 + 8)
     t["unpack_legacy_bytes"] = moved
@@ -2156,7 +2159,7 @@ def phase_times_legacy(payload: np.ndarray, card: str) -> dict:
         staging.upload()
         torch.cuda.synchronize()
         t3 = clock()
-        L.decode_legacy_device(*dv, **kw)
+        L.decode_legacy_batch_device(*dv, **kw)
         torch.cuda.synchronize()
         t4 = clock()
         L.decode_legacy(payload, W, H, kept)
@@ -2176,7 +2179,7 @@ def phase_times_batch(clip: Path, legacy_clip: Path, card: str) -> dict:
     same decode_batch through a new Staging each turn (cold: its host
     buffer's pages touched for the first time), and load_frame_device of
     the same frames in the same turns; CUDA-event medians of the batched
-    launch against F single-frame launches on the same inputs; and the
+    launch against F launches of a frame each on the same inputs; and the
     FrameDecoder against load_frame_device, per frame."""
     clock = time.perf_counter
     t = {}
@@ -2242,15 +2245,13 @@ def phase_times_batch(clip: Path, legacy_clip: Path, card: str) -> dict:
                  cold_per_frame_ms=med["decode_batch_cold_ms"] / n,
                  load_frame_device_per_frame_ms=med["load_frame_device_ms"] / n, **med)
 
-            # The batched launch against F single launches, same inputs.
-            if codec == "modern":
-                batched, single = U.decode_modern_batch_device, U.decode_modern_device
-            else:
-                batched, single = L.decode_legacy_batch_device, L.decode_legacy_device
-            frames = [(batch[0][lo : lo + m], *(a[f] for a in batch[3:]))
-                      for f, (lo, m) in enumerate(zip(batch[1].tolist(), batch[2].tolist()))]
+            # The batched launch against F launches of a frame each (its
+            # batch of one), same inputs.
+            batched = (U.decode_modern_batch_device if codec == "modern"
+                       else L.decode_legacy_batch_device)
+            frames = [(batch[0], *(a[f : f + 1] for a in batch[1:])) for f in range(n)]
             batch_ms = time_cuda(lambda: batched(*batch, **kw), spin=MULTI_SPIN_CYCLES)
-            singles_ms = time_cuda(lambda: [single(*f, **kw) for f in frames],
+            singles_ms = time_cuda(lambda: [batched(*f, **kw) for f in frames],
                                    spin=MULTI_SPIN_CYCLES)
             moved = (sum(len(p) for p in payloads) + 2 * n * H * W
                      + batch[3].numel() * (batch[3].element_size() + 2 + 8))
@@ -2421,18 +2422,18 @@ def phase_times_export(clips: dict, card: str, work: Path) -> None:
 
 
 def band_calls(codec: str, payload: np.ndarray, n: int):
-    """A 4K frame's inputs staged on the card once: (one single-frame
-    launch, [n band launches]) as calls, the bands those of
-    parallel.decode_frame_sharded, on one stream."""
+    """A 4K frame's inputs staged on the card once, the batch of one: (one
+    launch of the whole frame, [n band launches]) as calls, the bands those
+    of parallel.decode_frame_sharded, on one stream."""
     if codec == "modern":
         dv = U.stage_modern(Staging(DEV), payload, W, H)
-        args = (dv.words, dv.bits, dv.refs, U.block_offsets(dv.bits, modern_tables(DEV)))
+        args = (*dv[:5], U.block_offsets(dv.bits, modern_tables(DEV)))
         kw = dict(ty=dv.tiles_y, tx=dv.tiles_x, height=H, width=W)
-        return (lambda: U.decode_modern_device(*args, **kw),
+        return (lambda: U.decode_modern_batch_device(*args, **kw)[0],
                 [lambda lo=lo, hi=hi: PAR.modern_band(*args, lo, hi, **kw)
                  for lo, hi in PAR.band_rows(-(-H // 4), n)])
     dv = L.stage_legacy(Staging(DEV), payload, W, H)
-    return (lambda: L.decode_legacy_device(*dv, height=H, width=W),
+    return (lambda: L.decode_legacy_batch_device(*dv, height=H, width=W)[0],
             [lambda lo=lo, hi=hi: PAR.legacy_band(*dv, lo, hi, width=W)
              for lo, hi in PAR.band_rows(H, n)])
 
@@ -2443,8 +2444,8 @@ def phase_times_mesh(clip: Path, legacy_clip: Path, card: str) -> dict:
     load_frame_device (host clock, synchronized, median of 5); for the
     modern clip's frames repeated to 8, decode_batch(mesh=M) against
     decode_batch() per frame (median of 3); and CUDA-event medians of the
-    four band launches against one single-frame launch on the same staged
-    inputs (their outputs held equal)."""
+    four band launches against one launch of the whole frame on the same
+    staged inputs (their outputs held equal)."""
     clock = time.perf_counter
     mesh = card_mesh()
     t = {}
@@ -2470,7 +2471,7 @@ def phase_times_mesh(clip: Path, legacy_clip: Path, card: str) -> dict:
             single, bands = band_calls(codec, np.asarray(d._reader.frame_payload(ts)[0]), MESH_N)
             whole = torch.cat([b() for b in bands])
             check(torch.equal(whole.to(torch.int32), single().to(torch.int32)),
-                  f"{codec}: {MESH_N} bands != one single-frame launch")
+                  f"{codec}: {MESH_N} bands != one launch of the whole frame")
             k = {"single_ms": time_cuda(single, spin=MULTI_SPIN_CYCLES),
                  "bands_ms": time_cuda(lambda: [b() for b in bands], spin=MULTI_SPIN_CYCLES)}
             emit("times_kernels", card=card, frame=f"{codec} {W}x{H} 12-bit", n=N_TIMED,

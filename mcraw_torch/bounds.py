@@ -46,7 +46,7 @@ from .kernels import legacy as L
 from .kernels import offsets as O
 from .kernels import tables as T
 from .kernels import unpack as U
-from .kernels.staging import Staging
+from .kernels.staging import Staging, batch_of_one
 from .kernels.tables import modern_tables
 from .metadata import CFA_PATTERNS
 
@@ -226,7 +226,7 @@ def _inputs(dev) -> tuple[dict, dict]:
     x = torch.from_numpy(_image(rng, 256, 256)).to(dev)
     bits = torch.from_numpy(rng.integers(0, 1 << 16, size=OFFSETS_BLOCKS, dtype=np.uint16))
     bits = bits.to(dev)
-    last = int(U.block_offsets(modern.bits, modern_tables(dev))[-1])
+    last = int(U.block_offsets(modern.bits, modern_tables(dev))[0, -1])
     cuts = {("unpack_modern", "words"): 4 * modern.words.numel() - last // 16 * 16,
             ("develop", "params"): params.nbytes - 64,
             ("develop", "rows"): rows.nbytes - 4 * ((len(rows) - 1) * rows.shape[1] + 16)}
@@ -262,9 +262,9 @@ def clean_cases(dev) -> list[tuple[str, str, Callable[[], torch.Tensor]]]:
     for past_end in (False, True):
         cases.append((f"legacy batch, synthetic{', past its end' * past_end}",
                       "unpack_legacy", _legacy_batch(rng, dev, past_end)))
-    single = _legacy_synthetic(rng, *LEGACY, dev, True)
+    single = batch_of_one(*_legacy_synthetic(rng, *LEGACY, dev, True))
     cases.append(("legacy frame, past its end", "unpack_legacy",
-                  lambda: L.decode_legacy_device(*single, height=lh, width=lw)))
+                  lambda: L.decode_legacy_batch_device(*single, height=lh, width=lw)))
     params = D.pack_develop_params(*DEVELOP_PARAMS)
     frames = torch.from_numpy(_image(rng, 3 * 5, 250).reshape(3, 5, 250)).to(dev)
     ring = torch.from_numpy(_image(rng, 3 * 66, 1024).reshape(3, 66, 1024)).to(dev)

@@ -212,33 +212,13 @@ int64_t launch_tiles(int64_t frames, int64_t nblk, int64_t status_words) {
 
 }  // namespace
 
-// Writes the (nblk,) int64 offsets of one frame's (nblk,) uint16 bits.
-// status: status_words >= 1 + ceil(nblk / kTile) int64 of scratch, zeroed
-// here on `stream` before the launch. Returns cudaGetLastError() after the
-// launch (0 on success; nothing is enqueued for nblk = 0), or
-// cudaErrorInvalidValue for a scratch too small.
-extern "C" int mcraw_block_offsets(const uint16_t* bits, int64_t nblk, int64_t* out,
-                                   unsigned long long* status, int64_t status_words,
-                                   void* stream MCRAW_CK_ENTRY_PARAM) {
-  const int64_t tiles = launch_tiles(1, nblk, status_words);
-  if (tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (tiles == 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t scratch = static_cast<size_t>(1 + tiles) * sizeof(unsigned long long);
-  MCRAW_CK_HOST(mcraw_check::kBlockOffsets, mcraw_check::kEntryBlockOffsets, kBufStatus, kStore,
-                static_cast<int64_t>(scratch))
-  const cudaError_t err = cudaMemsetAsync(status, 0, scratch, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  block_offsets_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-      bits, nblk, tiles, out,
-      status MCRAW_CK_LAUNCH(mcraw_check::kBlockOffsets, mcraw_check::kEntryBlockOffsets));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The batch: row f of the (frames, nblk) bits into row f of the (frames,
-// nblk) offsets, each row its own scan from 16, in one launch. status:
-// status_words >= 1 + frames * ceil(nblk / kTile). Returns as
-// mcraw_block_offsets.
+// Row f of the (frames, nblk) uint16 bits into row f of the (frames, nblk)
+// int64 offsets, each row its own scan from 16, in one launch (one frame's
+// bits are the batch of one). status: status_words >= 1 + frames *
+// ceil(nblk / kTile) int64 of scratch, zeroed here on `stream` before the
+// launch. Returns cudaGetLastError() after the launch (0 on success;
+// nothing is enqueued for no blocks), or cudaErrorInvalidValue for a
+// scratch too small.
 extern "C" int mcraw_block_offsets_batch(const uint16_t* bits, int64_t frames, int64_t nblk,
                                          int64_t* out, unsigned long long* status,
                                          int64_t status_words,

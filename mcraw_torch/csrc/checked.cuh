@@ -64,13 +64,10 @@ constexpr int kMaxBuffers = 16;
 
 enum Kernel : int { kUnpackModern = 0, kUnpackLegacy, kDevelop, kChecksum, kBlockOffsets };
 enum Entry : int {
-  kEntryUnpackModern = 0,
-  kEntryUnpackModernBatch,
-  kEntryUnpackLegacy,
+  kEntryUnpackModernBatch = 0,
   kEntryUnpackLegacyBatch,
   kEntryDevelop,
   kEntryChecksum,
-  kEntryBlockOffsets,
   kEntryBlockOffsetsBatch,
   kEntryDevelopRing,
   kEntryDevelopRows,

@@ -48,16 +48,16 @@
 //   per-byte bounded reads from device memory. Either way a byte at or past
 //   n_bytes reads as 0: the staged copy zero-fills it, so no input is read
 //   past its end.
-// - A batch of F frames of one geometry is one launch of the same kernel
-//   with a frame axis (blockIdx.y = f). Frame f reads its own bytes
-//   [bases[f], bases[f] + lengths[f]) of one concatenated buffer (both
-//   clamped to the buffer), its own rows of the (F, nblk) bits, refs and
-//   frame-local offsets, and writes its own (height, width) plane of the
-//   (F, height, width) output: the span check and every bounded read use
-//   the frame's own length, so a byte at or past it reads as 0, never as
-//   the next frame's, and each frame is exactly what a single-frame launch
-//   on its inputs gives. Indices within a frame stay 32-bit; the frame's
-//   base pointers are int64.
+// - Every launch is a batch of F frames of one geometry (a single frame is
+//   the batch of one), with a frame axis (blockIdx.y = f). Frame f reads
+//   its own bytes [bases[f], bases[f] + lengths[f]) of one concatenated
+//   buffer (both clamped to the buffer), its own rows of the (F, nblk)
+//   bits, refs and frame-local offsets, and writes its own (height, width)
+//   plane of the (F, height, width) output: the span check and every
+//   bounded read use the frame's own length, so a byte at or past it reads
+//   as 0, never as the next frame's, and each frame is exactly what a batch
+//   of that frame alone gives. Indices within a frame stay 32-bit; the
+//   frame's base pointers are int64.
 
 #include <cstdint>
 
@@ -141,11 +141,9 @@ __device__ __forceinline__ void quad_values(uint64_t win, int c, int q, uint32_t
   }
 }
 
-// kBatch false: one frame, the pointers as given. kBatch true: frame
-// blockIdx.y of a batch; payload is the concatenated buffer of n_bytes
-// bytes, bases / lengths its (F,) per-frame spans, nblk the stride of the
-// metadata rows and frame_elems that of the output planes.
-template <bool kBatch>
+// Frame blockIdx.y of a batch: payload is the concatenated buffer of
+// n_bytes bytes, bases / lengths its (F,) per-frame spans, nblk the stride
+// of the metadata rows and frame_elems that of the output planes.
 __global__ void __launch_bounds__(kThreads) unpack_legacy_kernel(
     const uint8_t* __restrict__ payload, int64_t n_bytes, const int32_t* __restrict__ bits,
     const uint16_t* __restrict__ refs, const int64_t* __restrict__ offsets,
@@ -153,20 +151,18 @@ __global__ void __launch_bounds__(kThreads) unpack_legacy_kernel(
     const int64_t* __restrict__ bases, const int64_t* __restrict__ lengths, int64_t nblk,
     int64_t frame_elems MCRAW_CK_KERNEL_PARAM) {
   MCRAW_CK_KERNEL_INIT
-  if constexpr (kBatch) {
-    const int64_t f = blockIdx.y;
-    int64_t base = MCRAW_LD(kBufBases, bases, f);
-    int64_t len = MCRAW_LD(kBufLengths, lengths, f);
-    MCRAW_CK_WINDOW(kBufPayload, payload, base, len, 1)
-    base = base < 0 ? 0 : (base > n_bytes ? n_bytes : base);
-    len = len < 0 ? 0 : (len > n_bytes - base ? n_bytes - base : len);
-    payload += base;
-    n_bytes = len;
-    bits += f * nblk;
-    refs += f * nblk;
-    offsets += f * nblk;
-    out += f * frame_elems;
-  }
+  const int64_t f = blockIdx.y;
+  int64_t base = MCRAW_LD(kBufBases, bases, f);
+  int64_t len = MCRAW_LD(kBufLengths, lengths, f);
+  MCRAW_CK_WINDOW(kBufPayload, payload, base, len, 1)
+  base = base < 0 ? 0 : (base > n_bytes ? n_bytes : base);
+  len = len < 0 ? 0 : (len > n_bytes - base ? n_bytes - base : len);
+  payload += base;
+  n_bytes = len;
+  bits += f * nblk;
+  refs += f * nblk;
+  offsets += f * nblk;
+  out += f * frame_elems;
   __shared__ __align__(16) uint32_t s_span[kSpanWords];
   __shared__ int64_t s_off[kRunBlocks];
   __shared__ int32_t s_cls[kRunBlocks];
@@ -259,35 +255,15 @@ __global__ void __launch_bounds__(kThreads) unpack_legacy_kernel(
 
 }  // namespace
 
-// Writes the whole (height, width) uint16 plane `out`; padded_width is the
-// width rounded up to a multiple of 32, and bits/refs/offsets hold
-// height * padded_width / 16 blocks. One block of threads for each run of
-// kRunPairs pairs. Returns cudaGetLastError() after the launch (0 on
-// success).
-extern "C" int mcraw_unpack_legacy(const uint8_t* payload, int64_t n_bytes,
-                                   const int32_t* bits, const uint16_t* refs,
-                                   const int64_t* offsets, uint16_t* out,
-                                   int64_t height, int64_t width,
-                                   int64_t padded_width, void* stream MCRAW_CK_ENTRY_PARAM) {
-  const int64_t pairs_per_row = padded_width / 32;
-  const int64_t pairs = height * pairs_per_row;
-  if (pairs <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
-  if (pairs > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t runs = (pairs + kRunPairs - 1) / kRunPairs;
-  unpack_legacy_kernel<false><<<static_cast<unsigned>(runs), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      payload, n_bytes, bits, refs, offsets, out, pairs, pairs_per_row, width, nullptr,
-      nullptr, 0, 0 MCRAW_CK_LAUNCH(mcraw_check::kUnpackLegacy, mcraw_check::kEntryUnpackLegacy));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The batch: frame f of `frames` (<= 65,535, the grid's y limit) unpacks
-// bytes [bases[f], bases[f] + lengths[f]) of the n_bytes-byte buffer
-// `payload` (clamped to it) with row f of the (frames, nblk) bits, refs and
-// offsets into plane f (height * width apart) of `out`; height, width and
-// padded_width as for mcraw_unpack_legacy, shared by every frame. bases
-// and lengths are device arrays of int64 bytes. Returns cudaGetLastError()
-// after the launch (0 on success).
+// Frame f of `frames` (<= 65,535, the grid's y limit; a single frame is
+// frames = 1) unpacks bytes [bases[f], bases[f] + lengths[f]) of the
+// n_bytes-byte buffer `payload` (clamped to it) with row f of the (frames,
+// nblk) bits, refs and offsets into the whole (height, width) uint16 plane
+// f (height * width apart) of `out`; padded_width is the width rounded up
+// to a multiple of 32, and a row of bits/refs/offsets holds nblk = height *
+// padded_width / 16 blocks. One block of threads for each run of kRunPairs
+// pairs and frame. bases and lengths are device arrays of int64 bytes.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int mcraw_unpack_legacy_batch(const uint8_t* payload, int64_t n_bytes,
                                          const int64_t* bases, const int64_t* lengths,
                                          int64_t frames, const int32_t* bits,
@@ -301,7 +277,7 @@ extern "C" int mcraw_unpack_legacy_batch(const uint8_t* payload, int64_t n_bytes
   if (pairs > 0x7FFFFFFF || frames > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t runs = (pairs + kRunPairs - 1) / kRunPairs;
   const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(frames));
-  unpack_legacy_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  unpack_legacy_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       payload, n_bytes, bits, refs, offsets, out, pairs, pairs_per_row, width, bases, lengths,
       2 * pairs,
       height * width MCRAW_CK_LAUNCH(mcraw_check::kUnpackLegacy,

@@ -44,13 +44,13 @@
 //   8-byte aligned, or a span larger than the staging buffer) send the run
 //   to per-word reads from device memory; either way a word outside the
 //   payload reads as 0, so a malformed offset never reads past the buffer.
-// - A batch of F frames of one geometry is one launch of the same kernel
-//   with a frame axis (blockIdx.y = f). Frame f reads its own words
-//   [bases[f], bases[f] + lengths[f]) of one concatenated buffer (both
-//   clamped to the buffer), its own rows of the (F, nblk) bits, refs and
-//   frame-local offsets, and writes its own (height, width) plane of the
-//   (F, height, width) output, so it computes exactly what a single-frame
-//   launch on those inputs computes: a word at or past the frame's own
+// - Every launch is a batch of F frames of one geometry (a single frame is
+//   the batch of one), with a frame axis (blockIdx.y = f). Frame f reads
+//   its own words [bases[f], bases[f] + lengths[f]) of one concatenated
+//   buffer (both clamped to the buffer), its own rows of the (F, nblk)
+//   bits, refs and frame-local offsets, and writes its own (height, width)
+//   plane of the (F, height, width) output, so it computes exactly what a
+//   batch of that frame alone computes: a word at or past the frame's own
 //   length reads as 0, never as the next frame's. Indices within a frame
 //   stay 32-bit; the frame's base pointers are int64.
 
@@ -159,11 +159,9 @@ __device__ __forceinline__ void block_values(const Words<kStaged>& w, const int4
   }
 }
 
-// kBatch false: one frame, the pointers as given. kBatch true: frame
-// blockIdx.y of a batch; words is the concatenated buffer of n_words words,
-// bases / lengths its (F,) per-frame spans, nblk the stride of the
+// Frame blockIdx.y of a batch: words is the concatenated buffer of n_words
+// words, bases / lengths its (F,) per-frame spans, nblk the stride of the
 // metadata rows and frame_elems that of the output planes.
-template <bool kBatch>
 __global__ void __launch_bounds__(kThreads) unpack_modern_kernel(
     const int32_t* __restrict__ words, int64_t n_words, const uint16_t* __restrict__ bits,
     const uint16_t* __restrict__ refs, const int64_t* __restrict__ offsets,
@@ -172,20 +170,18 @@ __global__ void __launch_bounds__(kThreads) unpack_modern_kernel(
     const int64_t* __restrict__ bases, const int64_t* __restrict__ lengths, int64_t nblk,
     int64_t frame_elems MCRAW_CK_KERNEL_PARAM) {
   MCRAW_CK_KERNEL_INIT
-  if constexpr (kBatch) {
-    const int64_t f = blockIdx.y;
-    int64_t base = MCRAW_LD(kBufBases, bases, f);
-    int64_t len = MCRAW_LD(kBufLengths, lengths, f);
-    MCRAW_CK_WINDOW(kBufWords, words, base, len, 4)
-    base = base < 0 ? 0 : (base > n_words ? n_words : base);
-    len = len < 0 ? 0 : (len > n_words - base ? n_words - base : len);
-    words += base;
-    n_words = len;
-    bits += f * nblk;
-    refs += f * nblk;
-    offsets += f * nblk;
-    out += f * frame_elems;
-  }
+  const int64_t f = blockIdx.y;
+  int64_t base = MCRAW_LD(kBufBases, bases, f);
+  int64_t len = MCRAW_LD(kBufLengths, lengths, f);
+  MCRAW_CK_WINDOW(kBufWords, words, base, len, 4)
+  base = base < 0 ? 0 : (base > n_words ? n_words : base);
+  len = len < 0 ? 0 : (len > n_words - base ? n_words - base : len);
+  words += base;
+  n_words = len;
+  bits += f * nblk;
+  refs += f * nblk;
+  offsets += f * nblk;
+  out += f * frame_elems;
   __shared__ int4 s_desc[kDesc];
   __shared__ __align__(16) uint32_t s_words[kSpanWords];
   __shared__ int64_t s_off[kRunBlocks];
@@ -289,36 +285,17 @@ __global__ void __launch_bounds__(kThreads) unpack_modern_kernel(
 
 }  // namespace
 
-// Writes rows [0, rows) of the (., width) uint16 plane `out` from the first
-// `tiles` tiles (tiles = ceil(rows / 4) * tx), one block of threads for each
-// run of kRunTiles; rows past them keep whatever the caller allocated (zeros
-// for a short encodedHeight). desc is the (10, 49) int4 table of
-// tables.pack_quad_descriptors. Returns cudaGetLastError() after the launch
-// (0 on success).
-extern "C" int mcraw_unpack_modern(const int32_t* words, int64_t n_words,
-                                   const uint16_t* bits, const uint16_t* refs,
-                                   const int64_t* offsets, const int32_t* desc,
-                                   const int64_t* class_index, uint16_t* out, int64_t tx,
-                                   int64_t tiles, int64_t rows, int64_t width,
-                                   void* stream MCRAW_CK_ENTRY_PARAM) {
-  if (tiles <= 0 || rows <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
-  const int64_t runs = (tiles + kRunTiles - 1) / kRunTiles;
-  if (runs > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  unpack_modern_kernel<false><<<static_cast<unsigned>(runs), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      words, n_words, bits, refs, offsets, reinterpret_cast<const int4*>(desc), class_index,
-      out, tx, tiles, rows, width, nullptr, nullptr, 0,
-      0 MCRAW_CK_LAUNCH(mcraw_check::kUnpackModern, mcraw_check::kEntryUnpackModern));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The batch: frame f of `frames` (<= 65,535, the grid's y limit) unpacks
-// words [bases[f], bases[f] + lengths[f]) of the n_words-word buffer
-// `words` (clamped to it) with row f of the (frames, nblk) bits, refs and
-// offsets into plane f (frame_elems = height * width apart) of `out`; tx,
-// tiles, rows and width as for mcraw_unpack_modern, shared by every frame.
-// bases and lengths are device arrays of int64 words. Returns
-// cudaGetLastError() after the launch (0 on success).
+// Frame f of `frames` (<= 65,535, the grid's y limit; a single frame is
+// frames = 1) unpacks words [bases[f], bases[f] + lengths[f]) of the
+// n_words-word buffer `words` (clamped to it) with row f of the (frames,
+// nblk) bits, refs and offsets into plane f (frame_elems = height * width
+// apart) of `out`: rows [0, rows) of each (., width) uint16 plane from its
+// first `tiles` tiles (tiles = ceil(rows / 4) * tx), one block of threads
+// for each run of kRunTiles and frame; rows past them keep whatever the
+// caller allocated (zeros for a short encodedHeight). bases and lengths
+// are device arrays of int64 words; desc is the (10, 49) int4 table of
+// tables.pack_quad_descriptors. Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int mcraw_unpack_modern_batch(const int32_t* words, int64_t n_words,
                                          const int64_t* bases, const int64_t* lengths,
                                          int64_t frames, int64_t nblk, const uint16_t* bits,
@@ -333,7 +310,7 @@ extern "C" int mcraw_unpack_modern_batch(const int32_t* words, int64_t n_words,
   const int64_t runs = (tiles + kRunTiles - 1) / kRunTiles;
   if (runs > 0x7FFFFFFF || frames > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(frames));
-  unpack_modern_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  unpack_modern_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       words, n_words, bits, refs, offsets, reinterpret_cast<const int4*>(desc), class_index,
       out, tx, tiles, rows, width, bases, lengths, nblk,
       frame_elems MCRAW_CK_LAUNCH(mcraw_check::kUnpackModern,

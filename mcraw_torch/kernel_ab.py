@@ -9,13 +9,14 @@ card.
 OLD_CSRC is a directory with an earlier ``mcraw_torch/csrc`` (for example
 unpacked from ``git archive <commit> mcraw_torch/csrc`` into a git-ignored
 directory) whose entry points keep today's signatures (those of commit
-e0e1669 and later). A variant is a full copy of today's ``csrc`` with an
-edit (same entry points), for a diagnostic or a candidate. Every library
-is built with the same flags. Each kernel is timed at a 4096x3072 12-bit
-frame, the develop also at the grade step's batch of 8 3840x2160 frames
-(and there with a row and a CFA for each frame, beside the one-row launch
-of the same frames, where a build has the per-frame entry)
-(CUDA-event median of n launches, the 50 MB L2 flushed before each
+f00dff1 and later, which have the unpacks' batch entries). A variant is a
+full copy of today's ``csrc`` with an edit (same entry points), for a
+diagnostic or a candidate. Every library is built with the same flags.
+Each kernel is timed at a 4096x3072 12-bit frame (the unpacks and the
+device prep as the batch of one), the develop also at the grade step's
+batch of 8 3840x2160 frames (and there with a row and a CFA for each
+frame, beside the one-row launch of the same frames, where a build has the
+per-frame entry) (CUDA-event median of n launches, the 50 MB L2 flushed before each
 by writing 256 MB, as chip_smoke.py does, and again by reading them) in
 the order old, new, variants, the variants again in reverse, new, old:
 the modern unpack on ``encode_modern``'s payload, the legacy unpack on
@@ -191,28 +192,30 @@ def offsets_bytes(frames: int, nblk: int) -> int:
 def ab_unpack_modern(libs: dict, dev, n: int) -> None:
     rng = np.random.default_rng(21)
     payload = np.frombuffer(E.encode_modern(twelve_bit(rng, 0)), np.uint8)
-    frame = U.stage_modern(Staging(dev), payload, W, H)
+    frame = U.stage_modern(Staging(dev), payload, W, H)  # the batch of one
     tab = modern_tables(dev)
     offs = U.block_offsets(frame.bits, tab)
+    args = (frame.words, frame.bases, frame.lengths, frame.bits, frame.refs, offs)
     kw = dict(ty=frame.tiles_y, tx=frame.tiles_x, height=H, width=W)
-    outs = {k: torch.empty((H, W), dtype=torch.uint16, device=dev) for k in libs}
+    nblk = frame.bits.numel()
+    outs = {k: torch.empty((1, H, W), dtype=torch.uint16, device=dev) for k in libs}
 
     def call(name):
         def run():
-            build.check(libs[name].mcraw_unpack_modern(
-                frame.words.data_ptr(), frame.words.numel(), frame.bits.data_ptr(),
+            build.check(libs[name].mcraw_unpack_modern_batch(
+                frame.words.data_ptr(), frame.words.numel(), frame.bases.data_ptr(),
+                frame.lengths.data_ptr(), 1, nblk, frame.bits.data_ptr(),
                 frame.refs.data_ptr(), offs.data_ptr(), tab.quads.data_ptr(),
-                tab.class_index.data_ptr(), outs[name].data_ptr(), frame.tiles_x,
-                frame.tiles_y * frame.tiles_x, H, W, stream()), f"{name} mcraw_unpack_modern")
+                tab.class_index.data_ptr(), outs[name].data_ptr(), H * W, frame.tiles_x,
+                frame.tiles_y * frame.tiles_x, H, W, stream()),
+                f"{name} mcraw_unpack_modern_batch")
         return run
 
-    fns = in_turns(libs, call, lambda: U.decode_modern_device(
-        frame.words, frame.bits, frame.refs, offs, **kw))
+    fns = in_turns(libs, call, lambda: U.decode_modern_batch_device(*args, **kw))
     results = {k: f() for k, f in fns.items()}
-    want = U.decode_modern_plain(frame.words, frame.bits, frame.refs, offs, **kw).to(torch.int32)
+    want = U.decode_modern_batch_plain(*args, **kw).to(torch.int32)
     torch.cuda.synchronize()
     got = {k: results["new"] if k == "new" else outs[k] for k in fns}
-    nblk = frame.bits.numel()
     moved = len(payload) + nblk * (2 + 2 + 8) + 2 * H * W
     turns("unpack_modern", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
           frame=f"{W}x{H} 12-bit", bytes=moved,
@@ -380,23 +383,23 @@ def legacy_image() -> np.ndarray:
 
 def ab_unpack_legacy(libs: dict, dev, n: int) -> None:
     payload = np.frombuffer(E.encode_legacy(legacy_image()), np.uint8)
-    frame = L.stage_legacy(Staging(dev), payload, W, H)
+    frame = L.stage_legacy(Staging(dev), payload, W, H)  # the batch of one
     scan = L.scan_chain(payload, L.num_blocks(W, H))[1]
-    args = (frame.payload, frame.bits, frame.refs, frame.offsets)
     kw = dict(height=H, width=W)
-    outs = {k: torch.empty((H, W), dtype=torch.uint16, device=dev) for k in libs}
+    outs = {k: torch.empty((1, H, W), dtype=torch.uint16, device=dev) for k in libs}
 
     def call(name):
         def run():
-            build.check(libs[name].mcraw_unpack_legacy(
-                frame.payload.data_ptr(), frame.payload.numel(), frame.bits.data_ptr(),
-                frame.refs.data_ptr(), frame.offsets.data_ptr(), outs[name].data_ptr(),
-                H, W, R.legacy_padded_width(W), stream()), f"{name} mcraw_unpack_legacy")
+            build.check(libs[name].mcraw_unpack_legacy_batch(
+                frame.payload.data_ptr(), frame.payload.numel(), frame.bases.data_ptr(),
+                frame.lengths.data_ptr(), 1, frame.bits.data_ptr(), frame.refs.data_ptr(),
+                frame.offsets.data_ptr(), outs[name].data_ptr(), H, W,
+                R.legacy_padded_width(W), stream()), f"{name} mcraw_unpack_legacy_batch")
         return run
 
-    fns = in_turns(libs, call, lambda: L.decode_legacy_device(*args, **kw))
+    fns = in_turns(libs, call, lambda: L.decode_legacy_batch_device(*frame, **kw))
     results = {k: f() for k, f in fns.items()}
-    want = L.decode_legacy_plain(*args, **kw).to(torch.int32)
+    want = L.decode_legacy_batch_plain(*frame, **kw).to(torch.int32)
     torch.cuda.synchronize()
     got = {k: results["new"] if k == "new" else outs[k] for k in fns}
     nblk = L.num_blocks(W, H)
@@ -409,22 +412,21 @@ def ab_unpack_legacy(libs: dict, dev, n: int) -> None:
 def ab_block_offsets(libs: dict, dev, n: int) -> None:
     rng = np.random.default_rng(21)
     payload = np.frombuffer(E.encode_modern(twelve_bit(rng, 0)), np.uint8)
-    one = U.stage_modern(Staging(dev), payload, W, H).bits.clone()
-    nblk = one.numel()
+    one = U.stage_modern(Staging(dev), payload, W, H).bits.clone()  # (1, nblk)
+    nblk = one.shape[1]
+    entry = "mcraw_block_offsets_batch"
+    have = with_entry(libs, entry)
     for frames in OFFSETS_FRAMES:
-        bits = one if frames == 1 else one.repeat(frames, 1)
-        entry = "mcraw_block_offsets" if frames == 1 else "mcraw_block_offsets_batch"
-        have = with_entry(libs, entry)
+        bits = one.repeat(frames, 1)
         words = O.status_words(frames, nblk)
         outs = {k: torch.empty(bits.shape, dtype=torch.int64, device=dev) for k in have}
         status = {k: torch.empty(words, dtype=torch.int64, device=dev) for k in have}
 
         def call(name):
             fn = getattr(have[name], entry)
-            rows = (nblk,) if frames == 1 else (frames, nblk)
 
             def run():
-                build.check(fn(bits.data_ptr(), *rows, outs[name].data_ptr(),
+                build.check(fn(bits.data_ptr(), frames, nblk, outs[name].data_ptr(),
                                status[name].data_ptr(), words, stream()), f"{name} {entry}")
             return run
 

@@ -152,14 +152,11 @@ def load(path: Path, checked: bool = False) -> ctypes.CDLL:
     cdll = ctypes.CDLL(str(path))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
     entries = {
-        "mcraw_unpack_modern": [p, i64, p, p, p, p, p, p, i64, i64, i64, i64, p],
-        "mcraw_unpack_legacy": [p, i64, p, p, p, p, i64, i64, i64, p],
         "mcraw_unpack_modern_batch": [
             p, i64, p, p, i64, i64, p, p, p, p, p, p, i64, i64, i64, i64, i64, p],
         "mcraw_unpack_legacy_batch": [p, i64, p, p, i64, p, p, p, p, i64, i64, i64, p],
         "mcraw_checksum": [p, i64, i32, p, p],
         "mcraw_develop": [p, p, i64, i64, i64, p, p, p, i32, p],
-        "mcraw_block_offsets": [p, i64, p, p, i64, p],
         "mcraw_block_offsets_batch": [p, i64, i64, p, p, i64, p],
         "mcraw_develop_ring": [p, p, i64, i64, i64, p, p, p, i32, p, p],
         "mcraw_develop_rows": [p, p, i64, i64, i64, p, i64, p, i64, p, i32, p],
@@ -167,10 +164,8 @@ def load(path: Path, checked: bool = False) -> ctypes.CDLL:
     }
     for name, argtypes in entries.items():
         # An earlier csrc (python -m mcraw_torch.kernel_ab) may not have
-        # the batch entries, the block offsets, the develop ring or the
-        # per-frame develop.
-        if hasattr(cdll, name) or not name.endswith(("_batch", "_block_offsets", "_ring",
-                                                      "_rows")):
+        # the block offsets, the develop ring or the per-frame develop.
+        if hasattr(cdll, name) or not name.endswith(("_offsets_batch", "_ring", "_rows")):
             fn = getattr(cdll, name)
             fn.restype = ctypes.c_int
             fn.argtypes = [*argtypes, p] if checked else argtypes
@@ -240,13 +235,10 @@ def check(err: int, name: str) -> None:
 # and Record enums are in the order of these tuples.
 KERNELS = ("unpack_modern", "unpack_legacy", "develop", "checksum", "block_offsets")
 ENTRIES = {
-    "mcraw_unpack_modern": "unpack_modern",
     "mcraw_unpack_modern_batch": "unpack_modern",
-    "mcraw_unpack_legacy": "unpack_legacy",
     "mcraw_unpack_legacy_batch": "unpack_legacy",
     "mcraw_develop": "develop",
     "mcraw_checksum": "checksum",
-    "mcraw_block_offsets": "block_offsets",
     "mcraw_block_offsets_batch": "block_offsets",
     "mcraw_develop_ring": "develop",
     "mcraw_develop_rows": "develop",

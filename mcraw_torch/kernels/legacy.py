@@ -1,32 +1,31 @@
 """Legacy-codec (compressionType 6) decode: host scan, upload, unpack.
 
-The frame's path, as in the JAX package's single-frame device path
-(``pallas_legacy.prepare_legacy_light`` + ``decode_legacy_device_v6``):
+A batch of F frames of one geometry, as in the JAX package's device path
+(``pallas_legacy.prepare_legacy_light`` + ``decode_legacy_device_v6``); a
+single frame is the batch of one, at every step down to the launch:
 
-1. :func:`prepare_legacy` (host): walk the inline 2-byte header chain
-   with the scan ladder of the JAX package's ``unpack.prepare_legacy`` (C++
-   via :mod:`mcraw_torch.kernels.native`), which writes every block's bits,
-   reference and payload offset straight into a
-   :class:`~mcraw_torch.kernels.staging.Staging`, beside the payload and
-   its zeroed tail; the upload it returns sends them in one H2D
-   (:func:`stage_legacy` is both).
-2. :func:`decode_legacy_device`: the hand-written CUDA kernel
-   (``csrc/unpack_legacy.cu``) unpacks every block's MSB-first bitstream,
-   adds its reference and writes the even/odd-interleaved rows of the
-   (height, width) uint16 plane.
+1. :func:`prepare_legacy_batch` (host): walk each frame's inline 2-byte
+   header chain with the scan ladder of the JAX package's
+   ``unpack.prepare_legacy`` (C++ via :mod:`mcraw_torch.kernels.native`),
+   which writes every block's bits, reference and payload offset straight
+   into the frame's rows of a :class:`~mcraw_torch.kernels.staging.Staging`,
+   beside the payload in its slot and its zeroed tail;
+   :func:`stage_legacy_batch` adds the one H2D that sends them.
+2. :func:`decode_legacy_batch_device`: one launch of the hand-written CUDA
+   kernel (``csrc/unpack_legacy.cu``) with a frame axis; it unpacks every
+   block's MSB-first bitstream, adds its reference and writes the
+   even/odd-interleaved rows of each frame's (height, width) uint16 plane.
 
-:func:`unpack_legacy` is step 2 of a staged frame, and
-:func:`decode_legacy` both steps: the Decoder's single-frame path.
+For one frame, :func:`prepare_legacy` and :func:`stage_legacy` give the
+staged batch of one, :func:`unpack_legacy` is step 2 of it and returns its
+plane, and :func:`decode_legacy` is both steps: the Decoder's single-frame
+path.
 
-:func:`decode_legacy_plain` is the same function in plain torch, driven by
-the byte-field tables. The wrapper takes it only for tensors on the CPU; a
-CUDA tensor goes to the kernel or the call raises.
-
-A batch of F frames of one geometry takes the same steps once for all of
-them (:func:`stage_legacy_batch`: each frame's scan into its own rows, its
-payload into its own slot, one H2D; :func:`decode_legacy_batch_device`:
-one launch with a frame axis); a single frame is its batch of one. Frame f
-of its output is exactly what the single-frame path gives for frame f.
+:func:`decode_legacy_batch_plain` is the same function in plain torch,
+driven by the byte-field tables. The wrapper takes it only for tensors on
+the CPU; a CUDA tensor goes to the kernel or the call raises.
+:func:`decode_legacy_device` and :func:`decode_legacy_plain` are the two on
+one frame's loose tensors.
 """
 
 from __future__ import annotations
@@ -41,7 +40,8 @@ from . import build
 from . import native
 from . import numpy_ref as R
 from .tables import legacy_tables
-from .staging import Staging, check_batch_inputs, frame_spans, slot_bytes, slot_layout
+from .staging import (Staging, batch_of_one, check_batch_inputs, frame_spans, slot_bytes,
+                      slot_layout)
 
 # mcraw.kernels.unpack.LEGACY_PARALLEL_MIN_BLOCKS (that module imports
 # JAX): below this block count the serial scan is faster than dispatching
@@ -87,15 +87,6 @@ def scan_chain(payload: np.ndarray, nblk: int, out=None):
         scanned = native.legacy_scan(payload, nblk, out=out)
         scan = "serial"
     return scanned, scan
-
-
-class DeviceLegacyFrame(NamedTuple):
-    """A frame's inputs on the device, ready for the unpack."""
-
-    payload: torch.Tensor  # (n + TAIL_BYTES,) uint8: payload + zeroed tail
-    bits: torch.Tensor  # (nblk,) int32 header bits
-    refs: torch.Tensor  # (nblk,) uint16 12-bit references
-    offsets: torch.Tensor  # (nblk,) int64 byte offset just past each header
 
 
 class DeviceLegacyBatch(NamedTuple):
@@ -144,43 +135,18 @@ def prepare_legacy_batch(staging: Staging, payloads, width: int, height: int) ->
 
 
 def prepare_legacy(staging: Staging, payload, width: int, height: int
-                   ) -> Callable[[], DeviceLegacyFrame]:
+                   ) -> Callable[[], DeviceLegacyBatch]:
     """The host prep of one frame, the batch of one of
     :func:`prepare_legacy_batch`; returns its upload: a call that sends the
     inputs in one H2D and gives them on the device."""
     prepare_legacy_batch(staging, [payload], width, height)
-    n = len(payload)
-
-    def upload() -> DeviceLegacyFrame:
-        buf, _bases, _lengths, bits, refs, offsets = staging.upload()
-        return DeviceLegacyFrame(buf[: n + TAIL_BYTES], bits[0], refs[0], offsets[0])
-
-    return upload
+    return lambda: DeviceLegacyBatch(*staging.upload())
 
 
-def stage_legacy(staging: Staging, payload, width: int, height: int) -> DeviceLegacyFrame:
-    """One frame's inputs on the device: :func:`prepare_legacy`, then its
-    upload."""
+def stage_legacy(staging: Staging, payload, width: int, height: int) -> DeviceLegacyBatch:
+    """One frame's inputs on the device, the batch of one:
+    :func:`prepare_legacy`, then its upload."""
     return prepare_legacy(staging, payload, width, height)()
-
-
-def _check_inputs(payload, bits, refs, offsets, nblk: int) -> None:
-    for name, t, dtype in (
-        ("payload", payload, torch.uint8),
-        ("bits", bits, torch.int32),
-        ("refs", refs, torch.uint16),
-        ("offsets", offsets, torch.int64),
-    ):
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(
-                f"{name} must be a contiguous 1-D {dtype} tensor, got "
-                f"{t.dtype} {tuple(t.shape)}"
-            )
-        if t.device != payload.device:
-            raise ValueError(f"{name} is on {t.device}, payload on {payload.device}")
-    for name, t in (("bits", bits), ("refs", refs), ("offsets", offsets)):
-        if t.numel() != nblk:
-            raise ValueError(f"{name} has {t.numel()} entries, need {nblk}")
 
 
 def _plain_into(out, payload, bits, refs, offsets, *, padded_width: int) -> None:
@@ -199,75 +165,6 @@ def _plain_into(out, payload, bits, refs, offsets, *, padded_width: int) -> None
     v = ((f[..., 0] | f[..., 1]) + refs.to(torch.int64)[:, None]) & 0xFFFF
     img = v.reshape(height * (padded_width // 32), 2, 16).transpose(1, 2)  # (pair, k, parity)
     out[:] = img.reshape(height, padded_width)[:, :width].to(torch.uint16)
-
-
-def decode_legacy_plain(
-    payload: torch.Tensor,
-    bits: torch.Tensor,
-    refs: torch.Tensor,
-    offsets: torch.Tensor,
-    *,
-    height: int,
-    width: int,
-) -> torch.Tensor:
-    """Plain torch version of the legacy unpack kernel (any device).
-
-    The semantics of ``numpy_ref.unpack_blocks(modern=False)`` +
-    ``legacy_interleave`` and the crop: each value is the OR of at most two
-    byte fields ``((payload[offset + pos] >> rsh) & msk) << lsh`` of its
-    block's class (bits clamped to 0..16), plus the block's reference,
-    wrapped to 16 bits. Bytes outside the payload read as 0. Computes in
-    int64, since CPU uint16 tensors support neither ``>>`` nor ``+``, and
-    casts at the end."""
-    global PLAIN_CALLS
-    with build.COUNTER_LOCK:
-        PLAIN_CALLS += 1
-    _check_inputs(payload, bits, refs, offsets, num_blocks(width, height))
-    out = torch.empty((height, width), dtype=torch.uint16, device=payload.device)
-    _plain_into(out, payload, bits, refs, offsets,
-                padded_width=R.legacy_padded_width(width))
-    return out
-
-
-@observe.spanned("unpack.legacy")
-def decode_legacy_device(
-    payload: torch.Tensor,
-    bits: torch.Tensor,
-    refs: torch.Tensor,
-    offsets: torch.Tensor,
-    *,
-    height: int,
-    width: int,
-) -> torch.Tensor:
-    """Unpack + interleave + crop one legacy frame: (height, width) uint16.
-
-    payload: (P,) uint8, the payload and its zeroed tail;
-    bits, refs, offsets: (nblk,) int32 / uint16 / int64 from the host scan,
-    nblk = :func:`num_blocks` (width, height).
-    CUDA tensors launch the kernel on the current stream; CPU tensors take
-    :func:`decode_legacy_plain`; any other device raises."""
-    global KERNEL_LAUNCHES
-    if payload.device.type == "cpu":
-        return decode_legacy_plain(
-            payload, bits, refs, offsets, height=height, width=width
-        )
-    if payload.device.type != "cuda":
-        raise ValueError(f"no legacy unpack kernel for device {payload.device}")
-    _check_inputs(payload, bits, refs, offsets, num_blocks(width, height))
-    out = torch.empty((height, width), dtype=torch.uint16, device=payload.device)
-    if height == 0 or width == 0:
-        return out
-    with torch.cuda.device(payload.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.launch(
-            "mcraw_unpack_legacy", (payload, bits, refs, offsets, out),
-            payload.data_ptr(), payload.numel(),
-            bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), height, width, R.legacy_padded_width(width), stream,
-        )
-    with build.COUNTER_LOCK:
-        KERNEL_LAUNCHES += 1
-    return out
 
 
 def _check_legacy_batch(payload, bases, lengths, bits, refs, offsets, nblk) -> int:
@@ -289,10 +186,16 @@ def decode_legacy_batch_plain(
     height: int,
     width: int,
 ) -> torch.Tensor:
-    """Plain torch version of the batched legacy unpack (any device): frame
-    f is :func:`decode_legacy_plain` of payload[bases[f] : bases[f] +
+    """Plain torch version of the legacy unpack kernel (any device): frame
+    f is the semantics of ``numpy_ref.unpack_blocks(modern=False)`` +
+    ``legacy_interleave`` and the crop on payload[bases[f] : bases[f] +
     lengths[f]] (clamped to the buffer) and row f of bits, refs and
-    offsets; stacked into (F, height, width)."""
+    offsets; stacked into (F, height, width). Each value is the OR of at
+    most two byte fields ``((payload[offset + pos] >> rsh) & msk) << lsh``
+    of its block's class (bits clamped to 0..16), plus the block's
+    reference, wrapped to 16 bits. Bytes outside the frame's payload read
+    as 0. Computes in int64, since CPU uint16 tensors support neither
+    ``>>`` nor ``+``, and casts at the end."""
     global PLAIN_CALLS
     with build.COUNTER_LOCK:
         PLAIN_CALLS += 1
@@ -317,9 +220,9 @@ def decode_legacy_batch_device(
     height: int,
     width: int,
 ) -> torch.Tensor:
-    """Unpack F legacy frames of one geometry in one launch: (F, height,
-    width) uint16, frame f exactly :func:`decode_legacy_device` of its own
-    inputs.
+    """Unpack + interleave + crop F legacy frames of one geometry in one
+    launch: (F, height, width) uint16, frame f computed from its own inputs
+    alone (a single frame is the batch of one).
 
     payload: (P,) uint8, every frame's slot; bases, lengths: (F,) int64
     bytes, frame f's payload and tail; bits, refs, offsets: (F, nblk) int32
@@ -351,9 +254,10 @@ def decode_legacy_batch_device(
     return out
 
 
-def unpack_legacy(frame: DeviceLegacyFrame, width: int, height: int) -> torch.Tensor:
-    """The launch of one staged frame: (height, width) uint16."""
-    return decode_legacy_device(*frame, height=height, width=width)
+def unpack_legacy(frame: DeviceLegacyBatch, width: int, height: int) -> torch.Tensor:
+    """The launch of a staged frame, the batch of one: its (height, width)
+    uint16 plane."""
+    return decode_legacy_batch_device(*frame, height=height, width=width)[0]
 
 
 def decode_legacy(payload: np.ndarray, width: int, height: int, staging: Staging
@@ -369,3 +273,23 @@ def decode_legacy_batch(payloads, width: int, height: int, staging: Staging) -> 
     the staging's device, in one launch."""
     dev = stage_legacy_batch(staging, payloads, width, height)
     return decode_legacy_batch_device(*dev, height=height, width=width)
+
+
+def decode_legacy_plain(payload, bits, refs, offsets, *, height: int, width: int
+                        ) -> torch.Tensor:
+    """:func:`decode_legacy_batch_plain` of one frame's loose tensors (as
+    :func:`decode_legacy_device` takes them): its (height, width) plane."""
+    return decode_legacy_batch_plain(*batch_of_one(payload, bits, refs, offsets),
+                                     height=height, width=width)[0]
+
+
+def decode_legacy_device(payload, bits, refs, offsets, *, height: int, width: int
+                         ) -> torch.Tensor:
+    """:func:`decode_legacy_batch_device` of one frame's loose tensors, the
+    batch of one: (height, width) uint16.
+
+    payload: (P,) uint8, the frame's payload and its zeroed tail, its whole
+    window; bits, refs, offsets: (nblk,) int32 / uint16 / int64 from the
+    host scan, nblk = :func:`num_blocks` (width, height)."""
+    return decode_legacy_batch_device(*batch_of_one(payload, bits, refs, offsets),
+                                      height=height, width=width)[0]

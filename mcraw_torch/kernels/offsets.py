@@ -9,8 +9,8 @@ in int64: the ``offs`` of the JAX package's ``_v6_build_meta``
 and ``mcraw.kernels.unpack.prepare_modern(...).offsets``. The hand-written
 CUDA kernel (``csrc/block_offsets.cu``, a single-pass scan with decoupled
 look-back) computes it in one launch, after one memset of its tile-status
-scratch, for one frame or a batch. CPU tensors take
-:func:`block_offsets_plain`, the torch chain (cast, clamp, gather,
+scratch, for a batch (one frame's bits are the batch of one). CPU tensors
+take :func:`block_offsets_plain`, the torch chain (cast, clamp, gather,
 ``torch.cumsum``, subtract, add).
 """
 
@@ -75,17 +75,13 @@ def block_offsets_device(bits: torch.Tensor, tables: ModernTables | None = None
     out = torch.empty(bits.shape, dtype=torch.int64, device=bits.device)
     if out.numel() == 0:
         return out
-    frames, nblk = (1, *bits.shape) if bits.dim() == 1 else bits.shape
+    nblk = bits.shape[-1]
+    frames = bits.numel() // nblk  # (nblk,) bits: the batch of one
     status = torch.empty(status_words(frames, nblk), dtype=torch.int64, device=bits.device)
     with torch.cuda.device(bits.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if bits.dim() == 1:
-            build.launch("mcraw_block_offsets", (bits, out, status), bits.data_ptr(), nblk,
-                         out.data_ptr(), status.data_ptr(), status.numel(), stream)
-        else:
-            build.launch("mcraw_block_offsets_batch", (bits, out, status), bits.data_ptr(),
-                         frames, nblk, out.data_ptr(), status.data_ptr(), status.numel(),
-                         stream)
+        build.launch("mcraw_block_offsets_batch", (bits, out, status), bits.data_ptr(), frames,
+                     nblk, out.data_ptr(), status.data_ptr(), status.numel(), stream)
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
     return out

@@ -100,13 +100,15 @@ def check_batch_inputs(data, bases, lengths, tensors, nblk: int) -> int:
         ("lengths", lengths, torch.int64, (frames,)),
         *((name, t, dtype, (frames, nblk)) for name, t, dtype in tensors),
     ):
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        if t.dtype != dtype or t.dim() != len(shape) or not t.is_contiguous():
             raise ValueError(
                 f"{name} must be a contiguous {dtype} tensor of shape {shape}, got "
                 f"{t.dtype} {tuple(t.shape)}"
             )
         if t.device != data.device:
             raise ValueError(f"{name} is on {t.device}, the payload on {data.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, need {shape}")
     if frames > MAX_BATCH_FRAMES:
         raise ValueError(f"{frames} frames in one launch; at most {MAX_BATCH_FRAMES}")
     return frames
@@ -120,3 +122,12 @@ def frame_spans(bases: torch.Tensor, lengths: torch.Tensor, total: int):
         lo = min(max(base, 0), total)
         spans.append((lo, lo + min(max(n, 0), total - lo)))
     return spans
+
+
+def batch_of_one(data: torch.Tensor, *rows: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """One frame's loose tensors as the batch of one: `data`, its (1,)
+    int64 base 0 and length (its whole size), made on data's device with no
+    host sync, and each of `rows` as a (1, nblk) row."""
+    bases = torch.zeros(1, dtype=torch.int64, device=data.device)
+    lengths = torch.full((1,), data.numel(), dtype=torch.int64, device=data.device)
+    return (data, bases, lengths, *(t.unsqueeze(0) for t in rows))

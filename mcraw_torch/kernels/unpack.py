@@ -1,36 +1,33 @@
 """Modern-codec (compressionType 7) decode: host prep, device prep, unpack.
 
-The frame's path, as in the JAX package's single-frame device path
-(``pallas_unpack.prepare_modern_light`` + ``decode_modern_device_v6``):
+A batch of F frames of one geometry, as in the JAX package's device path
+(``pallas_unpack.prepare_modern_light`` + ``decode_modern_device_v6``); a
+single frame is the batch of one, at every step down to the launch:
 
-1. :func:`prepare_modern` (host): read and validate the 16-byte header,
-   run the two serial metadata-stream scans (C++ via
-   :mod:`mcraw_torch.kernels.native`), lay the payload and the streams out
-   in a :class:`~mcraw_torch.kernels.staging.Staging`; the upload it
-   returns sends them in one H2D (:func:`stage_modern` is both).
+1. :func:`prepare_modern_batch` (host): read and validate each payload's
+   16-byte header, run the two serial metadata-stream scans (C++ via
+   :mod:`mcraw_torch.kernels.native`), lay each payload in its 16-byte
+   aligned slot and the streams in their rows of a
+   :class:`~mcraw_torch.kernels.staging.Staging`;
+   :func:`stage_modern_batch` adds the one H2D that sends them.
 2. :func:`block_offsets` (device): clamp each block's bit width to 16, map
-   it to a byte length, and take ``16 + exclusive prefix sum`` in int64:
-   the hand-written CUDA scan of :mod:`mcraw_torch.kernels.offsets`
-   (``csrc/block_offsets.cu``).
-3. :func:`decode_modern_device`: the hand-written CUDA kernel
-   (``csrc/unpack_modern.cu``) unpacks every block, adds its reference and
-   writes Bayer-de-interleaved rows of the (height, width) uint16 plane.
+   it to a byte length, and take ``16 + exclusive prefix sum`` in int64
+   along each frame's row: the hand-written CUDA scan of
+   :mod:`mcraw_torch.kernels.offsets` (``csrc/block_offsets.cu``).
+3. :func:`decode_modern_batch_device`: one launch of the hand-written CUDA
+   kernel (``csrc/unpack_modern.cu``) with a frame axis; it unpacks every
+   block, adds its reference and writes Bayer-de-interleaved rows of each
+   frame's (height, width) uint16 plane.
 
-:func:`unpack_modern` is steps 2 and 3 of a staged frame, and
-:func:`decode_modern_frame` the three steps: the Decoder's single-frame
-path.
+For one frame, :func:`prepare_modern` and :func:`stage_modern` give the
+staged batch of one, :func:`unpack_modern` takes steps 2 and 3 of it and
+returns its plane, and :func:`decode_modern_frame` is all three: the
+Decoder's single-frame path.
 
-:func:`decode_modern_plain` is the same function in plain torch. The wrapper
-takes it only for tensors on the CPU; a CUDA tensor goes to the kernel or
-the call raises.
-
-A batch of F frames of one geometry takes the same steps once for all of
-them: :func:`stage_modern_batch` writes each payload into its 16-byte
-aligned slot and sends the batch in one H2D (a single frame is its batch
-of one), :func:`block_offsets` runs along the last axis of the (F, nblk)
-bits, and :func:`decode_modern_batch_device` is one launch of the kernel
-with a frame axis. Frame f of its output is exactly what the single-frame
-path gives for frame f.
+:func:`decode_modern_batch_plain` is the same function in plain torch. The
+wrapper takes it only for tensors on the CPU; a CUDA tensor goes to the
+kernel or the call raises. :func:`decode_modern_device` and
+:func:`decode_modern_plain` are the two on one frame's loose tensors.
 """
 
 from __future__ import annotations
@@ -47,8 +44,8 @@ from . import numpy_ref as R
 from . import offsets as O
 from . import tables as T
 from .native import decode_metadata_stream
-from .staging import (SHARE_GEOMETRY, Staging, check_batch_inputs, frame_spans, slot_bytes,
-                      slot_layout)
+from .staging import (SHARE_GEOMETRY, Staging, batch_of_one, check_batch_inputs, frame_spans,
+                      slot_bytes, slot_layout)
 from .tables import ModernTables, modern_tables
 
 # Zeroed bytes after the payload: one maximal block, so no word load of the
@@ -95,16 +92,6 @@ def scan_modern(payload: np.ndarray, width: int, height: int) -> ModernScan:
     if 16 + total > n:
         raise DecodeError("main data truncated")
     return ModernScan(n, bits, refs, ty, tx)
-
-
-class DeviceFrame(NamedTuple):
-    """A frame's inputs on the device, ready for the unpack."""
-
-    words: torch.Tensor  # (P,) int32: payload + zeroed tail, 16-byte multiple
-    bits: torch.Tensor  # (nblk,) uint16 raw bits stream (clamped on device)
-    refs: torch.Tensor  # (nblk,) uint16 block references
-    tiles_y: int
-    tiles_x: int
 
 
 class DeviceBatch(NamedTuple):
@@ -161,31 +148,32 @@ def prepare_modern_batch(staging: Staging, payloads, width: int, height: int
 
 
 def prepare_modern(staging: Staging, payload, width: int, height: int
-                   ) -> Callable[[], DeviceFrame]:
+                   ) -> Callable[[], DeviceBatch]:
     """The host prep of one frame, the batch of one of
     :func:`prepare_modern_batch`; returns its upload: a call that sends the
     inputs in one H2D and gives them on the device."""
     tiles = prepare_modern_batch(staging, [payload], width, height)
-
-    def upload() -> DeviceFrame:
-        words, _bases, _lengths, bits, refs = staging.upload()
-        return DeviceFrame(words, bits[0], refs[0], *tiles)
-
-    return upload
+    return lambda: DeviceBatch(*staging.upload(), *tiles)
 
 
-def stage_modern(staging: Staging, payload, width: int, height: int) -> DeviceFrame:
-    """One frame's inputs on the device: :func:`prepare_modern`, then its
-    upload."""
+def stage_modern(staging: Staging, payload, width: int, height: int) -> DeviceBatch:
+    """One frame's inputs on the device, the batch of one:
+    :func:`prepare_modern`, then its upload."""
     return prepare_modern(staging, payload, width, height)()
 
 
-def unpack_modern(frame: DeviceFrame, width: int, height: int) -> torch.Tensor:
-    """The device prep and the launch of one staged frame: (height, width)
-    uint16."""
-    offsets = block_offsets(frame.bits, modern_tables(frame.words.device))
-    return decode_modern_device(frame.words, frame.bits, frame.refs, offsets,
-                                ty=frame.tiles_y, tx=frame.tiles_x, height=height, width=width)
+def _unpack(batch: DeviceBatch, width: int, height: int) -> torch.Tensor:
+    offsets = block_offsets(batch.bits, modern_tables(batch.words.device))
+    return decode_modern_batch_device(
+        batch.words, batch.bases, batch.lengths, batch.bits, batch.refs, offsets,
+        ty=batch.tiles_y, tx=batch.tiles_x, height=height, width=width,
+    )
+
+
+def unpack_modern(frame: DeviceBatch, width: int, height: int) -> torch.Tensor:
+    """The device prep and the launch of a staged frame, the batch of one:
+    its (height, width) uint16 plane."""
+    return _unpack(frame, width, height)[0]
 
 
 def decode_modern_frame(payload, width: int, height: int, staging: Staging) -> torch.Tensor:
@@ -198,12 +186,7 @@ def decode_modern_frame(payload, width: int, height: int, staging: Staging) -> t
 def decode_modern_batch(payloads, width: int, height: int, staging: Staging) -> torch.Tensor:
     """F modern payloads of one geometry -> (F, height, width) uint16 on
     the staging's device, in one launch."""
-    dev = stage_modern_batch(staging, payloads, width, height)
-    offsets = block_offsets(dev.bits, modern_tables(staging.device))
-    return decode_modern_batch_device(
-        dev.words, dev.bases, dev.lengths, dev.bits, dev.refs, offsets,
-        ty=dev.tiles_y, tx=dev.tiles_x, height=height, width=width,
-    )
+    return _unpack(stage_modern_batch(staging, payloads, width, height), width, height)
 
 
 def block_offsets(bits: torch.Tensor, tables: ModernTables) -> torch.Tensor:
@@ -213,26 +196,6 @@ def block_offsets(bits: torch.Tensor, tables: ModernTables) -> torch.Tensor:
     :func:`~mcraw_torch.kernels.offsets.block_offsets_device`, one kernel
     launch on a card, the plain version (with `tables`) on the CPU."""
     return O.block_offsets_device(bits, tables)
-
-
-def _check_inputs(words, bits, refs, offsets, ty: int, tx: int) -> None:
-    nblk = 4 * ty * tx
-    for name, t, dtype in (
-        ("words", words, torch.int32),
-        ("bits", bits, torch.uint16),
-        ("refs", refs, torch.uint16),
-        ("offsets", offsets, torch.int64),
-    ):
-        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(
-                f"{name} must be a contiguous 1-D {dtype} tensor, got "
-                f"{t.dtype} {tuple(t.shape)}"
-            )
-        if t.device != words.device:
-            raise ValueError(f"{name} is on {t.device}, words on {words.device}")
-    for name, t in (("bits", bits), ("refs", refs), ("offsets", offsets)):
-        if t.numel() != nblk:
-            raise ValueError(f"{name} has {t.numel()} entries, need {nblk}")
 
 
 class UnpackLaunch(NamedTuple):
@@ -249,11 +212,10 @@ def unpack_launch(ty: int, tx: int, height: int, width: int) -> UnpackLaunch:
     return UnpackLaunch(rows, -(-rows // 4) * tx if rows > 0 and width > 0 else 0)
 
 
-def _output(height: int, width: int, ty: int, device, frames: int | None = None):
+def _output(height: int, width: int, ty: int, device, frames: int):
     # Rows past 4*ty (a short encodedHeight) are never written: zero them.
     alloc = torch.zeros if height > 4 * ty else torch.empty
-    shape = (height, width) if frames is None else (frames, height, width)
-    return alloc(shape, dtype=torch.uint16, device=device)
+    return alloc((frames, height, width), dtype=torch.uint16, device=device)
 
 
 def _plain_into(out, words, bits, refs, offsets, *, ty: int, tx: int) -> None:
@@ -279,81 +241,6 @@ def _plain_into(out, words, bits, refs, offsets, *, ty: int, tx: int) -> None:
     out[:rows] = img[:rows, :width].to(torch.uint16)
 
 
-def decode_modern_plain(
-    words: torch.Tensor,
-    bits: torch.Tensor,
-    refs: torch.Tensor,
-    offsets: torch.Tensor,
-    *,
-    ty: int,
-    tx: int,
-    height: int,
-    width: int,
-) -> torch.Tensor:
-    """Plain torch version of the unpack kernel (any device).
-
-    The semantics of ``numpy_ref.unpack_blocks`` + ``modern_deinterleave``
-    and the crop: (height, width) uint16, rows past 4*ty zero. Computes in
-    int64, since CPU uint16 tensors support neither ``>>`` nor ``+``, and
-    casts at the end (int -> uint16 wraps mod 2^16)."""
-    global PLAIN_CALLS
-    with build.COUNTER_LOCK:
-        PLAIN_CALLS += 1
-    _check_inputs(words, bits, refs, offsets, ty, tx)
-    out = _output(height, width, ty, words.device)
-    _plain_into(out, words, bits, refs, offsets, ty=ty, tx=tx)
-    return out
-
-
-@observe.spanned("unpack.modern")
-def decode_modern_device(
-    words: torch.Tensor,
-    bits: torch.Tensor,
-    refs: torch.Tensor,
-    offsets: torch.Tensor,
-    *,
-    ty: int,
-    tx: int,
-    height: int,
-    width: int,
-) -> torch.Tensor:
-    """Unpack + de-interleave + crop one frame: (height, width) uint16.
-
-    words: (P,) int32 payload words (payload + zeroed tail);
-    bits, refs: (4*ty*tx,) uint16 raw metadata streams;
-    offsets: (4*ty*tx,) int64 from :func:`block_offsets`.
-    CUDA tensors launch the kernel on the current stream; CPU tensors take
-    :func:`decode_modern_plain`; any other device raises."""
-    global KERNEL_LAUNCHES
-    if words.device.type == "cpu":
-        return decode_modern_plain(
-            words, bits, refs, offsets, ty=ty, tx=tx, height=height, width=width
-        )
-    if words.device.type != "cuda":
-        raise ValueError(f"no unpack kernel for device {words.device}")
-    _check_inputs(words, bits, refs, offsets, ty, tx)
-    if width > 64 * tx:
-        raise ValueError(f"width {width} exceeds the encoded width {64 * tx}")
-    tab = modern_tables(words.device)
-    out = _output(height, width, ty, words.device)
-    launch = unpack_launch(ty, tx, height, width)
-    if launch.tiles == 0:
-        return out
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.launch(
-            "mcraw_unpack_modern",
-            (words, bits, refs, offsets, tab.quads, tab.class_index, out),
-            words.data_ptr(), words.numel(),
-            bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
-            tab.quads.data_ptr(), tab.class_index.data_ptr(),
-            out.data_ptr(), tx, launch.tiles, launch.rows, width, stream,
-        )
-    with build.COUNTER_LOCK:
-        KERNEL_LAUNCHES += 1
-    return out
-
-
 def _check_modern_batch(words, bases, lengths, bits, refs, offsets, ty, tx) -> int:
     if words.dtype != torch.int32:
         raise ValueError(f"words must be int32, got {words.dtype}")
@@ -375,10 +262,13 @@ def decode_modern_batch_plain(
     height: int,
     width: int,
 ) -> torch.Tensor:
-    """Plain torch version of the batched unpack (any device): frame f is
-    :func:`decode_modern_plain` of words[bases[f] : bases[f] + lengths[f]]
-    (clamped to the buffer) and row f of bits, refs and offsets; stacked
-    into (F, height, width)."""
+    """Plain torch version of the unpack kernel (any device): frame f is
+    the semantics of ``numpy_ref.unpack_blocks`` + ``modern_deinterleave``
+    and the crop on words[bases[f] : bases[f] + lengths[f]] (clamped to the
+    buffer) and row f of bits, refs and offsets, rows past 4*ty zero;
+    stacked into (F, height, width). Computes in int64, since CPU uint16
+    tensors support neither ``>>`` nor ``+``, and casts at the end (int ->
+    uint16 wraps mod 2^16)."""
     global PLAIN_CALLS
     with build.COUNTER_LOCK:
         PLAIN_CALLS += 1
@@ -403,8 +293,9 @@ def decode_modern_batch_device(
     height: int,
     width: int,
 ) -> torch.Tensor:
-    """Unpack F frames of one geometry in one launch: (F, height, width)
-    uint16, frame f exactly :func:`decode_modern_device` of its own inputs.
+    """Unpack + de-interleave + crop F frames of one geometry in one
+    launch: (F, height, width) uint16, frame f computed from its own inputs
+    alone (a single frame is the batch of one).
 
     words: (P,) int32, every frame's payload slot; bases, lengths: (F,)
     int64 words, frame f's slot; bits, refs: (F, 4*ty*tx) uint16; offsets:
@@ -440,3 +331,23 @@ def decode_modern_batch_device(
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
     return out
+
+
+def decode_modern_plain(words, bits, refs, offsets, *, ty: int, tx: int, height: int,
+                        width: int) -> torch.Tensor:
+    """:func:`decode_modern_batch_plain` of one frame's loose tensors (as
+    :func:`decode_modern_device` takes them): its (height, width) plane."""
+    return decode_modern_batch_plain(*batch_of_one(words, bits, refs, offsets), ty=ty, tx=tx,
+                                     height=height, width=width)[0]
+
+
+def decode_modern_device(words, bits, refs, offsets, *, ty: int, tx: int, height: int,
+                         width: int) -> torch.Tensor:
+    """:func:`decode_modern_batch_device` of one frame's loose tensors, the
+    batch of one: (height, width) uint16.
+
+    words: (P,) int32 payload words (payload + zeroed tail), the frame's
+    whole window; bits, refs: (4*ty*tx,) uint16 raw metadata streams;
+    offsets: (4*ty*tx,) int64 from :func:`block_offsets`."""
+    return decode_modern_batch_device(*batch_of_one(words, bits, refs, offsets), ty=ty,
+                                      tx=tx, height=height, width=width)[0]

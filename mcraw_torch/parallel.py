@@ -7,9 +7,9 @@ axis: shard d of an n-entry :class:`Mesh` takes the contiguous frames
 ``[d*F/n, (d+1)*F/n)``, lays them out in its own Staging on its own device
 and makes one batched launch of the codec's kernel. One frame splits into
 n bands of output rows: its payload and block metadata are replicated on
-every device, and each band is one launch of the single-frame kernel over
-a slice of the metadata, since both codecs lay their blocks out in stream
-order.
+every device, and each band is one launch of the codec's kernel on the
+batch of one over a slice of the metadata, since both codecs lay their
+blocks out in stream order.
 
 What the JAX package needs to do this on a TPU has no counterpart here:
 payloads padded into (F, rows, 128) slabs, base rows rebased per shard,
@@ -164,29 +164,32 @@ def band_rows(rows: int, n: int) -> list[tuple[int, int]]:
     return [(d * rows // n, (d + 1) * rows // n) for d in range(n)]
 
 
-def modern_band(words, bits, refs, offsets, lo: int, hi: int, *, ty: int, tx: int,
-                height: int, width: int) -> torch.Tensor:
+def modern_band(words, bases, lengths, bits, refs, offsets, lo: int, hi: int, *, ty: int,
+                tx: int, height: int, width: int) -> torch.Tensor:
     """Rows ``[4*lo, min(4*hi, height))`` of a modern frame of ty encoded
-    tile rows: its tile rows [lo, hi), one launch of the single-frame
-    kernel on their slice of the frame's blocks (bits, refs and the
-    absolute offsets of :func:`~mcraw_torch.kernels.unpack.block_offsets`
-    of the whole frame) against the whole payload; rows past the encoded
-    ones are zeros."""
+    tile rows, staged as the batch of one: its tile rows [lo, hi), one
+    launch of the batch kernel on their slice of the frame's (1, nblk)
+    blocks (bits, refs and the absolute offsets of
+    :func:`~mcraw_torch.kernels.unpack.block_offsets` of the whole frame)
+    against the frame's whole payload; rows past the encoded ones are
+    zeros."""
     t = max(min(hi, ty) - lo, 0)  # encoded tile rows in the band
     b0, b1 = 4 * lo * tx, 4 * (lo + t) * tx
-    return U.decode_modern_device(words, bits[b0:b1], refs[b0:b1], offsets[b0:b1], ty=t,
-                                  tx=tx, height=min(4 * hi, height) - 4 * lo, width=width)
+    return U.decode_modern_batch_device(
+        words, bases, lengths, bits[:, b0:b1], refs[:, b0:b1], offsets[:, b0:b1], ty=t, tx=tx,
+        height=min(4 * hi, height) - 4 * lo, width=width)[0]
 
 
-def legacy_band(payload, bits, refs, offsets, lo: int, hi: int, *,
+def legacy_band(payload, bases, lengths, bits, refs, offsets, lo: int, hi: int, *,
                 width: int) -> torch.Tensor:
-    """Rows [lo, hi) of a legacy frame: one launch of the single-frame
-    kernel on their slice of the frame's blocks against the whole
-    payload."""
+    """Rows [lo, hi) of a legacy frame staged as the batch of one: one
+    launch of the batch kernel on their slice of the frame's (1, nblk)
+    blocks against the frame's whole payload."""
     per_row = L.num_blocks(width, 1)
     b0, b1 = lo * per_row, hi * per_row
-    return L.decode_legacy_device(payload, bits[b0:b1], refs[b0:b1], offsets[b0:b1],
-                                  height=hi - lo, width=width)
+    return L.decode_legacy_batch_device(payload, bases, lengths, bits[:, b0:b1],
+                                        refs[:, b0:b1], offsets[:, b0:b1], height=hi - lo,
+                                        width=width)[0]
 
 
 def decode_frame_sharded(payload, width: int, height: int, modern: bool, mesh: Mesh, *,
@@ -212,17 +215,15 @@ def decode_frame_sharded(payload, width: int, height: int, modern: bool, mesh: M
         ty, tx = U.prepare_modern_batch(first, [payload], width, height)
     else:
         L.prepare_legacy_batch(first, [payload], width, height)
-        nbytes = len(payload) + L.TAIL_BYTES
     bands = band_rows(rows, n)
 
     def band(d: int, staging: Staging) -> torch.Tensor:
         if modern:
-            words, _bases, _lengths, bits, refs = staging.upload(first)
-            offsets = U.block_offsets(bits[0], modern_tables(staging.device))
-            return modern_band(words, bits[0], refs[0], offsets, *bands[d], ty=ty, tx=tx,
-                               height=height, width=width)
-        buf, _bases, _lengths, bits, refs, offsets = staging.upload(first)
-        return legacy_band(buf[:nbytes], bits[0], refs[0], offsets[0], *bands[d], width=width)
+            words, bases, lengths, bits, refs = staging.upload(first)
+            offsets = U.block_offsets(bits, modern_tables(staging.device))
+            return modern_band(words, bases, lengths, bits, refs, offsets, *bands[d], ty=ty,
+                               tx=tx, height=height, width=width)
+        return legacy_band(*staging.upload(first), *bands[d], width=width)
 
     return Sharded(shards.run(band), mesh.devices, (height, width))
 

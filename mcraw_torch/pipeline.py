@@ -92,8 +92,9 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
-# Per codec (modern?): the host prep of one frame, which returns its upload,
-# and the device prep and launch of the staged frame.
+# Per codec (modern?): the host prep of one frame, the batch of one, which
+# returns its upload, and the device prep and batch launch of the staged
+# frame.
 _SINGLE_FRAME = {True: (U.prepare_modern, U.unpack_modern),
                  False: (L.prepare_legacy, L.unpack_legacy)}
 

@@ -32,6 +32,7 @@ from mcraw_torch import Decoder
 from mcraw_torch import preview as P
 from mcraw_torch.errors import DecodeError, IOException
 from mcraw_torch.kernels import legacy as L
+from mcraw_torch.kernels import offsets as O
 from mcraw_torch.kernels import staging as S
 from mcraw_torch.kernels import unpack as U
 from mcraw_torch.kernels.staging import Staging
@@ -501,7 +502,7 @@ def test_batch_host_prep_slots():
         assert lo % 16 == 0 and batch.lengths[f] == single.words.numel()
         assert np.array_equal(raw[lo : lo + 4 * int(batch.lengths[f])],
                               single.words.numpy().view(np.uint8))
-        assert np.array_equal(batch.bits[f].numpy(), single.bits.numpy())
+        assert np.array_equal(batch.bits[f].numpy(), single.bits[0].numpy())
     with pytest.raises(ValueError, match="share geometry"):
         U.stage_modern_batch(Staging(CPU), [np.frombuffer(f[3], np.uint8) for f in frames],
                              192, 8)
@@ -510,11 +511,41 @@ def test_batch_host_prep_slots():
                               100, 6)
     for f, (_, _, _, p, _) in enumerate(lframes):
         single = L.stage_legacy(Staging(CPU), np.frombuffer(p, np.uint8), 100, 6)
-        lo, n = int(lb.bases[f]), single.payload.numel()
+        lo, n = int(lb.bases[f]), int(single.lengths[0])
         assert lo % 16 == 0 and lb.lengths[f] == n == len(p) + L.TAIL_BYTES
-        assert np.array_equal(lb.payload[lo : lo + n].numpy(), single.payload.numpy())
-        for rows, one in zip(lb[3:], single[1:]):
-            assert np.array_equal(rows[f].numpy(), one.numpy())
+        assert np.array_equal(lb.payload[lo : lo + n].numpy(), single.payload[:n].numpy())
+        for rows, one in zip(lb[3:], single[3:]):
+            assert np.array_equal(rows[f].numpy(), one[0].numpy())
+
+
+@pytest.mark.parametrize("spec", [(7, 128, 8), (7, 200, 13), (7, 192, 16, 4), (6, 100, 6),
+                                  (6, 96, 8), (6, 33, 5)])
+def test_single_frame_views_equal_the_batch_of_one(spec):
+    """A frame is the batch of one: decode_*_device and decode_*_plain of
+    one frame's loose tensors, and block_offsets_device of its (nblk,)
+    bits, equal frame 0 (row 0) of the staged batch of one element for
+    element, and the frame decodes exactly."""
+    codec, w, h, payload, img = frames_of(93, [spec])[0]
+    payload = np.frombuffer(payload, np.uint8)
+    if codec == 7:
+        bt = U.stage_modern(Staging(CPU), payload, w, h)
+        offs = O.block_offsets_device(bt.bits)
+        assert offs.shape == bt.bits.shape and bt.bits.shape[0] == 1
+        assert torch.equal(O.block_offsets_device(bt.bits[0]), offs[0])
+        kw = dict(ty=bt.tiles_y, tx=bt.tiles_x, height=h, width=w)
+        batch = U.decode_modern_batch_device(*bt[:5], offs, **kw)
+        loose = (bt.words, bt.bits[0], bt.refs[0], offs[0])
+        views = (U.decode_modern_device, U.decode_modern_plain)
+    else:
+        bt = L.stage_legacy(Staging(CPU), payload, w, h)
+        kw = dict(height=h, width=w)
+        batch = L.decode_legacy_batch_device(*bt, **kw)
+        loose = (bt.payload[: bt.lengths[0]], *(t[0] for t in bt[3:]))
+        views = (L.decode_legacy_device, L.decode_legacy_plain)
+    assert batch.shape == (1, h, w)
+    for view in views:
+        assert torch.equal(view(*loose, **kw), batch[0]), view.__name__
+    assert np.array_equal(batch[0].numpy(), img)
 
 
 def test_staging_lays_out_aligned_views_and_reuses_its_buffers():

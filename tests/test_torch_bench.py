@@ -233,9 +233,10 @@ def wrong_develop(real):
 
 
 @pytest.mark.parametrize("family, module, name, wrap, legs, what", [
-    ("modern", U, "decode_modern_device", wrong_unpack,
+    ("modern", U, "decode_modern_batch_device", wrong_unpack,
      ["value", "latency_ms_single_frame", "worst_case_fps", "fps_1080p"], "checksum"),
-    ("legacy", L, "decode_legacy_device", wrong_unpack, LEGACY_LEGS, "frame 0 checksum"),
+    ("legacy", L, "decode_legacy_batch_device", wrong_unpack, LEGACY_LEGS,
+     "frame 0 checksum"),
     ("develop", D, "develop_rgba_device", wrong_develop, DEVELOP_LEGS, "develop_f64"),
 ])
 def test_injected_wrong_output_fails_its_legs(capsys, monkeypatch, one_thread, family, module,
@@ -277,7 +278,7 @@ def test_a_leg_that_raises_is_an_error(capsys, monkeypatch, one_thread):
     def boom(*args, **kwargs):
         raise RuntimeError("boom")
 
-    monkeypatch.setattr(L, "decode_legacy_device", boom)
+    monkeypatch.setattr(L, "decode_legacy_batch_device", boom)
     rc, line, err = run_main(capsys, [*SMALL, "--legs", "value,legacy_fps_4k"])
     assert rc == 1
     assert line["errors"] == [{"leg": "legacy_fps_4k", "error": "RuntimeError: boom"}]

@@ -130,6 +130,22 @@ def test_buffer_tables_match_the_sources():
     assert ctypes.sizeof(build.CheckArgs) == 8 * words
 
 
+@pytest.mark.parametrize("kernel, entry", [("unpack_modern", "mcraw_unpack_modern_batch"),
+                                           ("unpack_legacy", "mcraw_unpack_legacy_batch"),
+                                           ("block_offsets", "mcraw_block_offsets_batch")])
+def test_one_entry_a_decode_kernel(kernel, entry):
+    """Each decode kernel has one C entry, its batch entry (a frame is the
+    batch of one): no single-frame entry is left in ENTRIES or in the
+    sources, and no kernel is a template on the batch."""
+    assert [e for e, k in build.ENTRIES.items() if k == kernel] == [entry]
+    assert len(build.ENTRIES) == 8
+    single = entry.removesuffix("_batch")
+    assert single not in build.ENTRIES
+    text = (CSRC / f"{kernel}.cu").read_text()
+    assert f"int {entry}(" in text and f"int {single}(" not in text
+    assert "kBatch" not in text and f"{kernel}_kernel<true>" not in text
+
+
 def _fake_record(entry, buffer, kind, index, extent, faults=3, cross=0, block=(5, 1, 37)):
     kernel = build.ENTRIES[entry]
     rec = [0] * len(build.RECORD)

@@ -952,6 +952,28 @@ def test_spans_on_the_card_hold_each_launch(cuda, tmp_path):
             k["name"], inside)
 
 
+def test_single_frame_decode_launches_only_batch_entries(cuda):
+    """Decoder.load_frame_device of a modern and of a legacy frame: a
+    frame is the batch of one, so the launch spans it opens are the batch
+    entries' alone, one a kernel, and the frame decodes exactly."""
+    from mcraw_torch import observe
+
+    rng = np.random.default_rng(33)
+    imgs = [rng.integers(0, 4096, size=(64, 256), dtype=np.uint16) for _ in range(2)]
+    writer = E.ContainerWriter(example_container_metadata())
+    writer.add_frame(0, E.encode_modern(imgs[0]), example_frame_metadata(256, 64, 7))
+    writer.add_frame(1, E.encode_legacy(imgs[1]), example_frame_metadata(256, 64, 6))
+    d = Decoder(writer.finish(), device="cuda")
+    want = (["launch.mcraw_block_offsets_batch", "launch.mcraw_unpack_modern_batch"],
+            ["launch.mcraw_unpack_legacy_batch"])
+    for ts, img, names in zip(d.frames, imgs, want, strict=True):
+        with observe.tracing() as rec:
+            out, _ = d.load_frame_device(ts)
+            torch.cuda.synchronize()
+        assert sorted(r.name for r in rec.rows if r.name.startswith("launch.")) == names
+        assert out.shape == img.shape and np.array_equal(out.cpu().numpy(), img)
+
+
 @pytest.mark.parametrize("codec", [7, 6])
 def test_host_codecs_on_card_equal_cpu(cuda, codec):
     """mcraw_torch.decode_modern / decode_legacy run on the card by default

@@ -87,7 +87,7 @@ def test_large_frame_scan_ladder(table, scan, monkeypatch):
     nblk = L.num_blocks(w, h)
     scanned, got_scan = L.scan_chain(payload, nblk)
     assert got_scan == (scan if native.have_native() else "serial")
-    staged = [t.numpy() for t in L.stage_legacy(Staging(CPU), payload, w, h)[1:]]
+    staged = [t[0].numpy() for t in L.stage_legacy(Staging(CPU), payload, w, h)[3:]]
     for got, staged_rows, want in zip(scanned, staged, R.legacy_scan(payload, nblk)):
         assert np.array_equal(got, want) and np.array_equal(staged_rows, want)
     out = L.decode_legacy(payload, w, h, Staging(CPU)).numpy()
@@ -102,10 +102,13 @@ def test_host_prep_matches_jax(shape, table):
     h, w = shape
     img = np.random.default_rng(3).integers(0, 4096, size=(h, w), dtype=np.uint16)
     payload = encode(img, table)
-    frame = L.stage_legacy(Staging(CPU), payload, w, h)
+    frame = L.stage_legacy(Staging(CPU), payload, w, h)  # the batch of one
     assert frame.bits.dtype == torch.int32 and frame.refs.dtype == torch.uint16
     assert frame.offsets.dtype == torch.int64
-    frame = L.DeviceLegacyFrame(*(t.numpy() for t in frame))
+    assert frame.bits.shape == frame.refs.shape == frame.offsets.shape == (1, L.num_blocks(w, h))
+    assert (frame.bases.tolist(), frame.lengths.tolist()) == ([0], [len(payload) + L.TAIL_BYTES])
+    frame = L.DeviceLegacyBatch(*(t.numpy() for t in frame[:3]),
+                                *(t[0].numpy() for t in frame[3:]))
     _p32, offs, bits, refs, _pw, _rows = PL.prepare_legacy_light(payload, w, h)
     assert np.array_equal(frame.bits, bits) and np.array_equal(frame.refs, refs)
     assert np.array_equal(frame.offsets, offs)
@@ -113,10 +116,11 @@ def test_host_prep_matches_jax(shape, table):
     assert np.array_equal(T.LEGACY_CLASS_INDEX[frame.bits], plan.cls)
     assert np.array_equal(frame.refs, plan.refs)
     assert np.array_equal(frame.offsets, plan.offsets)
-    # Upload buffer: the payload and TAIL_BYTES zeros.
-    assert len(frame.payload) == len(payload) + L.TAIL_BYTES
-    assert np.array_equal(frame.payload[: len(payload)], payload)
-    assert not frame.payload[len(payload):].any()
+    # Upload buffer: the payload and TAIL_BYTES zeros, the frame's window.
+    window = frame.payload[: frame.lengths[0]]
+    assert len(window) == len(payload) + L.TAIL_BYTES
+    assert np.array_equal(window[: len(payload)], payload)
+    assert not window[len(payload):].any()
 
 
 def _jax_v6(payload, w, h):

@@ -128,11 +128,14 @@ def test_host_prep_matches_jax(shape):
     rng = np.random.default_rng(7)
     img = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
     payload = np.frombuffer(E.encode_modern(img), dtype=np.uint8)
-    frame = U.stage_modern(Staging("cpu"), payload, w, h)
+    frame = U.stage_modern(Staging("cpu"), payload, w, h)  # the batch of one
     _p32, bits, refs, ty, tx, _ = PK.prepare_modern_light(payload, w, h)
     assert (frame.tiles_y, frame.tiles_x) == (ty, tx)
     assert frame.bits.dtype == torch.uint16 and frame.refs.dtype == torch.uint16
-    assert np.array_equal(frame.bits.numpy(), bits) and np.array_equal(frame.refs.numpy(), refs)
+    assert frame.bits.shape == frame.refs.shape == (1, 4 * ty * tx)
+    assert np.array_equal(frame.bits[0].numpy(), bits)
+    assert np.array_equal(frame.refs[0].numpy(), refs)
+    assert (frame.bases.tolist(), frame.lengths.tolist()) == ([0], [frame.words.numel()])
     # Upload buffer: payload + >= 128 zero bytes, 16-byte multiple.
     raw = frame.words.numpy().view(np.uint8)
     assert frame.words.dtype == torch.int32
