@@ -11,16 +11,18 @@ one, ``kernels/build.py::use_checked``):
 - :data:`NEGATIVE`: for each kernel and each kind of access it makes
   (global load, ``cp.async``, store, shared index; develop's host reads of
   its parameters and tensor map, and the reach of that map, whose TMA
-  copies are the develop's ``cp.async``; its per-frame launch's loads of
-  each frame's row and CFA; the block offsets' memset of
+  copies are the develop's ``cp.async``, as the modern unpack's bulk
+  copies of its runs' spans are its; the stage arrays of the modern
+  unpack's ring; the develop's per-frame launch's loads of each frame's
+  row and CFA; the block offsets' memset of
   their status scratch, a store from the host), a clean launch with one
   buffer's checked extent understated (``build.understate``), which must
   fault on that buffer and count a fault of that kind;
 - :data:`WINDOWS`: a batch of each codec with one frame's offsets shuffled
   and pointed past its own end, which must read nothing outside its own
   window, and the same batch with every frame's checked window cut short
-  by some bytes, whose reads there must be counted as cross-frame reads
-  and not faulted.
+  by some bytes, whose reads there (the modern unpack's: its bulk copies'
+  windows) must be counted as cross-frame reads and not faulted.
 
 One JSON line on stdout; exit 1 if a clean launch faulted, a negative case
 did not fire on its buffer and kind, or a window count is off. Every input
@@ -65,8 +67,11 @@ OFFSETS_BLOCKS = 2 * O.TILE + 5  # two full tiles and a partial one
 # (kernel, kind, buffer, bytes off its checked extent): each fires on a
 # clean launch of :func:`_inputs`' frame of that kernel. None: the cut
 # :func:`_inputs` computes from the frame (the modern words end where the
-# last block's 16-byte chunk starts: past the block data come the metadata
-# streams and the tail, which the kernel never reads; develop's params keep
+# last block's 16-byte chunk starts, so the last run's bulk copy reaches
+# past them: past the block data come the metadata streams and the tail,
+# which the kernel never reads; the modern ring's stage arrays, s_words to
+# s_head, cut by more than their size, fault at every copy into them and
+# every read of them; develop's params keep
 # 64 bytes, below the 17 floats its entry reads). The checksum's out, cut
 # to 3 bytes, fails both its host memset and its kernel's atomic add. The
 # block offsets' status scratch, cut by one word, fails the entry's memset
@@ -84,6 +89,11 @@ NEGATIVE = (
     ("unpack_modern", "cp.async", "words", None),
     ("unpack_modern", "store", "out", 2),
     ("unpack_modern", "shared", "s_desc", 16),
+    ("unpack_modern", "shared", "s_words", 1 << 20),
+    ("unpack_modern", "shared", "s_off", 1 << 20),
+    ("unpack_modern", "shared", "s_cls", 1 << 20),
+    ("unpack_modern", "shared", "s_ref", 1 << 20),
+    ("unpack_modern", "shared", "s_head", 1 << 20),
     ("unpack_legacy", "load", "bits", 4),
     ("unpack_legacy", "cp.async", "payload", 64),
     ("unpack_legacy", "store", "out", 2),

@@ -9,11 +9,16 @@ card.
 OLD_CSRC is a directory with an earlier ``mcraw_torch/csrc`` (for example
 unpacked from ``git archive <commit> mcraw_torch/csrc`` into a git-ignored
 directory) whose entry points keep today's signatures (those of commit
-f00dff1 and later, which have the unpacks' batch entries). A variant is a
+f00dff1 and later, which have the unpacks' batch entries; the modern
+unpack's takes its grid since its kernel is persistent, and an older
+one's is called without). A variant is a
 full copy of today's ``csrc`` with an edit (same entry points), for a
 diagnostic or a candidate. Every library is built with the same flags.
 Each kernel is timed at a 4096x3072 12-bit frame (the unpacks and the
-device prep as the batch of one), the develop also at the grade step's
+device prep as the batch of one), the modern unpack also at the grade
+step's batch of 8 and the decode step's of 16 distinct 3840x2160 frames
+(its ``unpack.modern.runs`` / ``runs_ahead`` counters beside), the develop
+also at the grade step's
 batch of 8 3840x2160 frames (and there with a row and a CFA for each
 frame, beside the one-row launch of the same frames, where a build has the
 per-frame entry) (CUDA-event median of n launches, the 50 MB L2 flushed before each
@@ -81,6 +86,9 @@ OFFSETS_FRAMES = (1, 8)  # the device prep's cases: one frame, the grade step's 
 # The develop's cases (frames, height, width): a 4096x3072 frame, and the
 # grade step's batch of 8 BT.2020 UHD frames (gpubench's grade cells).
 DEVELOP_SHAPES = ((1, H, W), (8, 2160, 3840))
+# The modern unpack's cases (frames, height, width): a 4096x3072 frame,
+# the grade step's batch of 8 UHD frames and the decode step's of 16.
+UNPACK_SHAPES = ((1, H, W), (8, 2160, 3840), (16, 2160, 3840))
 
 
 def emit(**kw) -> None:
@@ -189,37 +197,71 @@ def offsets_bytes(frames: int, nblk: int) -> int:
     return frames * nblk * (2 + 8)
 
 
-def ab_unpack_modern(libs: dict, dev, n: int) -> None:
+def unpack_grid(lib, frames: int, tiles: int) -> tuple:
+    """The grid argument of `lib`'s modern unpack entry for a launch, as
+    the wrapper computes it (unpack.modern_grid from the library's own
+    resident blocks); none for a csrc older than the persistent kernel."""
+    if not hasattr(lib, "mcraw_unpack_modern_resident"):
+        return ()
+    resident = lib.mcraw_unpack_modern_resident()
+    build.check(max(-resident, 0), "mcraw_unpack_modern_resident")
+    return (U.modern_grid(frames, tiles, resident).grid,)
+
+
+def modern_payloads(frames: int, h: int, w: int) -> list:
+    """`frames` distinct 12-bit frames (twelve_bit, frame k's own field),
+    each encode_modern's payload: payloads of different sizes."""
     rng = np.random.default_rng(21)
-    payload = np.frombuffer(E.encode_modern(twelve_bit(rng, 0)), np.uint8)
-    frame = U.stage_modern(Staging(dev), payload, W, H)  # the batch of one
+    return [np.frombuffer(E.encode_modern(twelve_bit(rng, k, h, w)), np.uint8)
+            for k in range(frames)]
+
+
+def ab_unpack_modern(libs: dict, dev, n: int) -> None:
+    """The modern unpack at a 4096x3072 frame (the batch of one) and at the
+    cells' steps (UNPACK_SHAPES): each build's output held to the plain
+    version's; bytes as gpubench/roofline.py counts them (payload, bits
+    and refs in, plane out) plus the int64 offsets the kernel reads."""
     tab = modern_tables(dev)
-    offs = U.block_offsets(frame.bits, tab)
-    args = (frame.words, frame.bases, frame.lengths, frame.bits, frame.refs, offs)
-    kw = dict(ty=frame.tiles_y, tx=frame.tiles_x, height=H, width=W)
-    nblk = frame.bits.numel()
-    outs = {k: torch.empty((1, H, W), dtype=torch.uint16, device=dev) for k in libs}
+    encoded = {}
+    for frames, h, w in UNPACK_SHAPES:
+        if (h, w) not in encoded:
+            most = max(f for f, hh, ww in UNPACK_SHAPES if (hh, ww) == (h, w))
+            encoded[h, w] = modern_payloads(most, h, w)
+        payloads = encoded[h, w][:frames]
+        batch = U.stage_modern_batch(Staging(dev), payloads, w, h)
+        offs = U.block_offsets(batch.bits, tab)
+        args = (batch.words, batch.bases, batch.lengths, batch.bits, batch.refs, offs)
+        kw = dict(ty=batch.tiles_y, tx=batch.tiles_x, height=h, width=w)
+        nblk = batch.bits.shape[1]
+        launch = U.unpack_launch(batch.tiles_y, batch.tiles_x, h, w)
+        outs = {k: torch.empty((frames, h, w), dtype=torch.uint16, device=dev) for k in libs}
 
-    def call(name):
-        def run():
-            build.check(libs[name].mcraw_unpack_modern_batch(
-                frame.words.data_ptr(), frame.words.numel(), frame.bases.data_ptr(),
-                frame.lengths.data_ptr(), 1, nblk, frame.bits.data_ptr(),
-                frame.refs.data_ptr(), offs.data_ptr(), tab.quads.data_ptr(),
-                tab.class_index.data_ptr(), outs[name].data_ptr(), H * W, frame.tiles_x,
-                frame.tiles_y * frame.tiles_x, H, W, stream()),
-                f"{name} mcraw_unpack_modern_batch")
-        return run
+        def call(name):
+            grid = unpack_grid(libs[name], frames, launch.tiles)
 
-    fns = in_turns(libs, call, lambda: U.decode_modern_batch_device(*args, **kw))
-    results = {k: f() for k, f in fns.items()}
-    want = U.decode_modern_batch_plain(*args, **kw).to(torch.int32)
-    torch.cuda.synchronize()
-    got = {k: results["new"] if k == "new" else outs[k] for k in fns}
-    moved = len(payload) + nblk * (2 + 2 + 8) + 2 * H * W
-    turns("unpack_modern", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
-          frame=f"{W}x{H} 12-bit", bytes=moved,
-          exact={k: bool(torch.equal(v.to(torch.int32), want)) for k, v in got.items()})
+            def run():
+                build.check(libs[name].mcraw_unpack_modern_batch(
+                    batch.words.data_ptr(), batch.words.numel(), batch.bases.data_ptr(),
+                    batch.lengths.data_ptr(), frames, nblk, batch.bits.data_ptr(),
+                    batch.refs.data_ptr(), offs.data_ptr(), tab.quads.data_ptr(),
+                    tab.class_index.data_ptr(), outs[name].data_ptr(), h * w, batch.tiles_x,
+                    launch.tiles, launch.rows, w, *grid, stream()),
+                    f"{name} mcraw_unpack_modern_batch")
+            return run
+
+        fns = in_turns(libs, call, lambda: U.decode_modern_batch_device(*args, **kw))
+        with observe.tracing() as record:
+            results = {k: f() for k, f in fns.items()}
+        want = U.decode_modern_batch_plain(*args, **kw).to(torch.int32)
+        torch.cuda.synchronize()
+        got = {k: results["new"] if k == "new" else outs[k] for k in fns}
+        moved = sum(map(len, payloads)) + frames * (nblk * (2 + 2 + 8) + 2 * h * w)
+        turns("unpack_modern", fns, n, moved / PEAK_BYTES_PER_S * 1e3,
+              frame=f"{frames}x{w}x{h} 12-bit", frames=frames, bytes=moved,
+              payload_bytes=[len(p) for p in payloads],
+              counters={k: v for k, v in record.counters.items() if k.startswith("unpack.")},
+              exact={k: bool(torch.equal(v.to(torch.int32), want)) for k, v in got.items()})
+        del outs, results, got, want, batch, offs, args
 
 
 def quantizer_for(csrc: Path, dev) -> torch.Tensor:

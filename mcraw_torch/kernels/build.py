@@ -17,8 +17,9 @@ The checked build (``csrc/checked.cuh``) is the same sources compiled with
 one more define, ``-DMCRAW_CHECKED``, into
 ``libmcraw_torch_checked_<digest>.so``: every global load and store,
 ``cp.async``, TMA destination and shared-memory index of the five kernels
-is held to the extent of its buffer, as is the reach of the develop
-ring's tensor map, and a batch frame's reads outside its own window are
+is held to the extent of its buffer, as are the reach of the develop
+ring's tensor map and the source of each of the modern unpack's bulk
+copies (a ``cp.async``), and a batch frame's reads outside its own window are
 counted. A process asks for it in code, before its first launch, with
 :func:`use_checked` (it needs a card; nothing selects it otherwise, and
 there is no fallback). There each :func:`launch` waits for its kernel,
@@ -151,9 +152,16 @@ def load(path: Path, checked: bool = False) -> ctypes.CDLL:
     build's entries take one more pointer, to a :class:`CheckArgs`."""
     cdll = ctypes.CDLL(str(path))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    # The modern unpack's persistent grid is an argument of its entry
+    # (python -m mcraw_torch.kernel_ab may load a csrc older than it).
+    persistent = hasattr(cdll, "mcraw_unpack_modern_resident")
+    if persistent:
+        cdll.mcraw_unpack_modern_resident.restype = i64
+        cdll.mcraw_unpack_modern_resident.argtypes = []
     entries = {
         "mcraw_unpack_modern_batch": [
-            p, i64, p, p, i64, i64, p, p, p, p, p, p, i64, i64, i64, i64, i64, p],
+            p, i64, p, p, i64, i64, p, p, p, p, p, p, i64, i64, i64, i64, i64,
+            *([i64] if persistent else []), p],
         "mcraw_unpack_legacy_batch": [p, i64, p, p, i64, p, p, p, p, i64, i64, i64, p],
         "mcraw_checksum": [p, i64, i32, p, p],
         "mcraw_develop": [p, p, i64, i64, i64, p, p, p, i32, p],
@@ -246,7 +254,8 @@ ENTRIES = {
 }
 BUFFERS = {
     "unpack_modern": ("words", "bits", "refs", "offsets", "desc", "class_index", "out",
-                      "bases", "lengths", "s_desc", "s_words", "s_off", "s_cls", "s_ref"),
+                      "bases", "lengths", "s_desc", "s_words", "s_off", "s_cls", "s_ref",
+                      "s_head"),
     "unpack_legacy": ("payload", "bits", "refs", "offsets", "out", "bases", "lengths",
                       "s_span", "s_off", "s_cls", "s_ref"),
     "develop": ("raw", "out", "quantizer", "params", "cfa", "s_tile", "s_q", "map", "s_ring",

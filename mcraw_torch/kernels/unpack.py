@@ -56,6 +56,10 @@ TAIL_BYTES = T.MODERN_MAX_LENGTH
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
+# csrc/unpack_modern.cu kRunTiles: the consecutive tiles of a run, the
+# unit a block of the kernel stages and unpacks.
+RUN_TILES = 32
+
 
 class ModernScan(NamedTuple):
     """The header checks' and metadata scans' result for one payload."""
@@ -212,6 +216,42 @@ def unpack_launch(ty: int, tx: int, height: int, width: int) -> UnpackLaunch:
     return UnpackLaunch(rows, -(-rows // 4) * tx if rows > 0 and width > 0 else 0)
 
 
+class ModernGrid(NamedTuple):
+    """A launch's persistent grid (csrc/unpack_modern.cu)."""
+
+    runs: int  # frames x the runs of RUN_TILES tiles a frame
+    grid: int  # blocks: min(runs, the blocks the card holds at once)
+    ahead: int  # runs whose loads a block issues while it is on an earlier run
+
+
+def modern_grid(frames: int, tiles: int, resident: int) -> ModernGrid:
+    """The grid of a launch of `frames` frames of `tiles` tiles on a card
+    that holds `resident` blocks of the kernel at once: one block a run
+    where every run fits, else each block walks runs ``grid`` apart and
+    loads each run after its first while it unpacks the one before."""
+    if resident < 1:
+        raise ValueError(f"the card holds no block of the unpack kernel ({resident})")
+    runs = frames * -(-tiles // RUN_TILES)
+    grid = min(runs, resident)
+    return ModernGrid(runs, grid, runs - grid)
+
+
+# Device index -> mcraw_unpack_modern_resident there, once a process.
+_RESIDENT: dict[int, int] = {}
+
+
+def _resident(device: torch.device) -> int:
+    """The blocks of the kernel `device` holds at once; call it with
+    `device` current."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    n = _RESIDENT.get(index)
+    if n is None:
+        n = build.lib().mcraw_unpack_modern_resident()
+        build.check(max(-n, 0), "mcraw_unpack_modern_resident")
+        _RESIDENT[index] = n
+    return n
+
+
 def _output(height: int, width: int, ty: int, device, frames: int):
     # Rows past 4*ty (a short encodedHeight) are never written: zero them.
     alloc = torch.zeros if height > 4 * ty else torch.empty
@@ -300,7 +340,10 @@ def decode_modern_batch_device(
     words: (P,) int32, every frame's payload slot; bases, lengths: (F,)
     int64 words, frame f's slot; bits, refs: (F, 4*ty*tx) uint16; offsets:
     (F, 4*ty*tx) int64 frame-local, from :func:`block_offsets`. CUDA tensors
-    launch the kernel once on the current stream; CPU tensors take
+    launch the kernel once on the current stream, its grid from
+    :func:`modern_grid` (counters ``unpack.modern.runs`` and
+    ``unpack.modern.runs_ahead``: the share of runs whose loads overlapped
+    an earlier run's unpack); CPU tensors take
     :func:`decode_modern_batch_plain`; any other device raises."""
     global KERNEL_LAUNCHES
     if words.device.type == "cpu":
@@ -319,6 +362,7 @@ def decode_modern_batch_device(
     if launch.tiles == 0 or frames == 0:
         return out
     with torch.cuda.device(words.device):
+        grid = modern_grid(frames, launch.tiles, _resident(words.device))
         stream = torch.cuda.current_stream().cuda_stream
         build.launch(
             "mcraw_unpack_modern_batch",
@@ -326,8 +370,10 @@ def decode_modern_batch_device(
             words.data_ptr(), words.numel(), bases.data_ptr(), lengths.data_ptr(),
             frames, 4 * ty * tx, bits.data_ptr(), refs.data_ptr(), offsets.data_ptr(),
             tab.quads.data_ptr(), tab.class_index.data_ptr(), out.data_ptr(),
-            height * width, tx, launch.tiles, launch.rows, width, stream,
+            height * width, tx, launch.tiles, launch.rows, width, grid.grid, stream,
         )
+    observe.count("unpack.modern.runs", grid.runs)
+    observe.count("unpack.modern.runs_ahead", grid.ahead)
     with build.COUNTER_LOCK:
         KERNEL_LAUNCHES += 1
     return out

@@ -757,6 +757,74 @@ def test_unpack_batch_kernel_equals_single_calls_and_plain(cuda, ty, tx, height,
         assert torch.equal(got[f].to(torch.int32), single.to(torch.int32)), f
 
 
+def test_unpack_persistent_blocks_walk_across_frames(cuda):
+    """A batch with more runs than the card holds blocks, so each block
+    walks runs of several frames: frames of unequal payload length, two
+    runs with a malformed offset between good ones (the per-word path), a
+    frame 4 bytes off 16-byte alignment and one cut inside its last block
+    (their spans copied by cp.async, not by bulk copy), a short
+    encodedHeight and a width not a multiple of 8; equal to the plain
+    version bit for bit."""
+    from mcraw_torch import observe
+
+    ty, tx, height, width = 30, 33, 126, 64 * 33 - 3  # 31 runs a frame, the last partial
+    runs = -(-ty * tx // U.RUN_TILES)
+    with torch.cuda.device(cuda):
+        resident = U._resident(cuda)
+    frames = -(-5 * resident // (2 * runs))
+    contents = [("random", "per_tile", "all16")[f % 3] for f in range(frames)]
+    rng = np.random.default_rng(23)
+    _, (words, bases, lengths, bits, refs, offs) = modern_batch_inputs(rng, contents, ty, tx,
+                                                                        cuda)
+    w, b, n = (t.cpu().numpy().copy() for t in (words, bases, lengths))
+    assert len(set(n.tolist())) > 1
+    # Frame 2 one word past its 16-byte slot, frame 3 and on back in theirs.
+    pad = [np.zeros(k, w.dtype) for k in (1, 3)]
+    w = np.concatenate([w[:b[2]], pad[0], w[b[2]:b[3]], pad[1], w[b[3]:]])
+    b[2] += 1
+    b[3:] += 4
+    n[3] = (int(offs[3, -1]) + 16) // 4  # ends inside its last block
+    words, bases, lengths = (torch.from_numpy(a).to(cuda) for a in (w, b, n))
+    offs[1, 5 * 128 + 17] += 4  # not 8-byte aligned: run 5 of frame 1 by word
+    offs[frames - 2, 9 * 128 + 40] = 4 * int(n[frames - 2]) + 64  # past its end
+    batch = (words, bases, lengths, bits, refs, offs)
+    kw = dict(ty=ty, tx=tx, height=height, width=width)
+    with observe.tracing() as record:
+        got = U.decode_modern_batch_device(*batch, **kw)
+    torch.cuda.synchronize()
+    assert record.counters["unpack.modern.runs"] == frames * runs > 2 * resident
+    assert record.counters["unpack.modern.runs_ahead"] == frames * runs - resident
+    plain = U.decode_modern_batch_plain(*batch, **kw)
+    assert torch.equal(got.to(torch.int32), plain.to(torch.int32))
+    assert not got[:, 4 * ty:].to(torch.int32).any()
+
+
+@pytest.mark.parametrize("frames", [8, 16])
+def test_unpack_counts_the_runs_loaded_ahead(cuda, frames):
+    """unpack.modern.runs_ahead / runs: above 0.9 for a UHD batch of 8 or
+    16 (equal to the plain version), 0 for a frame of one run."""
+    from mcraw_torch import observe
+
+    rng = np.random.default_rng(frames)
+    ty, tx = 540, 60
+    _, batch = modern_batch_inputs(rng, ("random", "per_tile") * (frames // 2), ty, tx, cuda)
+    kw = dict(ty=ty, tx=tx, height=2160, width=3840)
+    with observe.tracing() as record:
+        got = U.decode_modern_batch_device(*batch, **kw)
+    torch.cuda.synchronize()
+    runs, ahead = (record.counters[f"unpack.modern.{k}"] for k in ("runs", "runs_ahead"))
+    assert runs == frames * -(-ty * tx // U.RUN_TILES) and ahead / runs > 0.9
+    plain = U.decode_modern_batch_plain(*batch, **kw)
+    assert torch.equal(got.to(torch.int32), plain.to(torch.int32))
+    small = edge_unpack_inputs(rng, 2, 4, "random", cuda)
+    with observe.tracing() as record:
+        one = U.decode_modern_device(*small, ty=2, tx=4, height=8, width=256)
+    assert (record.counters["unpack.modern.runs"], record.counters["unpack.modern.runs_ahead"]
+            ) == (1, 0)
+    want = U.decode_modern_plain(*small, ty=2, tx=4, height=8, width=256)
+    assert torch.equal(one.to(torch.int32), want.to(torch.int32))
+
+
 def legacy_batch_inputs(rng, height, width, contents, device):
     frames = [legacy_inputs(rng, height, width, c) for c in contents]
     slots = [np.concatenate([p, np.zeros((-len(p)) % 16, np.uint8)]) for p, *_ in frames]

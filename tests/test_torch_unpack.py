@@ -312,6 +312,56 @@ def test_run_span_fits_the_staging_buffer():
             assert span <= nblk * 128 + 32
 
 
+def _kernel_constant(name: str) -> int:
+    """An integer constant of csrc/unpack_modern.cu."""
+    import re
+    from pathlib import Path
+
+    text = (Path(U.__file__).resolve().parents[1] / "csrc" / "unpack_modern.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_run_tiles_are_the_kernels():
+    assert U.RUN_TILES == _kernel_constant("kRunTiles") == RUN_TILES
+
+
+@pytest.mark.parametrize(
+    "frames, tiles, resident, want",
+    [
+        (1, 8, 660, (1, 1, 0)),  # a small frame: its one run, nothing ahead
+        (1, 16 * 16, 660, (8, 8, 0)),  # every run in one wave
+        (1, 768 * 64, 660, (1536, 660, 876)),  # 4096x3072, the batch of one
+        (8, 540 * 60, 660, (8104, 660, 7444)),  # the grade step's UHD batch
+        (16, 540 * 60, 660, (16208, 660, 15548)),  # the decode step's
+        (3, 33, 4, (6, 4, 2)),  # a partial run a frame; blocks cross frames
+        (2, 64, 4, (4, 4, 0)),
+        (5, 1, 1, (5, 1, 4)),  # one block walks every frame
+    ],
+)
+def test_modern_grid(frames, tiles, resident, want):
+    """The persistent grid: min(runs, resident) blocks; every run after a
+    block's first is loaded while the block is on an earlier one."""
+    got = U.modern_grid(frames, tiles, resident)
+    assert tuple(got) == want
+    assert got.runs == got.grid + got.ahead
+
+
+def test_modern_grid_needs_a_resident_block():
+    with pytest.raises(ValueError, match="holds no block"):
+        U.modern_grid(1, 8, 0)
+
+
+@pytest.mark.parametrize("frames", [8, 16])
+def test_runs_ahead_share_at_the_cells_shapes(frames):
+    """On an H100 (132 SMs) at the kernel's blocks an SM, a UHD batch of 8
+    or 16 loads more than 90 % of its runs ahead; a frame whose runs fit
+    in one wave loads none ahead."""
+    resident = 132 * _kernel_constant("kBlocksPerSm")
+    uhd = U.modern_grid(frames, 540 * 60, resident)
+    assert uhd.ahead / uhd.runs > 0.9
+    assert U.modern_grid(1, 8, resident).ahead == 0
+
+
 def _quad_values(words: np.ndarray, cls: int, quads: np.ndarray) -> np.ndarray:
     """The kernel's block_values over all 64 values of one block, in NumPy:
     the straight copy for the 16-bit class, else one descriptor row per
